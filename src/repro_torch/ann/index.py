@@ -1,0 +1,100 @@
+"""`Index` — the public handle of the port (the reference's
+``repro.ann.Index``, build and search)::
+
+    from repro_torch.ann import Index
+
+    index = Index.build(X, cfg)              # knn -> diversify -> bridges
+    ids, dists = index.search(Q)             # automatic regime dispatch
+
+Everything runs on the CUDA device unless ``device="cpu"`` is passed.
+"""
+from __future__ import annotations
+
+from repro_torch.ann.pipeline import build_graph
+from repro_torch.configs.base import ANNConfig
+from repro_torch.device import resolve_device
+from repro_torch.serve.engine import ANNEngine
+
+
+class Index:
+    """A built TSDG index plus its serving engine.
+
+    ``graph=`` takes a prebuilt :class:`~repro_torch.core.diversify.
+    PackedGraph` (on the index's device) and skips the pipeline.  After a
+    build, ``build_seconds`` holds each stage's wall seconds."""
+
+    def __init__(self, X, cfg: ANNConfig | None = None, *, k: int = 10,
+                 graph=None, stages=None, tile: int = 2048, device=None):
+        cfg = cfg or ANNConfig()
+        device = resolve_device(device)
+        self.build_seconds: dict = {}
+        if graph is None:
+            graph = build_graph(X, cfg, stages=stages, tile=tile,
+                                device=device, timings=self.build_seconds)
+        elif stages is not None:
+            raise ValueError("stages= only applies when the pipeline runs "
+                             "(not with graph=)")
+        self.engine = ANNEngine(X, cfg, k=k, graph=graph, device=device)
+
+    @classmethod
+    def build(cls, X, cfg: ANNConfig | None = None, *, k: int = 10,
+              stages=None, tile: int = 2048, device=None) -> "Index":
+        """Run the staged build pipeline (``cfg.build_pipeline``) on
+        ``device`` and wrap the result in an `Index`."""
+        return cls(X, cfg, k=k, stages=stages, tile=tile, device=device)
+
+    @classmethod
+    def from_numpy(cls, X, graph_arrays, cfg: ANNConfig | None = None, *,
+                   k: int = 10, device=None) -> "Index":
+        """An index over a graph built elsewhere: ``graph_arrays`` maps the
+        fields of a ``PackedGraph`` (``neighbors``, ``lambdas``,
+        ``degrees``, optional ``hubs``) to numpy arrays — e.g. those of the
+        JAX package's graph (:func:`repro_torch.ann.convert.graph_from_numpy`)."""
+        from repro_torch.ann.convert import graph_from_numpy
+
+        device = resolve_device(device)
+        return cls(X, cfg, k=k, device=device,
+                   graph=graph_from_numpy(**graph_arrays, device=device))
+
+    def search(self, Q, *, k: int | None = None):
+        """Answer one batch: (ids [B, k], dists [B, k]) numpy arrays."""
+        return self.engine.query(Q, k=k)
+
+    def regime(self, batch: int) -> str:
+        """Which procedure a batch of this size takes ("small"/"large")."""
+        return self.engine.regime(batch)
+
+    @property
+    def X(self):
+        return self.engine.X
+
+    @property
+    def graph(self):
+        return self.engine.graph
+
+    @property
+    def cfg(self) -> ANNConfig:
+        return self.engine.cfg
+
+    @property
+    def k(self) -> int:
+        return self.engine.k
+
+    @property
+    def stats(self):
+        return self.engine.stats
+
+    @property
+    def backend(self) -> str:
+        return self.engine.backend
+
+    @property
+    def device(self):
+        return self.engine.device
+
+    def __repr__(self) -> str:
+        g = self.graph
+        return (f"Index(n={g.n}, d={self.X.shape[1]}, "
+                f"max_degree={g.max_degree}, metric={self.cfg.metric!r}, "
+                f"backend={self.backend!r}, device={str(self.device)!r}, "
+                f"k={self.k})")

@@ -1,0 +1,137 @@
+"""ANN configuration and shape specs for the PyTorch port.
+
+``ANNConfig`` carries every field and default of the JAX reference's
+config, so one set of knobs describes an index in either package.  Two
+differences:
+
+* ``kernel_backend`` takes ``"auto" | "cuda" | "torch"``: ``"auto"``
+  resolves per call to ``"cuda"`` for CUDA tensors and ``"torch"`` for CPU
+  tensors, ``"cuda"`` on a CPU tensor raises, and ``"torch"`` opts into the
+  plain PyTorch path on any device (the parity comparisons use it).
+* Knobs whose feature the port does not have yet raise
+  ``NotImplementedError`` naming the ROADMAP item that adds it.
+  ``gather_fused`` is accepted for parity and changes nothing (the CUDA
+  distance kernel always gathers rows in-kernel); ``unroll_scans`` is a
+  no-op (PyTorch runs every loop eagerly).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # build | search
+    dims: dict
+
+
+# The paper's own system at SIFT1M scale (the reference's ANN_SHAPES).
+ANN_SHAPES = {
+    "build_1m": ShapeSpec("build_1m", "build", dict(n=1_048_576, d=128, k=32)),
+    "search_small": ShapeSpec("search_small", "search",
+                              dict(n=1_048_576, d=128, batch=10, t0=64)),
+    "search_large": ShapeSpec("search_large", "search",
+                              dict(n=1_048_576, d=128, batch=10240, t0=1)),
+    "search_xlarge": ShapeSpec("search_xlarge", "search",
+                               dict(n=16_777_216, d=96, batch=65536, t0=1)),
+}
+
+KERNEL_BACKENDS = ("auto", "cuda", "torch")
+
+
+def _later(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not in the PyTorch port yet (ROADMAP.md {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ANNConfig:
+    """The paper's system (TSDG index + search)."""
+
+    name: str = "tsdg"
+    metric: str = "l2"        # l2 | ip | cos
+    k_graph: int = 32         # k-NN graph degree fed to diversification
+    alpha: float = 1.2        # stage-1 relaxation (Eq. 2)
+    lambda0: int = 8          # stage-2 occlusion-factor threshold
+    max_degree: int = 32      # packed adjacency width M
+    # search defaults (paper §4)
+    n_seeds: int = 32
+    hop_width: int = 32       # neighbors visited per hop (warp analogue)
+    small_t0: int = 64        # independent greedy searches per query
+    small_hops: int = 6
+    large_ef: int = 64        # R size for large-batch search
+    large_hops: int = 128
+    large_n_seeds: int = 128
+    delta: float = 0.0
+    queue_segments: int = 8   # m segments for C and V
+    segment_size: int = 32
+    visited_segments: int = 8
+    small_batch_threshold: int = 256  # regime split (paper's a*SMs+b / d)
+    regime_calibration: str = "static"
+    faithful_rtemp: bool = True  # lane-paired R_temp update (paper Alg.1)
+    kernel_backend: str = "auto"
+    gather_fused: str = "auto"
+    build_pipeline: tuple = ("knn", "diversify", "bridges")
+    # beyond-paper connectivity augmentation (0 = paper-faithful off)
+    bridge_hubs: int = 256
+    bridge_k: int = 8
+    unroll_scans: bool = False
+    db_bf16: bool = False
+    # gather only the first `gather_limit` λ-sorted columns of each row
+    gather_limit: int = 0
+    # exact per-query visited byte-table replacing the lossy circular V
+    exact_visited: bool = False
+    # --- serving engine ---
+    serve_buckets: tuple = (8, 32, 128, 512, 2048)
+    queue_max_wait_ms: float = 2.0
+    queue_max_batch: int = 512
+    delta_min_cap: int = 256
+    quantization: str = "none"
+    rerank_mult: int = 4
+    visited_filter: str = "none"
+    family: str = "ann"
+
+    def __post_init__(self):
+        if self.metric not in ("l2", "ip", "cos"):
+            raise ValueError(
+                f"metric={self.metric!r} must be one of 'l2', 'ip', 'cos'")
+        if self.gather_fused not in ("auto", "on", "off"):
+            raise ValueError(
+                f"gather_fused={self.gather_fused!r} must be 'auto', "
+                "'on', or 'off'")
+        if self.regime_calibration not in ("static", "probe"):
+            raise ValueError(
+                f"regime_calibration={self.regime_calibration!r} must be "
+                "'static' or 'probe'")
+        if self.delta_min_cap < 1:
+            raise ValueError(
+                f"delta_min_cap={self.delta_min_cap} must be >= 1")
+        if self.quantization not in ("none", "int8"):
+            raise ValueError(
+                f"quantization={self.quantization!r} must be 'none' or "
+                "'int8'")
+        if self.rerank_mult < 1:
+            raise ValueError(
+                f"rerank_mult={self.rerank_mult} must be >= 1")
+        if self.visited_filter not in ("none", "hash"):
+            raise ValueError(
+                f"visited_filter={self.visited_filter!r} must be 'none' "
+                "or 'hash'")
+        if self.visited_filter == "hash" and self.exact_visited:
+            raise ValueError(
+                "visited_filter='hash' replaces the visited structures; "
+                "it cannot combine with exact_visited=True")
+        if self.kernel_backend not in KERNEL_BACKENDS:
+            raise ValueError(
+                f"kernel_backend={self.kernel_backend!r} must be one of "
+                f"{KERNEL_BACKENDS}")
+        if self.quantization == "int8":
+            raise _later("quantization='int8'", "queue A item 9")
+        if self.db_bf16:
+            raise _later("db_bf16=True", "queue A item 9")
+        if "layout" in self.build_pipeline:
+            raise _later("the 'layout' build stage", "queue A item 11")
+        if self.regime_calibration == "probe":
+            raise _later("regime_calibration='probe'",
+                         "queue A item 7 (calibrate)")

@@ -1,0 +1,73 @@
+"""(dist, id) rank merge: CUDA kernel wrapper + its plain version.
+
+Replaces the reference's ``kernels/topk.py::rank_merge_pallas``.  The
+kernel is ``csrc/topk.cu`` (one CTA per row, bitonic network in shared
+memory, ids carried); its header note gives the bound and the design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+INF = 3.4e38
+PAD_ID = 2 ** 31 - 1
+
+
+def rank_merge_plain(dists, ids, mask=None, *, keep: int):
+    """Row-wise ascending (dist, id) order, ids carried; the first ``keep``
+    lanes (plain PyTorch, any device).  Two stable sorts stand for the
+    reference's ``lexsort((ids, dists))``; the dist key maps -0.0 to +0.0
+    as lexsort's comparator does, while the returned dists are the inputs'
+    own values."""
+    if not 0 < keep <= dists.shape[1]:
+        raise ValueError(f"keep={keep} must be in (0, {dists.shape[1]}]")
+    if mask is not None:
+        dists = torch.where(mask, dists, torch.full_like(dists, INF))
+    o1 = torch.argsort(ids, dim=1, stable=True)
+    key = torch.where(dists == 0, torch.zeros_like(dists), dists)
+    o2 = torch.argsort(key.gather(1, o1), dim=1, stable=True)
+    order = o1.gather(1, o2)[:, :keep]
+    return dists.gather(1, order), ids.gather(1, order)
+
+
+def rank_merge(dists, ids, mask=None, *, keep: int):
+    """dists [R, W] float32, ids [R, W] int32, mask [R, W] bool or None ->
+    (dists [R, keep], ids [R, keep]).  CPU tensors take
+    :func:`rank_merge_plain`; CUDA tensors launch the kernel."""
+    if dists.device.type == "cpu":
+        return rank_merge_plain(dists, ids, mask, keep=keep)
+    R, W = dists.shape
+    if not 0 < keep <= W:
+        raise ValueError(f"keep={keep} must be in (0, {W}]")
+    dev = dists.device
+    for t, name, dt in ((dists, "dists", torch.float32),
+                        (ids, "ids", torch.int32),
+                        (mask, "mask", torch.bool)):
+        if t is None:
+            continue
+        if t.dtype != dt or tuple(t.shape) != (R, W) or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: expected contiguous {dt} [{R}, {W}] on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    Wp = 1 << max(W - 1, 0).bit_length()
+    if Wp > 16384:
+        raise ValueError(f"width {W} exceeds the kernel's 16384 lanes")
+    od = torch.empty((R, keep), dtype=torch.float32, device=dev)
+    oi = torch.empty((R, keep), dtype=torch.int32, device=dev)
+    fn = _build.library("topk").repro_rank_merge
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_build.ptr(dists), _build.ptr(ids), _build.ptr(mask),
+             _build.ptr(od), _build.ptr(oi), R, W, Wp, keep,
+             _build.stream_of(dists))
+    _build.check(err, "rank_merge")
+    rank_merge.launches += 1
+    return od, oi
+
+
+rank_merge.launches = 0
