@@ -19,7 +19,10 @@ def resolve_device(device=None) -> torch.device:
                 "on the CPU explicitly")
         return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device} requested but CUDA is not "
-                           "available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={device} requested but CUDA is not "
+                               "available")
+        if device.index is None:  # "cuda" names the current device
+            device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -227,3 +227,16 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_resolve_device_names_the_current_cuda_device(monkeypatch):
+    """"cuda" without an index resolves to the current device's index, so
+    tensors placed with "cuda" and with "cuda:0" compare equal."""
+    from repro_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
