@@ -20,9 +20,23 @@ Phases, each printing its own lines:
    kernel's launch counter must have moved during phases 3-4;
 5. parity: the same graph and queries with ``kernel_backend="torch"`` —
    recall within 0.01 and ids equal on >= 98% of entries;
+7. int8 residency: ``quantization="int8"`` on phase 3's graph, B = 10 and
+   10240 in both visited modes, recall@10 beside phase 4's fp32 recall and
+   parity with the plain path as in phase 5;
+8. streaming on the fp32 index: 16,384 adds (``make_clustered``'s centres,
+   fresh noise), 1% of the base and 1,024 of the added ids deleted; B = 10
+   and 10240 searched and held to an on-card brute force over the
+   effective corpus and to the plain path; 1,024 added rows must find
+   themselves at rank 1; one B = 10240 search of an int8 index with the
+   same mutations, and one more after a 16,385th add doubles its delta to
+   32,768 slots (wider than one ``rank_merge`` launch: it merges in column
+   chunks); then ``compact()`` and a search of the new generation;
 6. a ``torch.profiler`` trace of one build and of each search: the
    device's busy share of the wall time and the costliest device ops;
    and the k-NN recall of ``nn_descent`` on 2000 sampled nodes.
+
+Phases 3-4, 7 and 8 each start with every launch counter at 0 and read
+the counters at their end; every kernel body must have launched in them.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -43,6 +57,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 ROUTE = "cuda"
+STREAM_ADDS = 16384           # phase 8's added rows (delta capacity 16384)
+STREAM_DELETED_ADDS = 1024    # ... of which deleted again
 
 
 def log(msg: str) -> None:
@@ -99,13 +115,15 @@ def card_name() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def check_gather(X, xn, name, S, Kq, C, self_q, gen):
+def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
+    """``quant`` = (codes, scales) checks the int8 body on X's codes."""
     import torch
 
     from repro_torch.kernels import l2dist
 
     dev = X.device
     N, d = X.shape
+    Xs, sc = (X, None) if quant is None else quant
     idx = torch.randint(0, N, (S, C), generator=gen, device=dev,
                         dtype=torch.int32)
     idx[torch.rand((S, C), generator=gen, device=dev) < 0.05] = N
@@ -115,15 +133,17 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen):
     rows = max(1, (1 << 31) // (C * d * 4))
 
     def kern():
-        return l2dist.gather_distances(Q, X, idx, mask, self_q=self_q)
+        return l2dist.gather_distances(Q, Xs, idx, mask, self_q=self_q,
+                                       scales=sc)
 
     def plain(lo=0, hi=S):
         return l2dist.gather_distances_plain(
-            None if self_q else Q[lo:hi], X, idx[lo:hi], mask[lo:hi],
-            self_q=self_q)
+            None if self_q else Q[lo:hi], Xs, idx[lo:hi], mask[lo:hi],
+            self_q=self_q, scales=sc)
 
     def library(lo=0, hi=S):
-        V = X[idx[lo:hi].long().clamp(0, N - 1)]
+        ic = idx[lo:hi].long().clamp(0, N - 1)
+        V = X[ic] if sc is None else Xs[ic].float() * sc[ic][:, :, None]
         Q3 = V if self_q else Q[lo:hi]
         return torch.bmm(Q3, V.transpose(1, 2))
 
@@ -148,15 +168,99 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen):
     lib_ms = cuda_ms(lambda: chunked(library, S, rows), max(1, it // 3))
     n_valid = int(valid.sum())
     kq = C if self_q else Kq
-    gathered = (S * C if self_q else n_valid) * d * 4
-    nbytes = gathered + (0 if self_q else S * Kq * d * 4) + S * C * 5 \
-        + S * kq * C * 4
-    flops = 2 * S * kq * C * d + 2 * S * C * d + (0 if self_q else
+    # self-query tiles read every row; the row kernel skips masked lanes
+    lanes = S * C if self_q else n_valid
+    row_bytes = d * 4 if sc is None else d + 4        # int8: codes + scale
+    nbytes = lanes * row_bytes + (0 if self_q else S * Kq * d * 4) \
+        + S * C * 5 + S * kq * C * 4
+    flops = 2 * lanes * kq * d + 2 * lanes * d + (0 if self_q else
                                                   2 * S * Kq * d)
     b_ms, b_by = bound(nbytes, flops)
     return dict(shape=name, S=S, Kq=kq, C=C, d=d, max_abs_err=float(
         err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=b_ms, bound_by=b_by)
+
+
+def check_block(name, S, Kq, C, d, quant, dev, gen):
+    """The tiled block kernel (fp32, or int8 with ``quant``) against its
+    plain version at a scan or general shape."""
+    import torch
+
+    from repro_torch.ann.quantize import quantize_rows
+    from repro_torch.kernels import block
+
+    Q = torch.randn((S, Kq, d), generator=gen, device=dev)
+    V = torch.randn((S * C, d), generator=gen, device=dev)
+    sc = None
+    if quant:
+        V, sc = quantize_rows(V)
+        sc = sc.reshape(S, C)
+    V = V.reshape(S, C, d)
+    mask = torch.rand((S, C), generator=gen, device=dev) < 0.9
+    Vf = V.double() if sc is None else V.double() * sc.double()[:, :, None]
+
+    def kern():
+        return block.block_distances(Q, V, mask, sc)
+
+    def plain():
+        return block.block_distances_plain(Q, V, mask, sc)
+
+    def gemm():
+        Vd = V if sc is None else V.float() * sc[:, :, None]
+        return torch.matmul(Q, Vd.transpose(1, 2))
+
+    def library():  # torch.matmul, TF32 off, + the epilogue in PyTorch
+        Vd = V if sc is None else V.float() * sc[:, :, None]
+        dots = torch.matmul(Q, Vd.transpose(1, 2))
+        qn = (Q * Q).sum(2)
+        vn = (Vd * Vd).sum(2)
+        return (qn[:, :, None] + vn[:, None, :] - 2.0 * dots).masked_fill_(
+            ~mask[:, None, :], 3.4e38)
+
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    tol = 1e-5 * ((Q.double() ** 2).sum(2)[:, :, None]
+                  + (Vf ** 2).sum(2)[:, None, :])
+    m3 = mask[:, None, :].expand_as(out)
+    err = torch.where(m3, (out.double() - ref.double()).abs(),
+                      torch.zeros_like(tol))
+    bad = int((err > tol).sum())
+    if bad or not torch.equal(out == 3.4e38, ~m3) \
+            or not torch.isfinite(out[m3]).all():
+        raise AssertionError(f"block_distances {name} (int8={quant}): "
+                             f"{bad} entries over 1e-5*(qn+vn)")
+    del ref
+    it = 3 if S * Kq * C > 1 << 26 else 20
+    ms = cuda_ms(kern, it)
+    plain_ms = cuda_ms(plain, max(1, it // 3))
+    lib_ms = cuda_ms(library, max(1, it // 3))
+    gemm_ms = cuda_ms(gemm, max(1, it // 3))
+    itemsize = 1 if quant else 4
+    nbytes = S * Kq * d * 4 + S * C * d * itemsize + S * C * (
+        5 if quant else 1) + S * Kq * C * 4
+    flops = 2 * S * Kq * C * d + 2 * S * (Kq + C) * d + (
+        S * C * d if quant else 0)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(shape=name, S=S, Kq=Kq, C=C, d=d, max_abs_err=float(
+        err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_gemm_only_ms=gemm_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def network_ops(W: int, keep: int) -> int:
+    """Compare-exchanges of one row's bitonic merge of W lanes; rows wider
+    than the kernel's MAX_LANES go through in column chunks, whose
+    survivors are merged again (``topk.merge_in_chunks``)."""
+    from repro_torch.kernels.topk import MAX_LANES
+
+    if W > MAX_LANES:
+        starts = range(0, W, MAX_LANES)
+        return sum(network_ops(min(MAX_LANES, W - c), keep)
+                   for c in starts) + network_ops(
+                       sum(min(keep, W - c) for c in starts), keep)
+    Wp = 1 << max(W - 1, 0).bit_length()
+    L = Wp.bit_length() - 1
+    return (Wp // 2) * L * (L + 1) // 2
 
 
 def check_rank_merge(name, R, W, keep, dev, gen):
@@ -191,10 +295,7 @@ def check_rank_merge(name, R, W, keep, dev, gen):
     plain_ms = cuda_ms(lambda: chunked(plain, R, rows), max(1, it // 3))
     lib_ms = cuda_ms(lambda: torch.sort(d, dim=1, stable=True),
                      max(1, it // 3))
-    Wp = 1 << max(W - 1, 0).bit_length()
-    L = Wp.bit_length() - 1
-    b_ms, b_by = bound(R * W * 9 + R * keep * 8, R * (Wp // 2) * L * (L + 1)
-                       // 2)
+    b_ms, b_by = bound(R * W * 9 + R * keep * 8, R * network_ops(W, keep))
     return dict(shape=name, R=R, W=W, keep=keep, max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
@@ -236,6 +337,185 @@ def check_visited(name, B, bound_ins, M, dev, gen):
 
 
 # --------------------------------------------------------------------------
+# phase 8: streaming mutability
+# --------------------------------------------------------------------------
+
+def stream_phase(ds, cfg, graph, n, d, n_queries, dev, counted,
+                 check_ids) -> dict:
+    """Adds, deletes, searches and a compaction on the fp32 index (plus one
+    search of an int8 index with the same mutations), each held to the
+    plain path and to a brute force over the effective corpus."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ann import Index
+    from repro_torch.data.synthetic import brute_force_gt, recall_at_k
+
+    n_add, n_del_add = STREAM_ADDS, STREAM_DELETED_ADDS
+    n_del_base = round(0.01 * n)
+    # make_clustered's rows: its 64 centres (seed 0), fresh noise
+    centers = np.random.default_rng(0).normal(size=(64, d)) \
+        .astype(np.float32)
+    rng = np.random.default_rng(12345)
+    V = (centers[rng.integers(0, 64, n_add)] + 0.15 * rng.normal(
+        size=(n_add, d)).astype(np.float32)).astype(np.float32)
+    rng = np.random.default_rng(54321)
+    del_base = rng.choice(n, n_del_base, replace=False)
+    del_add = n + rng.choice(n_add, n_del_add, replace=False)
+    dead = np.zeros(n + n_add, bool)
+    dead[del_base] = dead[del_add] = True
+    old_ids = np.flatnonzero(~dead)           # effective corpus -> old id
+    X_eff = np.concatenate([ds.X, V])[old_ids]
+    t0 = time.perf_counter()
+    gt_eff = brute_force_gt(X_eff, ds.Q, 10, cfg.metric, device=dev)
+    gt_old = old_ids[gt_eff]
+    out: dict = dict(n_add=n_add, n_del_base=n_del_base,
+                     n_del_add=n_del_add,
+                     gt_s=time.perf_counter() - t0)
+
+    def mutate(index):
+        t0 = time.perf_counter()
+        new = index.add(V)
+        index.delete(del_base)
+        index.delete(del_add)
+        torch.cuda.synchronize()
+        if not np.array_equal(new, n + np.arange(n_add)):
+            raise AssertionError("added rows got unexpected ids")
+        return time.perf_counter() - t0
+
+    def check_stream(ids, dists, B, what, n_ids=n + n_add):
+        ok = ((ids >= 0) & (ids < n_ids)) | (ids == -1)
+        if ids.shape != (B, 10) or not ok.all() \
+                or not np.isfinite(dists).all():
+            raise AssertionError(f"bad stream output ({what})")
+        # (the int8 index's 16,385th add, id n + n_add, is never deleted)
+        if dead[ids[(ids >= 0) & (ids < dead.size)]].any():
+            raise AssertionError(f"a deleted id was returned ({what})")
+        if any(len(set(r)) != len(r) for r in ids.tolist()):
+            raise AssertionError(f"duplicate ids ({what})")
+
+    def parity(ids, ref, Q, gt, what):
+        ids_t, _ = ref.search(Q)
+        rec, rec_t = recall_at_k(ids, gt, 10), recall_at_k(ids_t, gt, 10)
+        agree = float((ids_t == ids).mean())
+        if abs(rec - rec_t) > 0.01 or agree < 0.98:
+            raise AssertionError(f"{what}: kernel path and plain path "
+                                 "disagree")
+        return rec, rec_t, agree
+
+    index = Index(ds.X, cfg, graph=graph, device=dev)
+    ref = Index(ds.X, dataclasses.replace(cfg, kernel_backend="torch"),
+                graph=graph, device=dev)
+    out["mutate_s"] = mutate(index)
+    mutate(ref)
+    if index.n_active != n + n_add - n_del_base - n_del_add:
+        raise AssertionError(f"n_active {index.n_active}")
+    log(f"[stream] added {n_add}, deleted {n_del_base} base + {n_del_add} "
+        f"added ids in {out['mutate_s']:.3f} s; n_active={index.n_active}; "
+        f"effective-corpus ground truth {out['gt_s']:.2f} s")
+    for B in (10, n_queries):
+        Q = ds.Q[:B]
+        counted(f"stream warm B={B}", lambda: index.search(Q))
+        t0 = time.perf_counter()
+        ids, dists = counted(f"stream search B={B}", lambda: index.search(Q))
+        dt = time.perf_counter() - t0
+        check_stream(ids, dists, B, f"B={B}")
+        rec, rec_t, agree = parity(ids, ref, Q, gt_old[:B], f"stream B={B}")
+        out[f"search_{B}"] = dict(regime=index.regime(B), latency_ms=dt * 1e3,
+                                  qps=B / dt, recall_at_10=rec,
+                                  recall_torch=rec_t, id_agreement=agree)
+        log(f"[stream] B={B} regime={index.regime(B)}: latency="
+            f"{dt * 1e3:.2f} ms qps={B / dt:.1f} recall@10={rec:.4f} "
+            f"(effective-corpus brute force); plain path recall "
+            f"{rec_t:.4f}, ids equal {agree:.4%}")
+
+    out["profile"] = traced(f"stream search B={n_queries}",
+                            lambda: index.search(ds.Q[:n_queries]))
+    live_new = np.flatnonzero(~dead[n:])
+    slots = np.random.default_rng(7).choice(live_new, 1024, replace=False)
+    ids, _ = counted("stream self-queries",
+                     lambda: index.search(V[slots]))
+    hits = int((ids[:, 0] == n + slots).sum())
+    out["self_rank1"] = hits
+    log(f"[stream] {hits} of 1024 added rows found themselves at rank 1")
+    if hits != 1024:
+        raise AssertionError("an added row missed itself at rank 1")
+
+    cfg8 = dataclasses.replace(cfg, quantization="int8")
+    idx8 = Index(ds.X, cfg8, graph=graph, device=dev)
+    ref8 = Index(ds.X, dataclasses.replace(cfg8, kernel_backend="torch"),
+                 graph=graph, device=dev)
+    mutate(idx8)
+    mutate(ref8)
+    Q = ds.Q[:n_queries]
+    counted("stream int8 warm", lambda: idx8.search(Q))
+    t0 = time.perf_counter()
+    ids, dists = counted("stream int8 search", lambda: idx8.search(Q))
+    dt = time.perf_counter() - t0
+    check_stream(ids, dists, n_queries, "int8")
+    rec, rec_t, agree = parity(ids, ref8, Q, gt_old[:n_queries],
+                               "stream int8")
+    out[f"int8_search_{n_queries}"] = dict(
+        regime=idx8.regime(n_queries), latency_ms=dt * 1e3,
+        qps=n_queries / dt, recall_at_10=rec, recall_torch=rec_t,
+        id_agreement=agree)
+    log(f"[stream] int8 B={n_queries}: latency={dt * 1e3:.2f} ms "
+        f"recall@10={rec:.4f}; plain path recall {rec_t:.4f}, ids equal "
+        f"{agree:.4%}")
+    # a 16,385th add doubles the delta to 32,768 slots: the int8 scan's
+    # pre-selection is then wider than one rank_merge launch takes
+    rng = np.random.default_rng(6789)
+    extra = (centers[rng.integers(0, 64, 1)] + 0.15 * rng.normal(
+        size=(1, d)).astype(np.float32)).astype(np.float32)
+    for ix in (idx8, ref8):
+        if ix.add(extra).tolist() != [n + n_add]:
+            raise AssertionError("the 16,385th add got an unexpected id")
+    cap = idx8.engine.stream.delta.cap
+    counted("stream int8 warm, wide delta", lambda: idx8.search(Q))
+    t0 = time.perf_counter()
+    ids, dists = counted("stream int8 search, wide delta",
+                         lambda: idx8.search(Q))
+    dt = time.perf_counter() - t0
+    check_stream(ids, dists, n_queries, "int8, wide delta", n + n_add + 1)
+    rec, rec_t, agree = parity(ids, ref8, Q, gt_old[:n_queries],
+                               "stream int8, wide delta")
+    out[f"int8_search_{n_queries}_cap{cap}"] = dict(
+        delta_cap=cap, latency_ms=dt * 1e3, recall_at_10=rec,
+        recall_torch=rec_t, id_agreement=agree)
+    log(f"[stream] int8 B={n_queries}, delta capacity {cap}: latency="
+        f"{dt * 1e3:.2f} ms recall@10={rec:.4f}; plain path recall "
+        f"{rec_t:.4f}, ids equal {agree:.4%}")
+    if cap != 2 * n_add:
+        raise AssertionError(f"delta capacity {cap} after {n_add + 1} adds")
+    del idx8, ref8, ref
+
+    t0 = time.perf_counter()
+    id_map = counted("compact", index.compact)
+    out["compact_s"] = time.perf_counter() - t0
+    want = n + n_add - n_del_base - n_del_add
+    if index.generation != 1 or index.n_active != want \
+            or not np.array_equal(id_map[old_ids], np.arange(want)) \
+            or (id_map[dead] != -1).any():
+        raise AssertionError("compaction: wrong generation, n_active or "
+                             "id_map")
+    log(f"[stream] compact(): {out['compact_s']:.2f} s; generation="
+        f"{index.generation} n_active={index.n_active}")
+    for B in (10, n_queries):
+        Q = ds.Q[:B]
+        t0 = time.perf_counter()
+        ids, dists = counted(f"compacted search B={B}",
+                             lambda: index.search(Q))
+        dt = time.perf_counter() - t0
+        check_ids(ids, dists, B, want, f"compacted B={B}")
+        rec = recall_at_k(ids, gt_eff[:B], 10)
+        out[f"compacted_search_{B}"] = dict(
+            regime=index.regime(B), latency_ms=dt * 1e3, recall_at_10=rec)
+        log(f"[stream] compacted B={B} regime={index.regime(B)}: latency="
+            f"{dt * 1e3:.2f} ms recall@10={rec:.4f}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the device time goes, and the k-NN graph's quality
 # --------------------------------------------------------------------------
 
@@ -257,47 +537,44 @@ def device_time(prof, n_top: int = 6):
     return sum(per.values()), [(k, v / 1e3) for k, v in top]
 
 
-def profile_run(ds, index, cfg, n_queries, dev) -> dict:
+def traced(label: str, fn) -> dict:
+    """One synchronised call of ``fn`` under ``torch.profiler``: wall ms,
+    device busy ms and share, the costliest device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, top = device_time(prof)
+    log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}); top "
+        + "; ".join(f"{k[:48]} {t:.2f} ms" for k, t in top))
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                busy_share=busy / wall_us, top_ms=top)
+
+
+def profile_run(ds, index, cfg, n_queries, dev) -> dict:
+    import torch
 
     from repro_torch.ann import Index, build_graph
     from repro_torch.core import metrics as M
     from repro_torch.core.knn_build import nn_descent
 
-    out: dict = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        build_graph(ds.X, cfg, device=dev)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy, top = device_time(prof)
-    out["build"] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                        busy_share=busy / wall_us, top_ms=top)
-    log(f"[profile] build: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}); top "
-        + "; ".join(f"{k[:48]} {t:.2f} ms" for k, t in top))
+    out = {"build": traced("build", lambda: build_graph(ds.X, cfg,
+                                                         device=dev))}
     for visited in ("none", "hash"):
         idx_v = Index(ds.X, dataclasses.replace(cfg, visited_filter=visited),
                       graph=index.graph, device=dev)
         for B in (10, n_queries):
-            idx_v.search(ds.Q[:B])
+            Q = ds.Q[:B]
+            idx_v.search(Q)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                idx_v.search(ds.Q[:B])
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            busy, top = device_time(prof)
-            key = f"{visited}_B{B}"
-            out[key] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                            busy_share=busy / wall_us, top_ms=top)
-            log(f"[profile] visited={visited} B={B}: wall "
-                f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-                f"({busy / wall_us:.1%}); top "
-                + "; ".join(f"{k[:48]} {t:.2f} ms" for k, t in top))
+            out[f"{visited}_B{B}"] = traced(f"visited={visited} B={B}",
+                                            lambda: idx_v.search(Q))
     X = torch.as_tensor(ds.X, device=dev)
     n, k = X.shape[0], cfg.k_graph
     knn, _ = nn_descent(X, k)
@@ -340,6 +617,7 @@ def main() -> int:
 
     from repro_torch import kernels as K
     from repro_torch.ann import Index
+    from repro_torch.ann.quantize import quantize_rows
     from repro_torch.configs.base import ANNConfig
     from repro_torch.data.synthetic import make_clustered, recall_at_k
     from repro_torch.kernels import _build
@@ -367,7 +645,9 @@ def main() -> int:
     xn = (Xr.double() ** 2).sum(1)
     cfg = ANNConfig()
     small_S = 32 * cfg.small_t0          # B = 10 pads to bucket 32
-    shapes = {"gather_distances": [], "rank_merge": [], "visited_filter": []}
+    shapes = {"gather_distances": [], "gather_distances_int8": [],
+              "rank_merge": [], "visited_filter": [], "block_distances": [],
+              "block_distances_int8": []}
     for args_g in (("hop small", small_S, 1, cfg.max_degree, False),
                    ("hop large", args.queries, 1, cfg.max_degree, False),
                    ("nn_descent init", n, 1, cfg.k_graph, False),
@@ -378,6 +658,21 @@ def main() -> int:
         shapes["gather_distances"].append(check_gather(Xr, xn, *args_g,
                                                        gen=gen))
     B_l = args.queries
+    quant = quantize_rows(Xr)
+    xn8 = ((quant[0].double() * quant[1].double()[:, None]) ** 2).sum(1)
+    for args_g in (("hop small", small_S, 1, cfg.max_degree, False),
+                   ("hop large", B_l, 1, cfg.max_degree, False),
+                   ("seeds large", B_l, 1, cfg.large_n_seeds, False)):
+        shapes["gather_distances_int8"].append(check_gather(
+            Xr, xn8, *args_g, gen=gen, quant=quant))
+    del quant, xn8
+    cap = STREAM_ADDS            # the delta capacity of phase 8's adds
+    for args_b in (("scan B=32", 1, 32, cap, d),
+                   (f"scan B={B_l}", 1, B_l, cap, d),
+                   ("general", 2048, 1, 32, d)):
+        for q8 in (False, True):
+            shapes["block_distances" + ("_int8" if q8 else "")].append(
+                check_block(*args_b, quant=q8, dev=dev, gen=gen))
     for args_r in (("small R_temp", small_S, cfg.hop_width, 32),
                    ("small final t0 merge", 32, cfg.small_t0 * 32, 10),
                    ("large seeds", B_l, cfg.large_n_seeds, cfg.large_n_seeds),
@@ -387,7 +682,11 @@ def main() -> int:
                     cfg.segment_size + cfg.large_n_seeds, cfg.segment_size),
                    ("large C merge", B_l * cfg.queue_segments,
                     cfg.segment_size + cfg.max_degree, cfg.segment_size),
-                   ("nn_descent merge", n, cfg.k_graph * 10, cfg.k_graph)):
+                   ("nn_descent merge", n, cfg.k_graph * 10, cfg.k_graph),
+                   ("stream int8 delta", B_l, STREAM_ADDS,
+                    cfg.rerank_mult * 10),
+                   ("stream int8 delta, 2 chunks", B_l, 2 * STREAM_ADDS,
+                    cfg.rerank_mult * 10)):
         shapes["rank_merge"].append(check_rank_merge(*args_r, dev=dev,
                                                      gen=gen))
     for args_v in (("small", small_S, cfg.small_hops * cfg.max_degree + 1,
@@ -418,6 +717,7 @@ def main() -> int:
         f"(ground truth on the card): {record['data_s']:.2f} s")
     K.reset_launch_counts()
     steps: dict = {}
+    phase_launches: dict = {}
 
     def counted(label, fn):
         before = K.launch_counts()
@@ -435,6 +735,14 @@ def main() -> int:
         + " ".join(f"{k}={v:.2f}s" for k, v in index.build_seconds.items())
         + f"; avg degree {index.graph.avg_degree():.2f}")
 
+    def check_ids(ids, dists, B, n_ids, what):
+        """k finite answers per query, ids in [0, n_ids), no repeats."""
+        if ids.shape != (B, 10) or not np.isfinite(dists).all() \
+                or not ((ids >= 0) & (ids < n_ids)).all():
+            raise AssertionError(f"bad search output ({what})")
+        if any(len(set(r)) != len(r) for r in ids.tolist()):
+            raise AssertionError(f"duplicate ids ({what})")
+
     # ---- phase 4: searches in both regimes, both visited modes ------------
     graph = index.graph
     results: dict = {}
@@ -450,11 +758,7 @@ def main() -> int:
             ids, dists = counted(f"search {visited} B={B}",
                                  lambda: idx_v.search(Q))
             dt = time.perf_counter() - t0
-            if ids.shape != (B, 10) or not np.isfinite(dists).all() \
-                    or not ((ids >= 0) & (ids < n)).all():
-                raise AssertionError(f"bad search output ({visited}, B={B})")
-            if any(len(set(r)) != len(r) for r in ids.tolist()):
-                raise AssertionError(f"duplicate ids ({visited}, B={B})")
+            check_ids(ids, dists, B, n, f"{visited} B={B}")
             rec = recall_at_k(ids, ds.gt[:B], 10)
             results[(visited, B)] = (ids, rec)
             record[f"search_{visited}_{B}"] = dict(
@@ -463,14 +767,9 @@ def main() -> int:
             log(f"[search] visited={visited} B={B} regime={regime}: "
                 f"latency={dt * 1e3:.2f} ms qps={B / dt:.1f} "
                 f"recall@10={rec:.4f}")
-    launches = {k: sum(s[k] for s in steps.values())
-                for k in K.launch_counts()}
-    log("[launches] main path " + json.dumps(launches) + " by step "
-        + json.dumps(steps))
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    phase_launches["3-4"] = K.launch_counts()
+    log("[launches] phases 3-4 " + json.dumps(phase_launches["3-4"])
+        + " by step " + json.dumps(steps))
 
     # ---- phase 5: parity with the plain PyTorch path on the card ----------
     for visited in ("none", "hash"):
@@ -489,6 +788,56 @@ def main() -> int:
             if abs(rec_k - rec_t) > 0.01 or agree < 0.98:
                 raise AssertionError("kernel path and plain path disagree")
 
+    # ---- phase 7: int8 residency on phase 3's graph ------------------------
+    K.reset_launch_counts()
+    for visited in ("none", "hash"):
+        cfg8 = dataclasses.replace(cfg, visited_filter=visited,
+                                   quantization="int8")
+        idx8 = Index(ds.X, cfg8, graph=graph, device=dev)
+        ref8 = Index(ds.X, dataclasses.replace(cfg8, kernel_backend="torch"),
+                     graph=graph, device=dev)
+        for B in (10, args.queries):
+            Q = ds.Q[:B]
+            counted(f"int8 warm {visited} B={B}", lambda: idx8.search(Q))
+            t0 = time.perf_counter()
+            ids, dists = counted(f"int8 search {visited} B={B}",
+                                 lambda: idx8.search(Q))
+            dt = time.perf_counter() - t0
+            check_ids(ids, dists, B, n, f"int8 {visited} B={B}")
+            rec = recall_at_k(ids, ds.gt[:B], 10)
+            ids_t, _ = ref8.search(Q)
+            rec_t = recall_at_k(ids_t, ds.gt[:B], 10)
+            agree = float((ids_t == ids).mean())
+            rec32 = record[f"search_{visited}_{B}"]["recall_at_10"]
+            record[f"int8_{visited}_{B}"] = dict(
+                regime=idx8.regime(B), latency_ms=dt * 1e3, qps=B / dt,
+                recall_at_10=rec, recall_fp32=rec32, recall_torch=rec_t,
+                id_agreement=agree)
+            log(f"[int8] visited={visited} B={B} regime={idx8.regime(B)}: "
+                f"latency={dt * 1e3:.2f} ms qps={B / dt:.1f} recall@10="
+                f"{rec:.4f} (fp32 {rec32:.4f}); plain path recall "
+                f"{rec_t:.4f}, ids equal {agree:.4%}")
+            if abs(rec - rec_t) > 0.01 or agree < 0.98:
+                raise AssertionError("int8: kernel path and plain path "
+                                     "disagree")
+        del idx8, ref8
+    phase_launches["7"] = K.launch_counts()
+    log("[launches] phase 7 " + json.dumps(phase_launches["7"]))
+
+    # ---- phase 8: streaming add / delete / search / compact ---------------
+    K.reset_launch_counts()
+    record["stream"] = stream_phase(ds, cfg, graph, n, d, args.queries, dev,
+                                    counted, check_ids)
+    phase_launches["8"] = K.launch_counts()
+    log("[launches] phase 8 " + json.dumps(phase_launches["8"]))
+    launches = {k: sum(p[k] for p in phase_launches.values())
+                for k in K.launch_counts()}
+    log("[launches] phases 3-4, 7, 8 " + json.dumps(launches))
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+
     # ---- phase 6: where the device time goes ------------------------------
     record["profile"] = profile_run(ds, index, cfg, args.queries, dev)
 
@@ -497,10 +846,19 @@ def main() -> int:
         "gather_distances": ("src/repro_torch/kernels/csrc/l2dist.cu",
                              "src/repro/kernels/l2dist.py:401",
                              "nn_descent cand"),
+        "gather_distances_int8": ("src/repro_torch/kernels/csrc/l2dist.cu",
+                                  "src/repro/kernels/l2dist.py:384",
+                                  "hop large"),
         "rank_merge": ("src/repro_torch/kernels/csrc/topk.cu",
                        "src/repro/kernels/topk.py:103", "nn_descent merge"),
         "visited_filter": ("src/repro_torch/kernels/csrc/visited.cu",
                            "src/repro/kernels/visited.py:102", "large"),
+        "block_distances": ("src/repro_torch/kernels/csrc/block.cu",
+                            "src/repro/kernels/l2dist.py:163",
+                            f"scan B={args.queries}"),
+        "block_distances_int8": ("src/repro_torch/kernels/csrc/block.cu",
+                                 "src/repro/kernels/l2dist.py:114",
+                                 f"scan B={args.queries}"),
     }
     kernels = []
     for kname, (source, replaces, main_shape) in meta.items():
@@ -514,7 +872,7 @@ def main() -> int:
             library_ms=main["library_ms"], shape=main_shape,
             shapes=shapes[kname]))
     record.update(card=name_limit, n=n, d=d, kernels=kernels,
-                  launches_by_step=steps,
+                  launches_by_step=steps, launches_by_phase=phase_launches,
                   total_s=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

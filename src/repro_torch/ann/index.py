@@ -1,10 +1,16 @@
 """`Index` — the public handle of the port (the reference's
-``repro.ann.Index``, build and search)::
+``repro.ann.Index``: build, search and streaming mutability)::
 
     from repro_torch.ann import Index
 
     index = Index.build(X, cfg)              # knn -> diversify -> bridges
     ids, dists = index.search(Q)             # automatic regime dispatch
+    new_ids = index.add(V)                   # into the brute-force delta
+    index.delete(ids_to_drop)                # tombstones
+    id_map = index.compact()                 # rebuild, next generation
+
+``cfg.quantization="int8"`` scores per-row int8 codes in-kernel and
+re-ranks exactly against the fp32 rows.
 
 Everything runs on the CUDA device unless ``device="cpu"`` is passed.
 """
@@ -24,7 +30,8 @@ class Index:
     build, ``build_seconds`` holds each stage's wall seconds."""
 
     def __init__(self, X, cfg: ANNConfig | None = None, *, k: int = 10,
-                 graph=None, stages=None, tile: int = 2048, device=None):
+                 graph=None, stages=None, tile: int = 2048, quant=None,
+                 device=None):
         cfg = cfg or ANNConfig()
         device = resolve_device(device)
         self.build_seconds: dict = {}
@@ -34,7 +41,8 @@ class Index:
         elif stages is not None:
             raise ValueError("stages= only applies when the pipeline runs "
                              "(not with graph=)")
-        self.engine = ANNEngine(X, cfg, k=k, graph=graph, device=device)
+        self.engine = ANNEngine(X, cfg, k=k, graph=graph, quant=quant,
+                                device=device)
 
     @classmethod
     def build(cls, X, cfg: ANNConfig | None = None, *, k: int = 10,
@@ -45,24 +53,62 @@ class Index:
 
     @classmethod
     def from_numpy(cls, X, graph_arrays, cfg: ANNConfig | None = None, *,
-                   k: int = 10, device=None) -> "Index":
-        """An index over a graph built elsewhere: ``graph_arrays`` maps the
-        fields of a ``PackedGraph`` (``neighbors``, ``lambdas``,
-        ``degrees``, optional ``hubs``) to numpy arrays — e.g. those of the
-        JAX package's graph (:func:`repro_torch.ann.convert.graph_from_numpy`)."""
+                   k: int = 10, quant=None, stream=None,
+                   device=None) -> "Index":
+        """An index over state built elsewhere, e.g. by the JAX package:
+        ``graph_arrays`` maps the fields of a ``PackedGraph``
+        (``neighbors``, ``lambdas``, ``degrees``, optional ``hubs``) to
+        numpy arrays; ``quant`` is the plane's ``(codes, scales)``;
+        ``stream`` the mutation state ``(base_alive, delta_X,
+        delta_alive, count)`` (see :mod:`repro_torch.ann.convert`)."""
         from repro_torch.ann.convert import graph_from_numpy
 
         device = resolve_device(device)
-        return cls(X, cfg, k=k, device=device,
-                   graph=graph_from_numpy(**graph_arrays, device=device))
+        index = cls(X, cfg, k=k, device=device, quant=quant,
+                    graph=graph_from_numpy(**graph_arrays, device=device))
+        if stream is not None:
+            index.engine.restore_stream(*stream)
+        return index
 
     def search(self, Q, *, k: int | None = None):
         """Answer one batch: (ids [B, k], dists [B, k]) numpy arrays."""
         return self.engine.query(Q, k=k)
 
     def regime(self, batch: int) -> str:
-        """Which procedure a batch of this size takes ("small"/"large")."""
+        """Which procedure a batch of this size takes ("small"/"large");
+        a live delta shard's brute-force population counts."""
         return self.engine.regime(batch)
+
+    # -- streaming mutability -----------------------------------------------
+
+    def add(self, V):
+        """Append vectors without rebuilding: they land in a brute-force
+        delta shard searched beside the graph.  Returns their global ids
+        (``n_base + slot``), stable until :meth:`compact`."""
+        return self.engine.add(V)
+
+    def delete(self, ids) -> int:
+        """Tombstone ids (base or delta).  Deleted rows are still routed
+        through during the graph walk but never returned.  All-or-nothing:
+        unknown, duplicate or already-deleted ids raise KeyError without
+        mutating anything."""
+        return self.engine.delete(ids)
+
+    def compact(self, *, tile: int = 2048):
+        """Fold adds and deletes into a fresh generation: rebuild over the
+        effective corpus and swap it in.  Returns the old->new id map
+        (int64, -1 = deleted)."""
+        return self.engine.compact(tile=tile)
+
+    @property
+    def generation(self) -> int:
+        """Completed compactions since this index was built."""
+        return self.engine.stats.generation
+
+    @property
+    def n_active(self) -> int:
+        """Rows a search can currently return (base + delta - tombstones)."""
+        return self.engine.n_active()
 
     @property
     def X(self):

@@ -126,10 +126,8 @@ class ANNConfig:
             raise ValueError(
                 f"kernel_backend={self.kernel_backend!r} must be one of "
                 f"{KERNEL_BACKENDS}")
-        if self.quantization == "int8":
-            raise _later("quantization='int8'", "queue A item 9")
-        if self.db_bf16:
-            raise _later("db_bf16=True", "queue A item 9")
+        if self.db_bf16:  # the reference reads it on the mesh path only
+            raise _later("db_bf16=True", "queue A item 13")
         if "layout" in self.build_pipeline:
             raise _later("the 'layout' build stage", "queue A item 11")
         if self.regime_calibration == "probe":

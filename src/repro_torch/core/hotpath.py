@@ -7,6 +7,8 @@ Every hot loop of the build and both searches reduces to these primitives:
     with the validity mask applied;
   * :func:`rank_merge` — (dist, id)-ascending merge keeping ``keep`` per row;
   * :func:`seed_select` — the two composed over seed candidates;
+  * :func:`scan_distances` — the whole delta shard scored against a query
+    batch (a GEMM with the norm + mask epilogue);
   * :func:`visited_table` / :func:`visited_filter` — per-row hash sets of
     visited ids (``visited_filter="hash"``).
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import block as _block
 from repro_torch.kernels import l2dist as _l2
 from repro_torch.kernels import topk as _topk
 from repro_torch.kernels import visited as _vf
@@ -69,14 +72,18 @@ def neighbor_distances(Q, X, idx, *, metric: str = "l2", mask=None,
     chosen by ``self_q=True`` or, as in the reference, by passing the same
     tensor object as ``q_idx`` and ``idx``; the kernel then gathers each
     row once for both sides.
+
+    ``scales`` [N] float32 marks X as per-row int8 codes (compressed
+    residency): each candidate row is dequantized as ``code * scale`` with
+    the scale gathered by the same clipped id.  Self-query tiles score
+    fp32 rows only, so ``self_q`` with ``scales`` raises ``ValueError``.
     """
-    if scales is not None:
-        raise NotImplementedError(
-            "scales= (int8 residency) is not in the PyTorch port yet "
-            "(ROADMAP.md queue A item 9)")
     b = resolve_backend(backend, X.device)
     if self_q is None:
         self_q = q_idx is not None and q_idx is idx
+    if self_q and scales is not None:
+        raise ValueError("self_q tiles (build-time diversify) score fp32 "
+                         "rows; scales= is a search-time knob")
     fn = _l2.gather_distances if b == "cuda" else _l2.gather_distances_plain
     idx = idx.to(torch.int32).contiguous()
     if mask is not None:
@@ -84,7 +91,7 @@ def neighbor_distances(Q, X, idx, *, metric: str = "l2", mask=None,
     if self_q:
         return fn(None, X, idx, mask, metric=metric, self_q=True)
     Q3, squeeze = _q3_of(Q, X, q_idx)
-    out = fn(Q3.contiguous(), X, idx, mask, metric=metric)
+    out = fn(Q3.contiguous(), X, idx, mask, metric=metric, scales=scales)
     return out[:, 0] if squeeze else out
 
 
@@ -110,11 +117,21 @@ def seed_select(Q, X, seeds, *, metric: str = "l2", k: int = 1, mask=None,
     return rank_merge(d, seeds, keep=k, backend=backend)
 
 
-def scan_distances(*args, **kwargs):
-    raise NotImplementedError(
-        "scan_distances (the delta-shard scan, TPU kernel "
-        "block_distances_pallas) is not in the PyTorch port yet "
-        "(ROADMAP.md queue B item 4)")
+def scan_distances(Q, Xd, *, metric: str = "l2", mask=None,
+                   backend: str | None = None, scales=None):
+    """Brute-force distance block of a whole (delta) shard against a query
+    batch: Q [B, d], Xd [cap, d] -> [B, cap] float32, smaller = closer.
+    ``mask`` [cap] bool demotes unfilled / tombstoned slots to INF;
+    ``scales`` [cap] float32 marks Xd as int8 codes.  As in the reference,
+    the whole scan is one [1, B, cap] block."""
+    b = resolve_backend(backend, Xd.device)
+    fn = _block.block_distances if b == "cuda" \
+        else _block.block_distances_plain
+    out = fn(Q.contiguous()[None], Xd.contiguous()[None],
+             None if mask is None else mask.contiguous()[None],
+             None if scales is None else scales.contiguous()[None],
+             metric=metric)
+    return out[0]
 
 
 def visited_table(rows: int, bound: int, *, ways: int = 8,

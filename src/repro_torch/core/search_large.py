@@ -8,9 +8,9 @@ eviction) and V (``mv`` circular visited segments, lossy by design).  The
 reference's ``lax.scan`` over hops is a Python loop here with the same
 ``done`` masking; its seeds are the reference's ``jax.random`` draws.
 
-Ported options: ``visited="hash"``, ``exact_visited``, ``gather_limit``
-and ``push_all_seeds``.  ``alive``, ``graph.perm`` and ``codes``/``scales``
-raise ``NotImplementedError``.
+Ported options: ``visited="hash"``, ``exact_visited``, ``gather_limit``,
+``push_all_seeds``, ``alive`` and ``codes``/``scales`` with
+``rerank_mult``.  ``graph.perm`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core import hotpath as HP
 from repro_torch.core import prng
-from repro_torch.core.search_small import _later_options
+from repro_torch.core.search_small import _later_options, exact_rerank
 
 INF = HP.INF
 
@@ -40,8 +40,15 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
                         seed_offset=0, push_all_seeds: bool = True,
                         gather_limit: int = 0, exact_visited: bool = False,
                         alive=None, backend: str = "auto", codes=None,
-                        scales=None, visited: str = "none"):
-    """Returns (ids [B, k] int32, dists [B, k])."""
+                        scales=None, rerank_mult: int = 0,
+                        visited: str = "none"):
+    """Returns (ids [B, k] int32, dists [B, k]).
+
+    ``alive`` [N] bool: dead rows are dropped from the seed pool and from
+    every expansion's admission, so they never enter R or C.
+    ``codes``/``scales``: seeds and expansions score the int8 codes; the
+    top ``max(rerank_mult, 1) * k`` of the final R are re-scored exactly
+    against the fp32 X before the returned top-k."""
     N, d = X.shape
     B = Q.shape[0]
     dev = X.device
@@ -53,7 +60,7 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
     if visited == "hash" and exact_visited:
         raise ValueError("visited='hash' replaces the visited structures; "
                          "it cannot combine with exact_visited=True")
-    _later_options(alive, graph, codes, scales)
+    _later_options(graph)
     backend = HP.resolve_backend(backend, dev)
 
     def full(shape, value, dtype):
@@ -81,8 +88,11 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
     ss_ids = torch.sort(seeds, dim=1, stable=True).values
     dupm = torch.zeros_like(ss_ids, dtype=torch.bool)
     dupm[:, 1:] = ss_ids[:, 1:] == ss_ids[:, :-1]
-    init_d, sids = HP.seed_select(Q, X, ss_ids, metric=metric, k=n_seeds,
-                                  mask=~dupm, backend=backend)
+    seed_keep = ~dupm if alive is None else ~dupm & alive[ss_ids.long()]
+    X_score = X if codes is None else codes  # int8 codes when quantized
+    init_d, sids = HP.seed_select(Q, X_score, ss_ids, metric=metric,
+                                  k=n_seeds, mask=seed_keep, backend=backend,
+                                  scales=scales)
     if not push_all_seeds:  # keep only the best seed (paper: R = C = {u})
         init_d = init_d.clone()
         init_d[:, 1:] = INF
@@ -150,6 +160,8 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         ok = (lams_all[u_safe] < lambda_limit) & (e < N) & ~now_done[:, None]
         e_safe = e.clamp(0, N - 1)
         el = e_safe.long()
+        if alive is not None:  # tombstoned neighbours never enter R or C
+            ok = ok & alive[el]
         # repeats within this neighbor list keep their first occurrence
         dup_here = ((e_safe[:, :, None] == e_safe[:, None, :])
                     & tril[None]).any(dim=2)
@@ -178,8 +190,8 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
             new = ok & ~in_V & ~in_C & ~in_R & ~dup_here
 
         # ---- distances for the new candidates: one fused block ---------
-        ed = HP.neighbor_distances(Q, X, e_safe, metric=metric, mask=new,
-                                   backend=backend)
+        ed = HP.neighbor_distances(Q, X_score, e_safe, metric=metric,
+                                   mask=new, backend=backend, scales=scales)
         admit = (ed < worst[:, None]) | ~r_full[:, None]   # paper line 17
         ed = torch.where(admit, ed, INF)
         e_in = ed < INF
@@ -205,4 +217,10 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         C_ids = torch.where(now_done[:, None, None], C_ids, C_ids3)
         done = now_done
 
-    return R_ids[:, :k].to(torch.int32), R_d[:, :k]
+    if codes is None:
+        return R_ids[:, :k].to(torch.int32), R_d[:, :k]
+    # R is (dist, id)-sorted and id-deduped: a prefix is the top pool
+    rerank = min(max(rerank_mult, 1) * k, ef)
+    out_d, out_ids = exact_rerank(Q, X, R_d[:, :rerank], R_ids[:, :rerank],
+                                  k=k, metric=metric, backend=backend)
+    return out_ids.to(torch.int32), out_d

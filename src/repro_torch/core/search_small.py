@@ -9,9 +9,10 @@ over hops is a Python loop here with the same ``active`` masking, and its
 random seeds are the same ``jax.random`` draws (:mod:`repro_torch.core.prng`),
 so the two packages run the same searches.
 
-Ported options: ``exact_merge``, ``visited="hash"`` and the ``t0_offset``/
-``t0_total`` population placement.  ``alive`` (streaming), ``graph.perm``
-(layout) and ``codes``/``scales`` (int8) raise ``NotImplementedError``.
+Ported options: ``exact_merge``, ``visited="hash"``, the ``t0_offset``/
+``t0_total`` population placement, ``alive`` (the streaming tombstone mask)
+and ``codes``/``scales`` with ``rerank_mult`` (int8 residency with an exact
+fp32 re-rank).  ``graph.perm`` (layout) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,16 +24,20 @@ from repro_torch.core import prng
 INF = HP.INF
 
 
-def _later_options(alive, graph, codes, scales) -> None:
-    for on, what, item in ((alive is not None, "alive= (streaming)",
-                            "queue A item 10"),
-                           (graph.perm is not None, "graph.perm (layout)",
-                            "queue A item 11"),
-                           (codes is not None or scales is not None,
-                            "codes=/scales= (int8)", "queue A item 9")):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not in the PyTorch port yet (ROADMAP.md {item})")
+def _later_options(graph) -> None:
+    if graph.perm is not None:
+        raise NotImplementedError(
+            "graph.perm (layout) is not in the PyTorch port yet "
+            "(ROADMAP.md queue A item 11)")
+
+
+def exact_rerank(Q, X, d, ids, *, k: int, metric: str, backend: str):
+    """Re-score the approximate survivors ``ids`` [B, r] exactly against
+    the fp32 rows and keep the best k.  Lanes whose approximate distance
+    ``d`` is INF (masked by the merge) stay masked through the re-score."""
+    ed = HP.neighbor_distances(Q, X, ids, metric=metric, mask=d < INF,
+                               backend=backend)
+    return HP.rank_merge(ed, ids, keep=k, backend=backend)
 
 
 def _pad_cols(t, width: int, value):
@@ -60,8 +65,16 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
                         width: int = 32, seed: int = 0, seed_offset=0,
                         t0_offset=0, t0_total: int | None = None,
                         alive=None, backend: str = "auto", codes=None,
-                        scales=None, visited: str = "none"):
-    """Returns (ids [B, k] int32, dists [B, k])."""
+                        scales=None, rerank_mult: int = 0,
+                        visited: str = "none"):
+    """Returns (ids [B, k] int32, dists [B, k]).
+
+    ``alive`` [N] bool (streaming tombstones): dead rows are excluded from
+    seed selection, from every hop's neighbour evaluation and from the
+    final merge.  ``codes`` [N, d] int8 + ``scales`` [N] (int8 residency):
+    seeds and hops score the codes; the final merge keeps the best
+    ``max(rerank_mult, 1) * k`` distinct survivors and re-scores them
+    exactly against the fp32 X before the top-k."""
     N, d = X.shape
     B = Q.shape[0]
     S = B * t0
@@ -72,7 +85,7 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
             "raise t0/width or lower k")
     if visited not in ("none", "hash"):
         raise ValueError(f"visited={visited!r} must be 'none' or 'hash'")
-    _later_options(alive, graph, codes, scales)
+    _later_options(graph)
     backend = HP.resolve_backend(backend, dev)
     half = width // 2
     key = prng.fold_in(prng.key(seed, dev), seed_offset)
@@ -89,8 +102,10 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
         hub_pick = prng.randint(prng.fold_in(row_keys, 1),
                                 (n_seeds // 2,), 0, nh)
         seeds[:, :n_seeds // 2] = graph.hubs[hub_pick.long()]
-    sd1, si1 = HP.seed_select(Qs, X, seeds, metric=metric, k=1,
-                              backend=backend)
+    seed_mask = None if alive is None else alive[seeds.long()]
+    X_score = X if codes is None else codes  # int8 codes when quantized
+    sd1, si1 = HP.seed_select(Qs, X_score, seeds, metric=metric, k=1,
+                              mask=seed_mask, backend=backend, scales=scales)
     u, u_d = si1[:, 0], sd1[:, 0]
 
     rij_ids = torch.full((S, width), N, dtype=torch.int32, device=dev)
@@ -114,6 +129,8 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
         ui = u.long().clamp(max=N - 1)  # the reference's clamped gather
         nbrs = nbrs_all[ui]                                   # [S, M]
         visit = lams_all[ui] < lambda_limit  # idx >= N masked by the primitive
+        if alive is not None:  # tombstoned neighbours never enter a ranking
+            visit = visit & alive[nbrs.long().clamp(0, N - 1)]
         if visited == "hash":
             # already-seen ids drop to (INF, N) before scoring
             vtab, fresh = HP.visited_filter(
@@ -121,8 +138,9 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
                 backend=backend)
             visit = fresh
             nbrs = torch.where(fresh, nbrs, torch.full_like(nbrs, N))
-        dists = HP.neighbor_distances(Qs, X, nbrs, metric=metric,
-                                      mask=visit, backend=backend)
+        dists = HP.neighbor_distances(Qs, X_score, nbrs, metric=metric,
+                                      mask=visit, backend=backend,
+                                      scales=scales)
         dists = _pad_cols(dists, n_chunks * hop_width, INF)
         nbrs = _pad_cols(nbrs, n_chunks * hop_width, N)
 
@@ -193,6 +211,16 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
     sd2 = cand_d.gather(1, o)
     dup = torch.zeros_like(sid, dtype=torch.bool)
     dup[:, 1:] = sid[:, 1:] == sid[:, :-1]
-    out_d, out_ids = HP.rank_merge(sd2, sid, keep=k, mask=~dup & (sid < N),
-                                   backend=backend)
+    keep_lane = ~dup & (sid < N)
+    if alive is not None:  # a dead best-seed id can linger in slot 0
+        keep_lane = keep_lane & alive[sid.long().clamp(0, N - 1)]
+    if codes is None:
+        out_d, out_ids = HP.rank_merge(sd2, sid, keep=k, mask=keep_lane,
+                                       backend=backend)
+        return out_ids.to(torch.int32), out_d
+    rerank = min(max(rerank_mult, 1) * k, sd2.shape[1])
+    rr_d, rr_ids = HP.rank_merge(sd2, sid, keep=rerank, mask=keep_lane,
+                                 backend=backend)
+    out_d, out_ids = exact_rerank(Q, X, rr_d, rr_ids, k=k, metric=metric,
+                                  backend=backend)
     return out_ids.to(torch.int32), out_d

@@ -27,7 +27,11 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("l2dist", "topk", "visited")
+SOURCES = ("l2dist", "topk", "visited", "block")
+# launches of each kernel body, counted by its wrapper where it launches
+LAUNCHES = dict.fromkeys(("gather_distances", "gather_distances_int8",
+                          "rank_merge", "visited_filter", "block_distances",
+                          "block_distances_int8"), 0)
 
 _libs: dict = {}
 _lock = threading.Lock()

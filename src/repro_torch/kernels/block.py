@@ -1,0 +1,92 @@
+"""Distance block over pre-gathered rows: CUDA kernel wrapper + its plain
+version.
+
+Replaces the reference's ``kernels/l2dist.py::block_distances_pallas``
+(fp32 and int8 bodies).  The kernel is ``csrc/block.cu``; its header note
+gives the bound and the design.  Its caller on the search path is
+``hotpath.scan_distances``, the brute-force scan of the delta shard.
+
+``out[s, q, c] = qn + vn - 2 <Q[s, q], V[s, c]>`` (``-<., .>`` for ip/cos),
+3.4e38 where ``mask`` is False.  With ``v_scales`` the rows of V are int8
+codes, dequantized as ``code * scale`` before the same formula.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+INF = 3.4e38
+
+
+def block_distances_plain(Q, V, mask=None, v_scales=None, *,
+                          metric: str = "l2") -> torch.Tensor:
+    """The same function in plain PyTorch (any device): Q [S, Kq, d] x
+    V [S, C, d] (int8 codes when ``v_scales`` [S, C] is given) x
+    mask [S, C] -> [S, Kq, C] float32."""
+    if v_scales is not None:
+        V = V.to(torch.float32) * v_scales[:, :, None]
+    dots = torch.bmm(Q, V.transpose(1, 2))
+    if metric in ("ip", "cos"):
+        dist = -dots
+    else:
+        qn = torch.sum(Q * Q, dim=2)
+        vn = torch.sum(V * V, dim=2)
+        dist = qn[:, :, None] + vn[:, None, :] - 2.0 * dots
+    if mask is None:
+        return dist
+    return torch.where(mask[:, None, :], dist, torch.full_like(dist, INF))
+
+
+def check(t, name, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (a None entry of ``shape`` matches any size)."""
+    if t.dtype != dtype or t.dim() != len(shape) or t.device != device \
+            or not t.is_contiguous() or any(
+                want is not None and got != want
+                for got, want in zip(t.shape, shape)):
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple('*' if s is None else s for s in shape)} on {device}, "
+            f"got {tuple(t.shape)} {t.dtype} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def block_distances(Q, V, mask=None, v_scales=None, *,
+                    metric: str = "l2") -> torch.Tensor:
+    """Q [S, Kq, d] float32 x V [S, C, d] float32 (int8 with
+    ``v_scales`` [S, C] float32) x mask [S, C] bool or None ->
+    [S, Kq, C] float32.  CPU tensors take :func:`block_distances_plain`;
+    CUDA tensors launch the kernel (counted on ``block_distances`` or,
+    with ``v_scales``, on ``block_distances_int8``)."""
+    if V.device.type == "cpu":
+        return block_distances_plain(Q, V, mask, v_scales, metric=metric)
+    if metric not in ("l2", "ip", "cos"):
+        raise ValueError(f"metric={metric!r}")
+    dev = V.device
+    quant = v_scales is not None
+    check(V, "V", torch.int8 if quant else torch.float32, (None,) * 3, dev)
+    S, C, d = V.shape
+    check(Q, "Q", torch.float32, (S, None, d), dev)
+    Kq = Q.shape[1]
+    if mask is not None:
+        check(mask, "mask", torch.bool, (S, C), dev)
+    if quant:
+        check(v_scales, "v_scales", torch.float32, (S, C), dev)
+    if -(-Kq // 64) > 65535:
+        raise ValueError(f"Kq={Kq} exceeds the kernel's 65535 row tiles")
+    out = torch.empty((S, Kq, C), dtype=torch.float32, device=dev)
+    fn = _build.library("block").repro_block_distances
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_build.ptr(Q), _build.ptr(V), _build.ptr(v_scales),
+             _build.ptr(mask), _build.ptr(out), S, Kq, C, d,
+             int(metric in ("ip", "cos")), _build.stream_of(V))
+    _build.check(err, "block_distances")
+    _build.LAUNCHES["block_distances_int8" if quant
+                    else "block_distances"] += 1
+    return out
+

@@ -1,8 +1,8 @@
 // Gather-fused distance block for Hopper (sm_90a).
 //
 // Replaces the reference's TPU kernel kernels/l2dist.py
-// gather_block_distances_pallas (fp32 body _gather_block_kernel and the
-// self-query body _self_q_gather_kernel):
+// gather_block_distances_pallas (fp32 body _gather_block_kernel, int8 body
+// _gather_block_kernel_quant and the self-query body _self_q_gather_kernel):
 //
 //   out[s, q, c] = qn + vn - 2 * <Q[s, q], X[idx[s, c]]>   (l2)
 //   out[s, q, c] = -<Q[s, q], X[idx[s, c]]>                (ip / cos)
@@ -10,7 +10,11 @@
 // with 3.4e38 for lanes whose mask is 0 or whose id lies outside [0, N);
 // ids are clipped into [0, N) before the gather.  Self-query mode scores
 // the gathered rows against themselves: out [S, C, C], the mask applied to
-// the column (candidate) axis only, as in the reference.
+// the column (candidate) axis only, as in the reference.  The int8 body
+// reads X as per-row codes [N, d] int8 with scales [N] float32 and
+// dequantizes in registers, v = float(code) * scale[id] (rounded once, as
+// the reference's widen-then-scale), before the same formula; vn is taken
+// over the dequantized values, not as scale^2 * sum(code^2).
 //
 // Bound: memory.  Per call it must move every gathered row once
 // (S * C * d * 4 bytes for the valid lanes) and write S * Kq * C floats;
@@ -21,6 +25,8 @@
 //     16-byte load per lane, coalesced, and reduces with shuffles, so
 //     no row is staged in shared memory and nothing is read twice;
 //   * masked / out-of-range lanes skip their gather altogether;
+//   * the int8 body moves a quarter of the bytes: a 128-byte row
+//     (d = 128) is one char4 load per lane, plus one scale per candidate;
 //   * the self-query kernel stages the C rows of one tile in shared memory
 //     a d-chunk at a time (C x 32 floats), so every row is read from
 //     device memory once per tile and reused by all C^2 pair products,
@@ -42,9 +48,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool VEC>
+// One row element group: 4 fp32 values, or 4 int8 codes dequantized.
+template <bool QUANT>
+__device__ __forceinline__ float4 load4(const void* X, long long off,
+                                        float sc) {
+  if constexpr (QUANT) {
+    const char4 c = __ldg(reinterpret_cast<const char4*>(
+        static_cast<const int8_t*>(X) + off));
+    return make_float4(__fmul_rn(static_cast<float>(c.x), sc),
+                       __fmul_rn(static_cast<float>(c.y), sc),
+                       __fmul_rn(static_cast<float>(c.z), sc),
+                       __fmul_rn(static_cast<float>(c.w), sc));
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(
+        static_cast<const float*>(X) + off));
+  }
+}
+
+template <bool QUANT>
+__device__ __forceinline__ float load1(const void* X, long long off,
+                                       float sc) {
+  if constexpr (QUANT) {
+    return __fmul_rn(
+        static_cast<float>(static_cast<const int8_t*>(X)[off]), sc);
+  } else {
+    return __ldg(static_cast<const float*>(X) + off);
+  }
+}
+
+template <bool VEC, bool QUANT>
 __global__ void __launch_bounds__(kRowThreads)
-gather_rowq_kernel(const float* __restrict__ Q, const float* __restrict__ X,
+gather_rowq_kernel(const float* __restrict__ Q, const void* __restrict__ X,
+                   const float* __restrict__ scales,
                    const int32_t* __restrict__ idx,
                    const uint8_t* __restrict__ mask, float* __restrict__ out,
                    int Kq, int C, int d, long long N, int ip) {
@@ -61,14 +96,15 @@ gather_rowq_kernel(const float* __restrict__ Q, const float* __restrict__ X,
       for (int q = lane; q < Kq; q += 32) o[(long long)q * C] = kInf;
       continue;
     }
-    const float* v = X + (long long)id * d;
+    const long long v = (long long)id * d;
+    const float sc = QUANT ? __ldg(scales + id) : 1.f;
     float vn = 0.f;
     for (int q = 0; q < Kq; ++q) {
       const float* qq = qrow + (long long)q * d;
       float dot = 0.f, qn = 0.f, vv = 0.f;
       if (VEC) {
         for (int j = lane * 4; j < d; j += 128) {
-          const float4 a = __ldg(reinterpret_cast<const float4*>(v + j));
+          const float4 a = load4<QUANT>(X, v + j, sc);
           const float4 b = __ldg(reinterpret_cast<const float4*>(qq + j));
           dot += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
           qn += b.x * b.x + b.y * b.y + b.z * b.z + b.w * b.w;
@@ -76,7 +112,7 @@ gather_rowq_kernel(const float* __restrict__ Q, const float* __restrict__ X,
         }
       } else {
         for (int j = lane; j < d; j += 32) {
-          const float a = __ldg(v + j), b = __ldg(qq + j);
+          const float a = load1<QUANT>(X, v + j, sc), b = __ldg(qq + j);
           dot += a * b;
           qn += b * b;
           vv += a * a;
@@ -162,20 +198,32 @@ gather_selfq_kernel(const float* __restrict__ X,
   }
 }
 
+template <bool VEC, bool QUANT>
+void launch_rowq(const float* q, const void* x, const float* sc,
+                 const int32_t* ix, const uint8_t* m, float* o, int S,
+                 int Kq, int C, int d, long long N, int ip,
+                 cudaStream_t st) {
+  gather_rowq_kernel<VEC, QUANT><<<S, kRowThreads, 0, st>>>(
+      q, x, sc, ix, m, o, Kq, C, d, N, ip);
+}
+
 }  // namespace
 
+// X is float32 [N, d], or int8 codes [N, d] when scales ([N] float32) is
+// not null.  Self-query tiles take float32 rows only.
 extern "C" int repro_gather_distances(const void* Q, const void* X,
-                                      const void* idx, const void* mask,
-                                      void* out, int S, int Kq, int C, int d,
-                                      long long N, int ip, int self_q,
-                                      void* stream) {
+                                      const void* scales, const void* idx,
+                                      const void* mask, void* out, int S,
+                                      int Kq, int C, int d, long long N,
+                                      int ip, int self_q, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 0 || C == 0) return static_cast<int>(cudaGetLastError());
-  const float* x = static_cast<const float*>(X);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   if (self_q) {
+    if (sc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = sizeof(float) * ((size_t)C * (kSqDc + 1) + C)
                         + sizeof(int) * 2 * (size_t)C;
     if (smem > 48 * 1024) {
@@ -183,20 +231,21 @@ extern "C" int repro_gather_distances(const void* Q, const void* X,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
     }
-    gather_selfq_kernel<<<S, kSqThreads, smem, st>>>(x, ix, m, o, C, d, N,
-                                                     ip);
+    gather_selfq_kernel<<<S, kSqThreads, smem, st>>>(
+        static_cast<const float*>(X), ix, m, o, C, d, N, ip);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const float* q = static_cast<const float*>(Q);
+  const size_t align = sc != nullptr ? 4 : 16;  // char4 vs float4 rows
+  const bool vec = (d % 4 == 0)
+      && (reinterpret_cast<uintptr_t>(X) % align == 0)
+      && (reinterpret_cast<uintptr_t>(q) % 16 == 0);
+  if (sc != nullptr) {
+    if (vec) launch_rowq<true, true>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
+    else launch_rowq<false, true>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
   } else {
-    const float* q = static_cast<const float*>(Q);
-    const bool vec = (d % 4 == 0)
-        && (reinterpret_cast<uintptr_t>(x) % 16 == 0)
-        && (reinterpret_cast<uintptr_t>(q) % 16 == 0);
-    if (vec) {
-      gather_rowq_kernel<true><<<S, kRowThreads, 0, st>>>(q, x, ix, m, o, Kq,
-                                                          C, d, N, ip);
-    } else {
-      gather_rowq_kernel<false><<<S, kRowThreads, 0, st>>>(q, x, ix, m, o,
-                                                           Kq, C, d, N, ip);
-    }
+    if (vec) launch_rowq<true, false>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
+    else launch_rowq<false, false>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,8 @@ from repro_torch.kernels import _build
 
 INF = 3.4e38
 PAD_ID = 2 ** 31 - 1
+# the kernel sorts a row in shared memory: at most this many lanes
+MAX_LANES = 16384
 
 
 def rank_merge_plain(dists, ids, mask=None, *, keep: int):
@@ -33,10 +35,34 @@ def rank_merge_plain(dists, ids, mask=None, *, keep: int):
     return dists.gather(1, order), ids.gather(1, order)
 
 
+def merge_in_chunks(merge, dists, ids, mask=None, *, keep: int,
+                    width: int):
+    """``merge(dists, ids, mask, keep=)`` over rows wider than the
+    ``width`` lanes it can take: each column chunk of at most ``width``
+    lanes keeps its best ``keep``, and the survivors are merged again
+    until they fit.  Exact, since (dist, id) orders the lanes totally: a
+    row's best ``keep`` are among its chunks' best ``keep``."""
+    W = dists.shape[1]
+    if W > width and keep >= width:
+        raise ValueError(f"keep={keep} must be below the {width} lanes "
+                         f"one merge takes, for rows of {W} lanes")
+    while W > width:
+        parts = [merge(dists[:, c:c + width].contiguous(),
+                       ids[:, c:c + width].contiguous(),
+                       None if mask is None
+                       else mask[:, c:c + width].contiguous(),
+                       keep=min(keep, W - c)) for c in range(0, W, width)]
+        dists = torch.cat([p[0] for p in parts], dim=1)
+        ids = torch.cat([p[1] for p in parts], dim=1)
+        mask, W = None, dists.shape[1]     # masked lanes came back as INF
+    return merge(dists, ids, mask, keep=keep)
+
+
 def rank_merge(dists, ids, mask=None, *, keep: int):
     """dists [R, W] float32, ids [R, W] int32, mask [R, W] bool or None ->
     (dists [R, keep], ids [R, keep]).  CPU tensors take
-    :func:`rank_merge_plain`; CUDA tensors launch the kernel."""
+    :func:`rank_merge_plain`; CUDA tensors launch the kernel, in column
+    chunks (:func:`merge_in_chunks`) when W exceeds its ``MAX_LANES``."""
     if dists.device.type == "cpu":
         return rank_merge_plain(dists, ids, mask, keep=keep)
     R, W = dists.shape
@@ -53,9 +79,10 @@ def rank_merge(dists, ids, mask=None, *, keep: int):
             raise ValueError(
                 f"{name}: expected contiguous {dt} [{R}, {W}] on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if W > MAX_LANES:
+        return merge_in_chunks(rank_merge, dists, ids, mask, keep=keep,
+                               width=MAX_LANES)
     Wp = 1 << max(W - 1, 0).bit_length()
-    if Wp > 16384:
-        raise ValueError(f"width {W} exceeds the kernel's 16384 lanes")
     od = torch.empty((R, keep), dtype=torch.float32, device=dev)
     oi = torch.empty((R, keep), dtype=torch.int32, device=dev)
     fn = _build.library("topk").repro_rank_merge
@@ -66,8 +93,5 @@ def rank_merge(dists, ids, mask=None, *, keep: int):
              _build.ptr(od), _build.ptr(oi), R, W, Wp, keep,
              _build.stream_of(dists))
     _build.check(err, "rank_merge")
-    rank_merge.launches += 1
+    _build.LAUNCHES["rank_merge"] += 1
     return od, oi
-
-
-rank_merge.launches = 0

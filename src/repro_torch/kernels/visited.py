@@ -86,8 +86,6 @@ def visited_filter(table, ids, valid):
     err = fn(_build.ptr(table), _build.ptr(ids), _build.ptr(valid),
              _build.ptr(fresh), B, W, S, M, shift, _build.stream_of(table))
     _build.check(err, "visited_filter")
-    visited_filter.launches += 1
+    _build.LAUNCHES["visited_filter"] += 1
     return table, fresh
 
-
-visited_filter.launches = 0

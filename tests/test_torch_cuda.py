@@ -20,7 +20,8 @@ from repro_torch.ann import Index
 from repro_torch.configs.tsdg_paper import reduced
 from repro_torch.core import hotpath as HP
 from repro_torch.data.synthetic import make_clustered, recall_at_k
-from repro_torch.kernels import l2dist, topk, visited
+from repro_torch.ann.quantize import quantize_rows
+from repro_torch.kernels import block, l2dist, topk, visited
 
 pytestmark = pytest.mark.cuda
 
@@ -46,15 +47,87 @@ def test_gather_distances_matches_plain(dev, rng, S, Kq, C, d, metric):
         rng.normal(size=(S, Kq, d)).astype(np.float32),
         rng.integers(-2, N + 20, size=(S, C)).astype(np.int32),
         rng.random((S, C)) > 0.3)
-    n0 = l2dist.gather_distances.launches
+    n0 = K.launch_counts()
     out = l2dist.gather_distances(Q, X, idx, mask, metric=metric)
     ref = l2dist.gather_distances_plain(Q, X, idx, mask, metric=metric)
     torch.cuda.synchronize()
-    assert l2dist.gather_distances.launches == n0 + 1
+    assert K.launch_counts()["gather_distances"] \
+        == n0["gather_distances"] + 1
     norms = (Q.double() ** 2).sum(2)[:, :, None] \
         + (X.double() ** 2).sum(1)[idx.long().clamp(0, N - 1)][:, None, :]
     assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
     assert torch.equal(out == 3.4e38, ref == 3.4e38)
+
+
+@pytest.mark.parametrize("S,Kq,C,d", [(64, 1, 32, 128), (33, 3, 20, 9),
+                                      (40, 1, 128, 130)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gather_distances_int8_matches_plain(dev, rng, S, Kq, C, d, metric):
+    """The int8 body: codes dequantized in registers, the scale gathered
+    by the clipped id (d = 130 takes the scalar path)."""
+    N = 5000
+    X, Q, idx, mask = _on(
+        dev, rng.normal(size=(N, d)).astype(np.float32),
+        rng.normal(size=(S, Kq, d)).astype(np.float32),
+        rng.integers(-2, N + 20, size=(S, C)).astype(np.int32),
+        rng.random((S, C)) > 0.3)
+    codes, scales = quantize_rows(X)
+    n0 = K.launch_counts()
+    out = l2dist.gather_distances(Q, codes, idx, mask, metric=metric,
+                                  scales=scales)
+    ref = l2dist.gather_distances_plain(Q, codes, idx, mask, metric=metric,
+                                        scales=scales)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    assert n1["gather_distances_int8"] == n0["gather_distances_int8"] + 1
+    assert n1["gather_distances"] == n0["gather_distances"]
+    deq = codes.double() * scales.double()[:, None]
+    norms = (Q.double() ** 2).sum(2)[:, :, None] \
+        + (deq ** 2).sum(1)[idx.long().clamp(0, N - 1)][:, None, :]
+    assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
+    assert torch.equal(out == 3.4e38, ref == 3.4e38)
+
+
+@pytest.mark.parametrize("S,Kq,C,d", [(1, 100, 300, 128), (3, 70, 65, 33),
+                                      (2048, 1, 32, 128), (1, 64, 64, 32)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_distances_matches_plain(dev, rng, S, Kq, C, d, metric, quant):
+    """Both bodies of the tiled block kernel: Kq, C and d off the 64 / 64 /
+    32 tile, with masks."""
+    Q, V, mask = _on(dev, rng.normal(size=(S, Kq, d)).astype(np.float32),
+                     rng.normal(size=(S * C, d)).astype(np.float32),
+                     rng.random((S, C)) > 0.25)
+    sc = None
+    if quant:
+        V, sc = quantize_rows(V)
+        sc = sc.reshape(S, C)
+    V = V.reshape(S, C, d)
+    body = "block_distances_int8" if quant else "block_distances"
+    n0 = K.launch_counts()[body]
+    out = block.block_distances(Q, V, mask, sc, metric=metric)
+    ref = block.block_distances_plain(Q, V, mask, sc, metric=metric)
+    torch.cuda.synchronize()
+    assert K.launch_counts()[body] == n0 + 1
+    Vd = V.double() if sc is None else V.double() * sc.double()[:, :, None]
+    norms = (Q.double() ** 2).sum(2)[:, :, None] \
+        + (Vd ** 2).sum(2)[:, None, :]
+    assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
+    assert torch.equal(out == 3.4e38, ref == 3.4e38)
+    assert torch.equal(out == 3.4e38, ~mask[:, None, :].expand_as(out))
+
+
+def test_scan_distances_through_the_seam(dev, rng):
+    Q, Xd, m = _on(dev, rng.normal(size=(77, 16)).astype(np.float32),
+                   rng.normal(size=(200, 16)).astype(np.float32),
+                   rng.random(200) > 0.5)
+    codes, sc = quantize_rows(Xd)
+    for args in ((Xd, None), (codes, sc)):
+        out = HP.scan_distances(Q, args[0], mask=m, scales=args[1])
+        ref = HP.scan_distances(Q, args[0], mask=m, scales=args[1],
+                                backend="torch")
+        assert out.shape == (77, 200)
+        assert torch.allclose(out, ref, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("K_,d", [(32, 128), (64, 128), (64, 960)])
@@ -72,15 +145,22 @@ def test_gather_distances_self_query_matches_plain(dev, rng, K_, d):
 
 
 @pytest.mark.parametrize("R,W,keep", [(50, 32, 32), (50, 320, 32),
-                                      (7, 2048, 10), (9, 5, 3)])
+                                      (7, 2048, 10), (9, 5, 3),
+                                      (6, 40000, 40), (2, 16385, 16383)])
 def test_rank_merge_matches_plain(dev, rng, R, W, keep):
+    """Rows wider than the kernel's 16384 lanes go through in column
+    chunks, each a launch."""
     d = (rng.integers(0, 6, size=(R, W)) * 0.5).astype(np.float32)
     d[rng.random((R, W)) < 0.1] = -0.0
     d, ids, mask = _on(dev, d, rng.integers(0, 99, size=(R, W))
                        .astype(np.int32), rng.random((R, W)) > 0.2)
+    n0 = K.launch_counts()["rank_merge"]
     od, oi = topk.rank_merge(d, ids, mask, keep=keep)
     rd, ri = topk.rank_merge_plain(d, ids, mask, keep=keep)
     assert torch.equal(oi, ri) and bool((od == rd).all())
+    chunks = -(-W // topk.MAX_LANES)
+    assert K.launch_counts()["rank_merge"] - n0 \
+        == (1 if chunks == 1 else chunks + 1)
 
 
 def test_visited_filter_matches_plain(dev, rng):
@@ -101,6 +181,13 @@ def test_wrappers_reject_bad_tensors(dev):
         l2dist.gather_distances(X[:2, None], X, idx)
     with pytest.raises(ValueError, match="ids"):
         topk.rank_merge(torch.zeros((2, 3), device=dev), idx, keep=2)
+    with pytest.raises(ValueError, match="scales"):
+        l2dist.gather_distances(X[:2, None], X.to(torch.int8),
+                                idx.to(torch.int32),
+                                scales=torch.ones(10, dtype=torch.float64,
+                                                  device=dev))
+    with pytest.raises(ValueError, match="V"):
+        block.block_distances(X[None], X[None].to(torch.int8))
 
 
 @pytest.mark.parametrize("visited_mode", ["none", "hash"])
@@ -123,3 +210,63 @@ def test_index_kernel_path_matches_plain_path(dev, visited_mode):
     counts = K.launch_counts()
     assert counts["gather_distances"] > 0 and counts["rank_merge"] > 0
     assert (counts["visited_filter"] > 0) == (visited_mode == "hash")
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_streaming_index_kernel_path_matches_plain_path(dev, quant):
+    """int8 residency and the streaming path on the card, small: the same
+    mutations on a kernel-path and a plain-path index answer alike."""
+    ds = make_clustered(n=3000, d=32, n_queries=300, seed=4)
+    cfg = dataclasses.replace(reduced(), bridge_hubs=64, quantization=quant)
+    rng = np.random.default_rng(3)
+    V = (ds.X[rng.integers(0, 3000, 500)]
+         + 0.05 * rng.normal(size=(500, 32))).astype(np.float32)
+    K.reset_launch_counts()
+    idx = Index.build(ds.X, cfg, device=dev)
+    plain = Index(ds.X, dataclasses.replace(cfg, kernel_backend="torch"),
+                  graph=idx.graph, device=dev)
+    for index in (idx, plain):
+        new = index.add(V)
+        index.delete(np.arange(0, 3000, 31))
+        index.delete(new[::7])
+    for B in (10, 300):
+        a, _ = idx.search(ds.Q[:B])
+        b, _ = plain.search(ds.Q[:B])
+        assert (a == b).mean() >= 0.98
+        assert not np.isin(a, np.arange(0, 3000, 31)).any()
+    ids, _ = idx.search(V[1:7])
+    assert (ids[:, 0] == 3001 + np.arange(6)).all()
+    counts = K.launch_counts()
+    body = "block_distances" + ("_int8" if quant == "int8" else "")
+    assert counts[body] > 0
+    assert (counts["gather_distances_int8"] > 0) == (quant == "int8")
+    id_map = idx.compact()
+    assert idx.generation == 1 and idx.n_active == int((id_map >= 0).sum())
+
+
+def test_int8_stream_past_the_merge_width_matches_plain_path(dev):
+    """An int8 mutable index whose delta outgrew the rank_merge kernel's
+    16384 lanes (16,400 adds: capacity 32768) still answers on the card,
+    as the plain path does."""
+    ds = make_clustered(n=3000, d=32, n_queries=300, seed=4)
+    cfg = dataclasses.replace(reduced(), bridge_hubs=64,
+                              quantization="int8")
+    rng = np.random.default_rng(5)
+    V = (ds.X[rng.integers(0, 3000, 16400)]
+         + 0.05 * rng.normal(size=(16400, 32))).astype(np.float32)
+    idx = Index.build(ds.X, cfg, device=dev)
+    plain = Index(ds.X, dataclasses.replace(cfg, kernel_backend="torch"),
+                  graph=idx.graph, device=dev)
+    for index in (idx, plain):
+        new = index.add(V)
+        index.delete(new[::9])
+    assert idx.engine.stream.delta.cap == 32768
+    K.reset_launch_counts()
+    for B in (10, 300):
+        a, _ = idx.search(ds.Q[:B])
+        b, _ = plain.search(ds.Q[:B])
+        assert (a == b).mean() >= 0.98
+        assert not np.isin(a, new[::9]).any()
+    ids, _ = idx.search(V[16390:16398])      # live: no multiple of 9
+    assert (ids[:, 0] == 3000 + np.arange(16390, 16398)).all()
+    assert K.launch_counts()["block_distances_int8"] > 0

@@ -24,7 +24,7 @@ from repro.core import hotpath as JHP
 from repro.kernels import visited as jvf
 from repro_torch import kernels as K
 from repro_torch.core import hotpath as HP
-from repro_torch.kernels import l2dist, topk, visited
+from repro_torch.kernels import block, l2dist, topk, visited
 
 # the plain versions are small here: one thread each, so the test
 # workers running beside this file keep their cores
@@ -196,6 +196,42 @@ def test_rank_merge_validates_keep():
             HP.rank_merge(d, i, keep=keep)
 
 
+@pytest.mark.parametrize("W,width,keep", [(300, 64, 40), (1000, 128, 17),
+                                          (65, 64, 63), (2049, 512, 500)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_rank_merge_in_chunks_matches_reference(rng, W, width, keep, masked):
+    """Rows wider than one merge takes (the kernel's 16384 lanes, here a
+    narrow ``width``) go through in column chunks; with distance ties,
+    +-0.0 and masks the result is the reference's full-width merge, bit
+    for bit."""
+    R = 5
+    d = (rng.integers(0, 6, size=(R, W)) * 0.5).astype(np.float32)
+    d[rng.random((R, W)) < 0.2] = -0.0
+    ids = rng.integers(0, 50, size=(R, W)).astype(np.int32)
+    mask = (rng.random((R, W)) > 0.25) if masked else None
+    calls = []
+
+    def merge(dd, ii, mm, *, keep):
+        calls.append(dd.shape[1])
+        return topk.rank_merge_plain(dd, ii, mm, keep=keep)
+
+    td, ti = topk.merge_in_chunks(merge, _t(d), _t(ids),
+                                  None if mask is None else _t(mask),
+                                  keep=keep, width=width)
+    jd, ji = _jrm(jnp.asarray(d), jnp.asarray(ids),
+                  None if mask is None else jnp.asarray(mask), keep)
+    assert max(calls) <= width and len(calls) > 1
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    assert np.array_equal(_bits(td.numpy()), _bits(jd))
+
+
+def test_rank_merge_in_chunks_needs_keep_below_width():
+    d = torch.zeros((2, 100))
+    i = torch.zeros((2, 100), dtype=torch.int32)
+    with pytest.raises(ValueError, match="below the 64 lanes"):
+        topk.merge_in_chunks(topk.rank_merge_plain, d, i, keep=64, width=64)
+
+
 @pytest.mark.parametrize("k", [1, 4])
 def test_seed_select_matches_reference(rng, k):
     X, Q, _, _ = _case(rng, 10, 8, 16)
@@ -276,8 +312,15 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
     visited.visited_filter(HP.visited_table(2, 4),
                            torch.zeros((2, 3), dtype=torch.int32),
                            torch.ones((2, 3), dtype=torch.bool))
-    assert K.launch_counts() == {"gather_distances": 0, "rank_merge": 0,
-                                 "visited_filter": 0}
+    l2dist.gather_distances(_t(Q)[:, None], _t(X).to(torch.int8), _t(idx),
+                            scales=torch.ones(200))
+    for sc in (None, torch.ones((1, 6))):
+        block.block_distances(torch.zeros((1, 3, 8)), torch.zeros(
+            (1, 6, 8), dtype=torch.float32 if sc is None else torch.int8),
+            v_scales=sc)
+    assert K.launch_counts() == dict.fromkeys(
+        ("gather_distances", "gather_distances_int8", "rank_merge",
+         "visited_filter", "block_distances", "block_distances_int8"), 0)
 
 
 def test_resolve_backend():
@@ -298,10 +341,14 @@ def test_cuda_backend_on_cpu_tensors_raises(rng):
 
 
 def test_later_slice_features_raise(rng):
-    X, Q, idx, _ = _case(rng, 4, 6, 8)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        HP.neighbor_distances(_t(Q), _t(X), _t(idx),
-                              scales=torch.ones(200))
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        HP.scan_distances(_t(Q), _t(X))
+    """Self-query tiles score fp32 rows: with ``scales`` they raise
+    ``ValueError``, as the reference does (its Pallas backend)."""
+    X, _, idx, _ = _case(rng, 4, 6, 8)
+    codes = _t(X).to(torch.int8)
+    with pytest.raises(ValueError, match="self_q"):
+        HP.neighbor_distances(None, codes, _t(idx), q_idx=_t(idx),
+                              self_q=True, scales=torch.ones(200))
+    with pytest.raises(ValueError, match="self_q"):
+        l2dist.gather_distances(None, codes, _t(idx), self_q=True,
+                                scales=torch.ones(200))
 

@@ -165,12 +165,7 @@ def test_argument_validation(world):
 @pytest.mark.parametrize("search,kw", [(t_small, SMALL), (t_large, LARGE)])
 def test_later_slice_options_raise(world, search, kw):
     X, G, Q = world["X"], world["graph"], world["Q"][:4]
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        search(X, G, Q, alive=torch.ones(1500, dtype=torch.bool), **kw)
     permuted = PackedGraph(G.neighbors, G.lambdas, G.degrees, G.hubs,
                            perm=torch.arange(1500, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="queue A item 11"):
         search(X, permuted, Q, **kw)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        search(X, G, Q, codes=X.to(torch.int8), scales=torch.ones(1500),
-               **kw)
