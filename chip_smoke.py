@@ -33,10 +33,21 @@ Phases, each printing its own lines:
    chunks); then ``compact()`` and a search of the new generation;
 6. a ``torch.profiler`` trace of one build and of each search: the
    device's busy share of the wall time and the costliest device ops;
-   and the k-NN recall of ``nn_descent`` on 2000 sampled nodes.
+   and the k-NN recall of ``nn_descent`` on 2000 sampled nodes;
+9. the kernel API (``repro_torch.kernels.ops``): each of its four kernels
+   against its plain version at full size (distances within
+   1e-5 * (qn + xn), sorts exactly, embedding bags within 1e-6 * the
+   bag's sum of |rows|, SpMM within 1e-5 * (|agg| @ |W|)) with its times
+   and bound; then, with every counter at 0, the API's path: the exact
+   k-NN of phase 3's first 1,024 queries against the whole corpus through
+   ``ops.distance_matrix`` + ``ops.bitonic_topk`` (recall@10 >= 0.999
+   against the ground truth), wide_deep's bag field (10,000,000 x 32,
+   bag 10, B = 512 and 65,536) through ``ops.embedding_bag`` and
+   GraphSAGE's first layer on Reddit through ``ops.packed_spmm``.
 
 Phases 3-4, 7 and 8 each start with every launch counter at 0 and read
-the counters at their end; every kernel body must have launched in them.
+the counters at their end; each of the six ANN kernel bodies must have
+launched in them.  Phase 9's path must launch each of its four.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -59,10 +70,34 @@ FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 ROUTE = "cuda"
 STREAM_ADDS = 16384           # phase 8's added rows (delta capacity 16384)
 STREAM_DELETED_ADDS = 1024    # ... of which deleted again
+# the six kernel bodies of the ANN path (phases 3-4, 7 and 8)
+ANN_BODIES = ("gather_distances", "gather_distances_int8", "rank_merge",
+              "visited_filter", "block_distances", "block_distances_int8")
+# phase 9, the kernel API, at shapes of the reference's own configurations
+# (src/repro/configs/base.py and graphsage_reddit.py)
+API_BODIES = ("distance_matrix", "bitonic_sort", "embedding_bag",
+              "packed_spmm")
+KNN_QUERIES = 1024            # exact k-NN: phase 3's first 1,024 queries
+BAG_ROWS, BAG_DIM, BAG_SIZE = 10_000_000, 32, 10   # wide_deep's bag fields
+BAG_BATCHES = (512, 65536)    # RECSYS_SHAPES serve_p99, train_batch
+GNN_NODES, GNN_FANOUT = 232_965, 15   # GNN_SHAPES minibatch_lg (Reddit)
+GNN_FEAT, GNN_HIDDEN = 602, 128       # d_feat; graphsage_reddit d_hidden
+GNN_SENTINEL_SHARE = 0.1      # neighbour lanes set to the sentinel Nf
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_kernel(kname: str, r: dict, extra: str = "") -> None:
+    """One ``[kernel]`` line: a kernel at one shape against its plain
+    version, with its times and bound."""
+    lib = r["library_ms"]
+    log(f"[kernel] {kname} {r['shape']}: ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} library_ms="
+        f"{lib if lib is None else round(lib, 4)} "
+        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+        f"max_abs_err={r['max_abs_err']:.3g} ok{extra}")
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 1) -> float:
@@ -337,6 +372,308 @@ def check_visited(name, B, bound_ins, M, dev, gen):
 
 
 # --------------------------------------------------------------------------
+# phase 9: the kernel API (kernels/ops.py), each kernel against its plain
+# version
+# --------------------------------------------------------------------------
+
+def check_distance_matrix(name, Q, X, metric="l2"):
+    """``ops.distance_matrix`` against its plain version; returns the row
+    of numbers and the kernel's output."""
+    import torch
+
+    from repro_torch.kernels import block, ops
+
+    B, d = Q.shape
+    N = X.shape[0]
+
+    def kern():
+        return ops.distance_matrix(Q, X, metric=metric)
+
+    def plain():
+        return block.distance_matrix_plain(Q, X, metric=metric)
+
+    def library():  # torch.matmul, TF32 off, + the epilogue in PyTorch
+        Qf, Xf = Q.float(), X.float()
+        dots = torch.matmul(Qf, Xf.T)
+        if metric != "l2":
+            return -dots
+        return (Qf * Qf).sum(1)[:, None] + (Xf * Xf).sum(1) - 2.0 * dots
+
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    xn = (X.double() ** 2).sum(1)
+    qn = (Q.double() ** 2).sum(1)
+    err_max, bad = 0.0, 0
+    for lo in range(0, B, 64):     # the float64 check in row chunks
+        err = (out[lo:lo + 64].double() - ref[lo:lo + 64].double()).abs()
+        bad += int((err > 1e-5 * (qn[lo:lo + 64, None] + xn)).sum())
+        err_max = max(err_max, float(err.max()))
+    if bad or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"distance_matrix {name}: {bad} entries over "
+                             "1e-5*(qn+xn)")
+    del ref
+    big = B * N > 1 << 26
+    it = 3 if big else 20
+    ms = cuda_ms(kern, it)
+    plain_ms = cuda_ms(plain, max(1, it // 3))
+    lib_ms = cuda_ms(library, max(1, it // 3))
+    isz = Q.element_size()
+    nbytes = (B + N) * d * isz + B * N * 4
+    flops = 2 * B * N * d + (2 * (B + N) * d if metric == "l2" else 0)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(shape=name, B=B, N=N, d=d, dtype=str(Q.dtype).replace(
+        "torch.", ""), max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), out
+
+
+def check_sort(name, dists, ids, keep):
+    """``ops.bitonic_sort`` (keep = W) or ``ops.bitonic_topk`` against its
+    plain version, exactly: the same ids and the same values."""
+    import torch
+
+    from repro_torch.kernels import ops, topk
+
+    R, W = dists.shape
+    rows = max(1, (1 << 27) // W)
+
+    def kern():
+        if keep == W:
+            return ops.bitonic_sort(dists, ids)
+        return ops.bitonic_topk(dists, ids, keep)
+
+    def plain(lo=0, hi=R):
+        return topk.bitonic_topk_plain(dists[lo:hi], ids[lo:hi], keep)
+
+    od, oi = kern()
+    rd, ri = chunked(plain, R, rows)
+    torch.cuda.synchronize()
+    if not (bool((od == rd).all()) and torch.equal(oi, ri)):
+        raise AssertionError(f"bitonic_sort {name}: kernel != plain")
+    del od, oi, rd, ri
+    it = 3 if R * W > 1 << 24 else 20
+    ms = cuda_ms(kern, it)
+    plain_ms = cuda_ms(lambda: chunked(plain, R, rows), max(1, it // 3))
+    lib_ms = cuda_ms(lambda: torch.sort(dists, dim=1, stable=True),
+                     max(1, it // 3))
+    b_ms, b_by = bound(R * W * 8 + R * keep * 8, R * network_ops(W, keep))
+    return dict(shape=name, R=R, W=W, keep=keep, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def sort_case(R, W, dev, gen):
+    """Distances with repeats, -0.0 beside +0.0, and repeated ids."""
+    import torch
+
+    d = torch.randint(0, 64, (R, W), generator=gen, device=dev).float() * 0.5
+    d[torch.rand((R, W), generator=gen, device=dev) < 0.05] = -0.0
+    ids = torch.randint(0, 1 << 20, (R, W), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return d, ids
+
+
+def check_embedding_bag(name, table, ids, combine="mean"):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag, ops
+
+    B, bag = ids.shape
+    E = table.shape[1]
+
+    def kern():
+        return ops.embedding_bag(table, ids, combine=combine)
+
+    def plain():
+        return embedding_bag.embedding_bag_plain(table, ids, combine=combine)
+
+    ids64 = ids.long()
+
+    def library():
+        return F.embedding_bag(ids64, table, mode=combine)
+
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    scale = table.abs()[ids64].sum(1) / (bag if combine == "mean" else 1)
+    err = (out - ref).abs()
+    if bool((err > 1e-6 * scale).any()) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"embedding_bag {name}: over 1e-6*sum|rows|")
+    ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(plain, 5)
+    lib_ms = cuda_ms(library, 5)
+    rows = int(torch.unique(ids).numel())   # the rows this batch needs
+    b_ms, b_by = bound(rows * E * 4 + B * bag * 4 + B * E * 4, B * bag * E)
+    return dict(shape=name, V=table.shape[0], E=E, B=B, bag=bag,
+                combine=combine, max_abs_err=float(err.max()), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_spmm(name, nbrs, feat, w, combine="mean"):
+    """``ops.packed_spmm`` against its plain version.  No single PyTorch
+    call computes this function (a gather, a masked mean, a product), so
+    library_ms is None."""
+    import torch
+
+    from repro_torch.kernels import ops, segment_matmul
+
+    N, M = nbrs.shape
+    Nf, d = feat.shape
+    f = w.shape[1]
+
+    def kern():
+        return ops.packed_spmm(nbrs, feat, w, combine=combine)
+
+    def plain():
+        return segment_matmul.packed_spmm_plain(nbrs, feat, w,
+                                                combine=combine)
+
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    agg = segment_matmul.aggregate(nbrs, feat, combine=combine)
+    tol = 1e-5 * (agg.abs() @ w.abs())
+    del agg
+    err = (out - ref).abs()
+    if bool((err > tol).any()) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"packed_spmm {name}: over 1e-5*(|agg|@|W|)")
+    del ref, tol
+    ms = cuda_ms(kern, 5)
+    plain_ms = cuda_ms(plain, 2)
+    valid = nbrs < Nf
+    n_valid = int(valid.sum())
+    rows = int(torch.unique(nbrs[valid]).numel())
+    nbytes = N * M * 4 + rows * d * 4 + d * f * 4 + N * f * 4
+    flops = 2 * N * d * f + n_valid * d + (N * d if combine == "mean" else 0)
+    b_ms, b_by = bound(nbytes, flops)
+    gathered = n_valid * d * 4          # the valid lanes' rows
+    return dict(shape=name, N=N, M=M, Nf=Nf, d=d, f=f, combine=combine,
+                valid_lanes=n_valid, max_abs_err=float(err.max()), ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, gathered_bytes=gathered,
+                gathered_ms=gathered / HBM_BYTES_PER_S * 1e3,
+                all_lanes_bytes=N * M * d * 4)
+
+
+def api_phase(ds, n, d, dev, gen) -> tuple:
+    """Phase 9: each kernel of the kernel API against its plain version at
+    full size, then the API's path with every counter reset: the exact
+    k-NN of phase 3's first queries through ``ops.distance_matrix`` and
+    ``ops.bitonic_topk`` (recall@10 against the ground truth), wide_deep's
+    bag field through ``ops.embedding_bag`` and GraphSAGE's first layer
+    through ``ops.packed_spmm``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.data.synthetic import recall_at_k
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the library yardstick
+    shapes = {k: [] for k in API_BODIES}
+    for B, N, dt in ((256, 8192, torch.float32), (256, 8192, torch.bfloat16)):
+        Q = torch.randn((B, d), generator=gen, device=dev).to(dt)
+        X = torch.randn((N, d), generator=gen, device=dev).to(dt)
+        row, _ = check_distance_matrix(
+            f"[{B}, {N}] x {d} {str(dt).replace('torch.', '')}", Q, X)
+        shapes["distance_matrix"].append(row)
+    nq = min(KNN_QUERIES, ds.Q.shape[0])
+    Qk = torch.as_tensor(ds.Q[:nq], device=dev)
+    Xk = torch.as_tensor(ds.X, device=dev)
+    knn_shape = f"exact k-NN [{nq}, {n}] x {d}"
+    row, D = check_distance_matrix(knn_shape, Qk, Xk)
+    shapes["distance_matrix"].append(row)
+    ids_all = torch.arange(n, dtype=torch.int32,
+                           device=dev).expand(nq, n).contiguous()
+    topk_shape = f"top-10 of [{nq}, {n}]"
+    shapes["bitonic_sort"].append(check_sort(topk_shape, D, ids_all, 10))
+    del D
+    torch.cuda.empty_cache()
+    for name, R, W, keep in (("sort [2048, 64]", 2048, 64, 64),
+                             ("top-10 of [10240, 1024]", 10240, 1024, 10),
+                             ("sort [64, 16384]", 64, 16384, 16384)):
+        shapes["bitonic_sort"].append(check_sort(name, *sort_case(
+            R, W, dev, gen), keep))
+    table = torch.randn((BAG_ROWS, BAG_DIM), generator=gen, device=dev)
+    bag_ids = {B: torch.randint(0, BAG_ROWS, (B, BAG_SIZE), generator=gen,
+                                device=dev, dtype=torch.int32)
+               for B in BAG_BATCHES}
+    for B, ids in bag_ids.items():
+        shapes["embedding_bag"].append(check_embedding_bag(
+            f"[{BAG_ROWS}, {BAG_DIM}] bag {BAG_SIZE} mean B={B}", table, ids))
+    feat = torch.randn((GNN_NODES, GNN_FEAT), generator=gen, device=dev)
+    w = torch.randn((GNN_FEAT, GNN_HIDDEN), generator=gen,
+                    device=dev) * GNN_FEAT ** -0.5
+    nbrs = torch.randint(0, GNN_NODES, (GNN_NODES, GNN_FANOUT),
+                         generator=gen, device=dev, dtype=torch.int32)
+    nbrs[torch.rand(nbrs.shape, generator=gen, device=dev)
+         < GNN_SENTINEL_SHARE] = GNN_NODES
+    spmm_shape = (f"N={GNN_NODES} M={GNN_FANOUT} [{GNN_NODES}, {GNN_FEAT}] "
+                  f"@ [{GNN_FEAT}, {GNN_HIDDEN}] mean")
+    shapes["packed_spmm"].append(check_spmm(spmm_shape, nbrs, feat, w))
+    for kname, rows in shapes.items():
+        for r in rows:
+            extra = ""
+            if kname == "packed_spmm":
+                extra = (f" (no single PyTorch call computes it; the "
+                         f"valid lanes gather {r['gathered_bytes'] / 1e9:.2f}"
+                         f" GB = {r['gathered_ms']:.3f} ms at 3.35 TB/s, all "
+                         f"N*M lanes {r['all_lanes_bytes'] / 1e9:.2f} GB)")
+            log_kernel(kname, r, extra)
+
+    # the kernel API's path, counted
+    out: dict = {}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    D = ops.distance_matrix(Qk, Xk)
+    _, top = ops.bitonic_topk(D, ids_all, 10)
+    torch.cuda.synchronize()
+    out["knn_s"] = time.perf_counter() - t0
+    del D
+    found = top.cpu().numpy()
+    if found.shape != (nq, 10) or not ((found >= 0) & (found < n)).all():
+        raise AssertionError("exact k-NN: bad ids")
+    out["knn_recall_at_10"] = rec = recall_at_k(found, ds.gt[:nq], 10)
+    log(f"[api] exact k-NN of {nq} queries over {n} rows through "
+        f"ops.distance_matrix + ops.bitonic_topk: {out['knn_s'] * 1e3:.2f} "
+        f"ms, recall@10={rec:.4f} (make_clustered's ground truth)")
+    if rec < 0.999:
+        raise AssertionError(f"exact k-NN recall@10 {rec} < 0.999")
+    for B, ids in bag_ids.items():
+        t0 = time.perf_counter()
+        emb = ops.embedding_bag(table, ids, combine="mean")
+        torch.cuda.synchronize()
+        out[f"embedding_bag_{B}_ms"] = (time.perf_counter() - t0) * 1e3
+        if emb.shape != (B, BAG_DIM) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"embedding_bag B={B}: bad output")
+    t0 = time.perf_counter()
+    h = ops.packed_spmm(nbrs, feat, w, combine="mean")
+    torch.cuda.synchronize()
+    out["packed_spmm_ms"] = (time.perf_counter() - t0) * 1e3
+    if h.shape != (GNN_NODES, GNN_HIDDEN) or not bool(
+            torch.isfinite(h).all()):
+        raise AssertionError("packed_spmm: bad output")
+    log("[api] embedding_bag B=" + ", B=".join(
+        f"{B}: {out[f'embedding_bag_{B}_ms']:.3f} ms" for B in BAG_BATCHES)
+        + f"; packed_spmm: {out['packed_spmm_ms']:.3f} ms (host clock)")
+    launches = K.launch_counts()
+    log("[launches] phase 9 " + json.dumps(launches))
+    missing = [k for k in API_BODIES if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the kernel API's "
+                             f"path: {missing}")
+    main = dict(distance_matrix=knn_shape, bitonic_sort=topk_shape,
+                embedding_bag=f"[{BAG_ROWS}, {BAG_DIM}] bag {BAG_SIZE} mean "
+                              f"B={BAG_BATCHES[-1]}",
+                packed_spmm=spmm_shape)
+    return shapes, main, {k: launches[k] for k in API_BODIES}, out
+
+
+# --------------------------------------------------------------------------
 # phase 8: streaming mutability
 # --------------------------------------------------------------------------
 
@@ -600,6 +937,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--queries", type=int, default=10240)
     args = ap.parse_args()
+    if args.n & (args.n - 1):
+        ap.error("--n must be a power of two (phase 9 sorts rows of n lanes)")
 
     import torch
 
@@ -697,11 +1036,7 @@ def main() -> int:
                                                       gen=gen))
     for kname, rows in shapes.items():
         for r in rows:
-            log(f"[kernel] {kname} {r['shape']}: ms={r['ms']:.4f} "
-                f"plain_ms={r['plain_ms']:.4f} library_ms="
-                f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
-                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-                f"max_abs_err={r['max_abs_err']:.3g} ok")
+            log_kernel(kname, r)
     log("[kernels] " + ", ".join(
         f"{k} ({len(v)} shapes)" for k, v in shapes.items())
         + f": route {ROUTE}, each matches its plain version")
@@ -831,7 +1166,7 @@ def main() -> int:
     phase_launches["8"] = K.launch_counts()
     log("[launches] phase 8 " + json.dumps(phase_launches["8"]))
     launches = {k: sum(p[k] for p in phase_launches.values())
-                for k in K.launch_counts()}
+                for k in ANN_BODIES}
     log("[launches] phases 3-4, 7, 8 " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
@@ -840,6 +1175,15 @@ def main() -> int:
 
     # ---- phase 6: where the device time goes ------------------------------
     record["profile"] = profile_run(ds, index, cfg, args.queries, dev)
+    del index, graph, idx_v, results, ref
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the kernel API ------------------------------------------
+    api_shapes, api_main, api_launches, record["api"] = api_phase(
+        ds, n, d, dev, gen)
+    shapes.update(api_shapes)
+    launches.update(api_launches)
+    phase_launches["9"] = api_launches
 
     # ---- summary -----------------------------------------------------------
     meta = {
@@ -859,6 +1203,18 @@ def main() -> int:
         "block_distances_int8": ("src/repro_torch/kernels/csrc/block.cu",
                                  "src/repro/kernels/l2dist.py:114",
                                  f"scan B={args.queries}"),
+        "distance_matrix": ("src/repro_torch/kernels/csrc/block.cu",
+                            "src/repro/kernels/l2dist.py:42",
+                            api_main["distance_matrix"]),
+        "bitonic_sort": ("src/repro_torch/kernels/csrc/topk.cu",
+                         "src/repro/kernels/topk.py:75",
+                         api_main["bitonic_sort"]),
+        "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                          "src/repro/kernels/embedding_bag.py:45",
+                          api_main["embedding_bag"]),
+        "packed_spmm": ("src/repro_torch/kernels/csrc/segment_matmul.cu",
+                        "src/repro/kernels/segment_matmul.py:51",
+                        api_main["packed_spmm"]),
     }
     kernels = []
     for kname, (source, replaces, main_shape) in meta.items():

@@ -1,10 +1,13 @@
-"""Distance block over pre-gathered rows: CUDA kernel wrapper + its plain
-version.
+"""Distance block over pre-gathered rows, and the dense distance matrix:
+CUDA kernel wrappers + their plain versions.
 
-Replaces the reference's ``kernels/l2dist.py::block_distances_pallas``
-(fp32 and int8 bodies).  The kernel is ``csrc/block.cu``; its header note
-gives the bound and the design.  Its caller on the search path is
-``hotpath.scan_distances``, the brute-force scan of the delta shard.
+:func:`block_distances` replaces the reference's
+``kernels/l2dist.py::block_distances_pallas`` (fp32 and int8 bodies).  Its
+caller on the search path is ``hotpath.scan_distances``, the brute-force
+scan of the delta shard.  :func:`distance_matrix` replaces
+``kernels/l2dist.py::distance_matrix_pallas`` with the same tile.  The
+kernel is ``csrc/block.cu``; its header note gives the bounds and the
+design.
 
 ``out[s, q, c] = qn + vn - 2 <Q[s, q], V[s, c]>`` (``-<., .>`` for ip/cos),
 3.4e38 where ``mask`` is False.  With ``v_scales`` the rows of V are int8
@@ -90,3 +93,44 @@ def block_distances(Q, V, mask=None, v_scales=None, *,
                     else "block_distances"] += 1
     return out
 
+
+def distance_matrix_plain(Q, X, *, metric: str = "l2") -> torch.Tensor:
+    """The same function in plain PyTorch (any device): Q [B, d] x
+    X [N, d], upcast to float32 -> [B, N] float32 (``-dots`` for ip and
+    cos: the caller normalises for cos, as the reference does)."""
+    return block_distances_plain(Q.to(torch.float32)[None],
+                                 X.to(torch.float32)[None],
+                                 metric=metric)[0]
+
+
+def distance_matrix(Q, X, *, metric: str = "l2") -> torch.Tensor:
+    """Q [B, d] x X [N, d], both float32 or both bfloat16 -> [B, N]
+    float32.  CPU tensors take :func:`distance_matrix_plain`; CUDA tensors
+    launch ``csrc/block.cu``'s tile with S = 1 and no mask (counted on
+    ``distance_matrix``).  Replaces the reference's
+    ``kernels/l2dist.py::distance_matrix_pallas``."""
+    if X.device.type == "cpu":
+        return distance_matrix_plain(Q, X, metric=metric)
+    if metric not in ("l2", "ip", "cos"):
+        raise ValueError(f"metric={metric!r}")
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"X: float32 or bfloat16 rows, got {X.dtype}")
+    dev = X.device
+    check(X, "X", X.dtype, (None, None), dev)
+    N, d = X.shape
+    check(Q, "Q", X.dtype, (None, d), dev)
+    B = Q.shape[0]
+    if -(-B // 64) > 65535:
+        raise ValueError(f"B={B} exceeds the kernel's 65535 row tiles "
+                         f"(at most {65535 * 64} queries per call)")
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    fn = _build.library("block").repro_distance_matrix
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_build.ptr(Q), _build.ptr(X), _build.ptr(out), B, N, d,
+             int(metric in ("ip", "cos")), int(X.dtype == torch.bfloat16),
+             _build.stream_of(X))
+    _build.check(err, "distance_matrix")
+    _build.LAUNCHES["distance_matrix"] += 1
+    return out

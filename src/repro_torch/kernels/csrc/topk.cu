@@ -8,14 +8,19 @@
 // `keep` lanes are written out.  The compare is the reference's
 //   a before b  <=>  a_d < b_d  or  (a_d == b_d and a_i < b_i),
 // so -0.0 and +0.0 tie and break on id, as lexsort((ids, dists)) does.
+// With a null mask and a power-of-two W the same entry is the reference's
+// bitonic_sort_pallas (keep = W) and bitonic_topk_pallas (keep = k), which
+// share _bitonic_network with rank_merge_pallas as they share this one.
 //
 // Bound: memory for the widths on the search path (R * W * 9 bytes in,
 // R * keep * 8 out); the network's Wp/2 * log2(Wp) * (log2(Wp) + 1) / 2
-// compare-exchanges per row run from shared memory.  Design: one CTA per
-// row, the padded row staged once in shared memory (8 * Wp bytes, 16 KB at
-// the largest width 2048), every stage a pass of independent
-// compare-exchanges separated by __syncthreads, and only the kept prefix
-// written back.
+// compare-exchanges per row run from shared memory, and at the widest
+// rows (16,384 lanes) they take longer than the bytes.  Design: one CTA
+// per row, the padded row staged once in shared memory (8 * Wp bytes, up
+// to 128 KB at the widest 16,384 lanes, above 48 KB as dynamic shared
+// memory), every stage a pass of independent compare-exchanges separated
+// by __syncthreads, and only the kept prefix written back.  Wider rows are
+// merged in column chunks by the caller (kernels/topk.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -1,0 +1,67 @@
+"""EmbeddingBag: CUDA kernel wrapper + its plain version.
+
+Replaces the reference's ``kernels/embedding_bag.py::embedding_bag_pallas``.
+The kernel is ``csrc/embedding_bag.cu`` (one warp per bag, the bag's row
+loads issued before the adds); its header note gives the bound and the
+design.
+
+``out[b] = sum_t table[ids[b, t]]`` summed in float32 in the order
+t = 0 .. bag-1 from zero, divided by ``bag`` for ``combine="mean"``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.block import check
+
+COMBINES = ("mean", "sum")
+
+
+def embedding_bag_plain(table, ids, *, combine: str = "mean"):
+    """The same function in plain PyTorch (any device): table [V, E] x
+    ids [B, bag] -> [B, E] in the table's dtype.  Ids are clamped into
+    [0, V) as the kernel clamps them (the reference leaves them
+    undefined there)."""
+    if combine not in COMBINES:
+        raise ValueError(f"combine={combine!r}")
+    B, bag = ids.shape
+    rows = ids.long().clamp(0, table.shape[0] - 1)
+    acc = torch.zeros((B, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for t in range(bag):
+        acc = acc + table[rows[:, t]].to(torch.float32)
+    if combine == "mean":
+        # a true division, as the kernel and the reference divide: PyTorch
+        # multiplies by the reciprocal when the divisor is a Python scalar
+        acc = acc / torch.full((), bag, dtype=torch.float32,
+                               device=acc.device)
+    return acc.to(table.dtype)
+
+
+def embedding_bag(table, ids, *, combine: str = "mean"):
+    """table [V, E] float32 x ids [B, bag] int32 -> [B, E] float32.  CPU
+    tensors take :func:`embedding_bag_plain`; CUDA tensors launch the
+    kernel (counted on ``embedding_bag``)."""
+    if table.device.type == "cpu":
+        return embedding_bag_plain(table, ids, combine=combine)
+    if combine not in COMBINES:
+        raise ValueError(f"combine={combine!r}")
+    dev = table.device
+    check(table, "table", torch.float32, (None, None), dev)
+    check(ids, "ids", torch.int32, (None, None), dev)
+    (V, E), (B, bag) = table.shape, ids.shape
+    if V == 0 and B * bag > 0:
+        raise ValueError("an empty table has no rows to look up")
+    out = torch.empty((B, E), dtype=torch.float32, device=dev)
+    fn = _build.library("embedding_bag").repro_embedding_bag
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_build.ptr(table), _build.ptr(ids), _build.ptr(out), B, bag, V,
+             E, int(combine == "mean"), _build.stream_of(table))
+    _build.check(err, "embedding_bag")
+    _build.LAUNCHES["embedding_bag"] += 1
+    return out

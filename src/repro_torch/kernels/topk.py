@@ -1,12 +1,18 @@
-"""(dist, id) rank merge: CUDA kernel wrapper + its plain version.
+"""(dist, id) rank merge and bitonic sort / top-k: CUDA kernel wrappers +
+their plain versions.
 
-Replaces the reference's ``kernels/topk.py::rank_merge_pallas``.  The
-kernel is ``csrc/topk.cu`` (one CTA per row, bitonic network in shared
-memory, ids carried); its header note gives the bound and the design.
+:func:`rank_merge` replaces the reference's
+``kernels/topk.py::rank_merge_pallas``; :func:`bitonic_sort` and
+:func:`bitonic_topk` replace ``bitonic_sort_pallas`` and
+``bitonic_topk_pallas``, which share its network there as they share the
+kernel here.  The kernel is ``csrc/topk.cu`` (one CTA per row, bitonic
+network in shared memory, ids carried); its header note gives the bound
+and the design.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -58,16 +64,8 @@ def merge_in_chunks(merge, dists, ids, mask=None, *, keep: int,
     return merge(dists, ids, mask, keep=keep)
 
 
-def rank_merge(dists, ids, mask=None, *, keep: int):
-    """dists [R, W] float32, ids [R, W] int32, mask [R, W] bool or None ->
-    (dists [R, keep], ids [R, keep]).  CPU tensors take
-    :func:`rank_merge_plain`; CUDA tensors launch the kernel, in column
-    chunks (:func:`merge_in_chunks`) when W exceeds its ``MAX_LANES``."""
-    if dists.device.type == "cpu":
-        return rank_merge_plain(dists, ids, mask, keep=keep)
+def _check_rows(dists, ids, mask):
     R, W = dists.shape
-    if not 0 < keep <= W:
-        raise ValueError(f"keep={keep} must be in (0, {W}]")
     dev = dists.device
     for t, name, dt in ((dists, "dists", torch.float32),
                         (ids, "ids", torch.int32),
@@ -79,9 +77,12 @@ def rank_merge(dists, ids, mask=None, *, keep: int):
             raise ValueError(
                 f"{name}: expected contiguous {dt} [{R}, {W}] on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if W > MAX_LANES:
-        return merge_in_chunks(rank_merge, dists, ids, mask, keep=keep,
-                               width=MAX_LANES)
+
+
+def _launch(dists, ids, mask, keep: int, counter: str):
+    """One launch of the network over rows of at most ``MAX_LANES``."""
+    R, W = dists.shape
+    dev = dists.device
     Wp = 1 << max(W - 1, 0).bit_length()
     od = torch.empty((R, keep), dtype=torch.float32, device=dev)
     oi = torch.empty((R, keep), dtype=torch.int32, device=dev)
@@ -92,6 +93,75 @@ def rank_merge(dists, ids, mask=None, *, keep: int):
     err = fn(_build.ptr(dists), _build.ptr(ids), _build.ptr(mask),
              _build.ptr(od), _build.ptr(oi), R, W, Wp, keep,
              _build.stream_of(dists))
-    _build.check(err, "rank_merge")
-    _build.LAUNCHES["rank_merge"] += 1
+    _build.check(err, counter)
+    _build.LAUNCHES[counter] += 1
     return od, oi
+
+
+def rank_merge(dists, ids, mask=None, *, keep: int):
+    """dists [R, W] float32, ids [R, W] int32, mask [R, W] bool or None ->
+    (dists [R, keep], ids [R, keep]).  CPU tensors take
+    :func:`rank_merge_plain`; CUDA tensors launch the kernel, in column
+    chunks (:func:`merge_in_chunks`) when W exceeds its ``MAX_LANES``."""
+    if dists.device.type == "cpu":
+        return rank_merge_plain(dists, ids, mask, keep=keep)
+    W = dists.shape[1]
+    if not 0 < keep <= W:
+        raise ValueError(f"keep={keep} must be in (0, {W}]")
+    _check_rows(dists, ids, mask)
+    if W > MAX_LANES:
+        return merge_in_chunks(rank_merge, dists, ids, mask, keep=keep,
+                               width=MAX_LANES)
+    return _launch(dists, ids, mask, keep, "rank_merge")
+
+
+def _power_of_two(W: int) -> None:
+    if W <= 0 or W & (W - 1):
+        raise ValueError(f"width {W} must be a power of two")
+
+
+def bitonic_topk_plain(dists, ids, k: int):
+    """The first ``k`` lanes of each row in ascending (dist, id) order
+    (plain PyTorch, any device, any width)."""
+    return rank_merge_plain(dists, ids, keep=k)
+
+
+def bitonic_sort_plain(dists, ids):
+    """Row-wise ascending (dist, id) sort, ids carried (plain PyTorch, any
+    device, any width)."""
+    return rank_merge_plain(dists, ids, keep=dists.shape[1])
+
+
+def bitonic_topk(dists, ids, k: int):
+    """dists [R, W] float32, ids [R, W] int32, W a power of two ->
+    the first ``k`` lanes of each row in ascending (dist, id) order.
+    A width that is not a power of two raises ``ValueError`` on any
+    device, as the reference's kernel refuses it.  CPU tensors take
+    :func:`bitonic_topk_plain`; CUDA tensors launch the kernel (counted on
+    ``bitonic_sort``), in column chunks when W exceeds ``MAX_LANES``."""
+    W = dists.shape[1]
+    _power_of_two(W)
+    if not 0 < k <= W:
+        raise ValueError(f"k={k} must be in (0, {W}]")
+    if dists.device.type == "cpu":
+        return bitonic_topk_plain(dists, ids, k)
+    _check_rows(dists, ids, None)
+    if W > MAX_LANES:
+        return merge_in_chunks(
+            functools.partial(_launch, counter="bitonic_sort"), dists, ids,
+            keep=k, width=MAX_LANES)
+    return _launch(dists, ids, None, k, "bitonic_sort")
+
+
+def bitonic_sort(dists, ids):
+    """dists [R, W] float32, ids [R, W] int32, W a power of two of at
+    most ``MAX_LANES`` -> both sorted row-wise by (dist, id).  Other widths
+    raise ``ValueError`` on any device; CPU tensors take
+    :func:`bitonic_sort_plain`, CUDA tensors launch the kernel (counted on
+    ``bitonic_sort``)."""
+    W = dists.shape[1]
+    _power_of_two(W)
+    if W > MAX_LANES:
+        raise ValueError(f"width {W} exceeds the {MAX_LANES} lanes the "
+                         "kernel sorts in shared memory")
+    return bitonic_topk(dists, ids, W)

@@ -7,7 +7,9 @@ package, so it runs on a GPU host that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: distances within 1e-5 * (qn + vn) (the kernel sums in another
-order than cuBLAS), merges and the visited filter exactly.
+order than cuBLAS), merges, sorts and the visited filter exactly,
+embedding bags within 1e-6 * the bag's sum of |rows|, packed SpMM within
+1e-5 * (|agg| @ |W|).
 """
 import dataclasses
 
@@ -21,7 +23,8 @@ from repro_torch.configs.tsdg_paper import reduced
 from repro_torch.core import hotpath as HP
 from repro_torch.data.synthetic import make_clustered, recall_at_k
 from repro_torch.ann.quantize import quantize_rows
-from repro_torch.kernels import block, l2dist, topk, visited
+from repro_torch.kernels import (block, embedding_bag, l2dist, ops,
+                                  segment_matmul, topk, visited)
 
 pytestmark = pytest.mark.cuda
 
@@ -270,3 +273,99 @@ def test_int8_stream_past_the_merge_width_matches_plain_path(dev):
     ids, _ = idx.search(V[16390:16398])      # live: no multiple of 9
     assert (ids[:, 0] == 3000 + np.arange(16390, 16398)).all()
     assert K.launch_counts()["block_distances_int8"] > 0
+
+
+# ----------------------------------------------------------------------
+# the kernel API (kernels/ops.py)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,N,d", [(1, 300, 33), (70, 200, 48),
+                                   (130, 1000, 128)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_distance_matrix_matches_plain(dev, rng, B, N, d, metric, dtype):
+    Q, X = _on(dev, rng.normal(size=(B, d)).astype(np.float32),
+               rng.normal(size=(N, d)).astype(np.float32))
+    Q, X = Q.to(dtype), X.to(dtype)
+    n0 = K.launch_counts()["distance_matrix"]
+    out = ops.distance_matrix(Q, X, metric=metric)
+    ref = block.distance_matrix_plain(Q, X, metric=metric)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["distance_matrix"] == n0 + 1
+    assert out.dtype == torch.float32 and out.shape == (B, N)
+    norms = (Q.double() ** 2).sum(1)[:, None] + (X.double() ** 2).sum(1)
+    assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
+
+
+def test_distance_matrix_rejects_mixed_types(dev):
+    X = torch.zeros((10, 4), device=dev)
+    with pytest.raises(ValueError, match="Q"):
+        ops.distance_matrix(X.to(torch.bfloat16), X)
+    with pytest.raises(ValueError, match="X"):
+        ops.distance_matrix(X.half(), X.half())
+
+
+@pytest.mark.parametrize("R,W", [(3, 8), (37, 32), (200, 1024),
+                                 (4, 16384)])
+def test_bitonic_sort_matches_plain(dev, rng, R, W):
+    """Repeated distances, -0.0 beside +0.0 and repeated ids, up to the
+    kernel's widest row."""
+    d = (rng.integers(0, 6, size=(R, W)) * 0.5).astype(np.float32)
+    d[rng.random((R, W)) < 0.1] = -0.0
+    d, ids = _on(dev, d, rng.integers(0, 99, size=(R, W)).astype(np.int32))
+    n0 = K.launch_counts()["bitonic_sort"]
+    od, oi = ops.bitonic_sort(d, ids)
+    rd, ri = topk.bitonic_sort_plain(d, ids)
+    assert K.launch_counts()["bitonic_sort"] == n0 + 1
+    assert torch.equal(oi, ri) and bool((od == rd).all())
+
+
+@pytest.mark.parametrize("W,k,launches", [(1024, 10, 1), (32768, 10, 3)])
+def test_bitonic_topk_matches_plain(dev, rng, W, k, launches):
+    """Rows wider than 16,384 lanes go through in column chunks, each a
+    launch, and the survivors are merged once more."""
+    d, ids = _on(dev, rng.normal(size=(3, W)).astype(np.float32),
+                 rng.integers(0, 1 << 20, size=(3, W)).astype(np.int32))
+    n0 = K.launch_counts()["bitonic_sort"]
+    od, oi = ops.bitonic_topk(d, ids, k)
+    rd, ri = topk.bitonic_topk_plain(d, ids, k)
+    assert K.launch_counts()["bitonic_sort"] - n0 == launches
+    assert torch.equal(oi, ri) and torch.equal(od, rd)
+
+
+@pytest.mark.parametrize("V,E,B,bag", [(1000, 32, 64, 10), (500, 40, 19, 7),
+                                       (300, 8, 33, 20)])
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+def test_embedding_bag_matches_plain(dev, rng, V, E, B, bag, combine):
+    """E off the warp's 32 lanes, and bags longer than the 16 row loads
+    the kernel issues at once."""
+    table, ids = _on(dev, rng.normal(size=(V, E)).astype(np.float32),
+                     rng.integers(0, V, size=(B, bag)).astype(np.int32))
+    n0 = K.launch_counts()["embedding_bag"]
+    out = ops.embedding_bag(table, ids, combine=combine)
+    ref = embedding_bag.embedding_bag_plain(table, ids, combine=combine)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] == n0 + 1
+    scale = table.abs()[ids.long()].sum(1) / (bag if combine == "mean" else 1)
+    assert ((out - ref).abs() <= 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("N,M,d,f", [(300, 15, 70, 200), (129, 20, 32, 16)])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_packed_spmm_matches_plain(dev, rng, N, M, d, f, combine):
+    """Sentinels skipped, negative ids read row 0, an all-sentinel row
+    gives zeros; d and f off the kernel's 32 x 128 tiles, M past its 16
+    row loads at once."""
+    nbrs = rng.integers(-2, N + N // 9, size=(N, M)).astype(np.int32)
+    nbrs[5] = N
+    nbrs, feat, w = _on(dev, nbrs, rng.normal(size=(N, d)).astype(np.float32),
+                        rng.normal(size=(d, f)).astype(np.float32))
+    n0 = K.launch_counts()["packed_spmm"]
+    out = ops.packed_spmm(nbrs, feat, w, combine=combine)
+    ref = segment_matmul.packed_spmm_plain(nbrs, feat, w, combine=combine)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["packed_spmm"] == n0 + 1
+    agg = segment_matmul.aggregate(nbrs, feat, combine=combine)
+    tol = 1e-5 * (agg.abs() @ w.abs())
+    assert ((out - ref).abs() <= tol).all()
+    assert (out[5] == 0).all()

@@ -24,7 +24,7 @@ from repro.core import hotpath as JHP
 from repro.kernels import visited as jvf
 from repro_torch import kernels as K
 from repro_torch.core import hotpath as HP
-from repro_torch.kernels import block, l2dist, topk, visited
+from repro_torch.kernels import block, l2dist, ops, topk, visited
 
 # the plain versions are small here: one thread each, so the test
 # workers running beside this file keep their cores
@@ -318,9 +318,18 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
         block.block_distances(torch.zeros((1, 3, 8)), torch.zeros(
             (1, 6, 8), dtype=torch.float32 if sc is None else torch.int8),
             v_scales=sc)
+    ops.distance_matrix(torch.zeros((2, 4)), torch.zeros((3, 4)))
+    ops.bitonic_topk(torch.zeros((2, 8)),
+                     torch.zeros((2, 8), dtype=torch.int32), 3)
+    ops.embedding_bag(torch.zeros((5, 4)),
+                      torch.zeros((2, 3), dtype=torch.int32))
+    ops.packed_spmm(torch.zeros((2, 3), dtype=torch.int32),
+                    torch.zeros((5, 4)), torch.zeros((4, 2)))
     assert K.launch_counts() == dict.fromkeys(
         ("gather_distances", "gather_distances_int8", "rank_merge",
-         "visited_filter", "block_distances", "block_distances_int8"), 0)
+         "visited_filter", "block_distances", "block_distances_int8",
+         "distance_matrix", "bitonic_sort", "embedding_bag", "packed_spmm"),
+        0)
 
 
 def test_resolve_backend():
