@@ -34,20 +34,23 @@ Phases, each printing its own lines:
 6. a ``torch.profiler`` trace of one build and of each search: the
    device's busy share of the wall time and the costliest device ops;
    and the k-NN recall of ``nn_descent`` on 2000 sampled nodes;
-9. the kernel API (``repro_torch.kernels.ops``): each of its four kernels
+9. the kernel API (``repro_torch.kernels.ops``): each of its five kernels
    against its plain version at full size (distances within
    1e-5 * (qn + xn), sorts exactly, embedding bags within 1e-6 * the
-   bag's sum of |rows|, SpMM within 1e-5 * (|agg| @ |W|)) with its times
-   and bound; then, with every counter at 0, the API's path: the exact
-   k-NN of phase 3's first 1,024 queries against the whole corpus through
-   ``ops.distance_matrix`` + ``ops.bitonic_topk`` (recall@10 >= 0.999
-   against the ground truth), wide_deep's bag field (10,000,000 x 32,
-   bag 10, B = 512 and 65,536) through ``ops.embedding_bag`` and
-   GraphSAGE's first layer on Reddit through ``ops.packed_spmm``.
+   bag's sum of |rows|, SpMM within 1e-5 * (|agg| @ |W|), attention
+   within 1e-5 * (P @ |V|) of the float32 oracle plus one bf16 rounding)
+   with its times and bound; then, with every counter at 0, the API's
+   path: the exact k-NN of phase 3's first 1,024 queries against the
+   whole corpus through ``ops.distance_matrix`` + ``ops.bitonic_topk``
+   (recall@10 >= 0.999 against the ground truth), wide_deep's bag field
+   (10,000,000 x 32, bag 10, B = 512 and 65,536) through
+   ``ops.embedding_bag``, GraphSAGE's first layer on Reddit through
+   ``ops.packed_spmm`` and one OLMo-1B attention layer (4,096 tokens,
+   16 heads of 128, bf16) through ``ops.flash_attention``.
 
 Phases 3-4, 7 and 8 each start with every launch counter at 0 and read
 the counters at their end; each of the six ANN kernel bodies must have
-launched in them.  Phase 9's path must launch each of its four.
+launched in them.  Phase 9's path must launch each of its five.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -67,6 +70,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 ROUTE = "cuda"
 STREAM_ADDS = 16384           # phase 8's added rows (delta capacity 16384)
 STREAM_DELETED_ADDS = 1024    # ... of which deleted again
@@ -76,13 +80,19 @@ ANN_BODIES = ("gather_distances", "gather_distances_int8", "rank_merge",
 # phase 9, the kernel API, at shapes of the reference's own configurations
 # (src/repro/configs/base.py and graphsage_reddit.py)
 API_BODIES = ("distance_matrix", "bitonic_sort", "embedding_bag",
-              "packed_spmm")
+              "packed_spmm", "flash_attention")
 KNN_QUERIES = 1024            # exact k-NN: phase 3's first 1,024 queries
 BAG_ROWS, BAG_DIM, BAG_SIZE = 10_000_000, 32, 10   # wide_deep's bag fields
 BAG_BATCHES = (512, 65536)    # RECSYS_SHAPES serve_p99, train_batch
 GNN_NODES, GNN_FANOUT = 232_965, 15   # GNN_SHAPES minibatch_lg (Reddit)
 GNN_FEAT, GNN_HIDDEN = 602, 128       # d_feat; graphsage_reddit d_hidden
 GNN_SENTINEL_SHARE = 0.1      # neighbour lanes set to the sentinel Nf
+# attention at OLMo-1B's width (16 heads of 128, no GQA) and gemma3-27b's
+# local layers (32 q heads over 16 KV heads of 128, window 1,024), at
+# LM_SHAPES' 4,096-token training length and 32,768-token decode
+LM_SEQ, LM_DECODE_KV, LM_DECODE_BATCH = 4096, 32768, 8
+OLMO_HEADS, HEAD_DIM = 16, 128
+GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_WINDOW = 32, 16, 1024
 
 
 def log(msg: str) -> None:
@@ -432,7 +442,7 @@ def check_sort(name, dists, ids, keep):
     plain version, exactly: the same ids and the same values."""
     import torch
 
-    from repro_torch.kernels import ops, topk
+    from repro_torch.kernels import ops, ref
 
     R, W = dists.shape
     rows = max(1, (1 << 27) // W)
@@ -443,7 +453,7 @@ def check_sort(name, dists, ids, keep):
         return ops.bitonic_topk(dists, ids, keep)
 
     def plain(lo=0, hi=R):
-        return topk.bitonic_topk_plain(dists[lo:hi], ids[lo:hi], keep)
+        return ref.topk_ref(dists[lo:hi], ids[lo:hi], keep)
 
     od, oi = kern()
     rd, ri = chunked(plain, R, rows)
@@ -456,10 +466,15 @@ def check_sort(name, dists, ids, keep):
     plain_ms = cuda_ms(lambda: chunked(plain, R, rows), max(1, it // 3))
     lib_ms = cuda_ms(lambda: torch.sort(dists, dim=1, stable=True),
                      max(1, it // 3))
+    # a second, informational yardstick for a top-k: a selection, whose
+    # order among tied distances is not the (dist, id) order
+    topk_ms = (cuda_ms(lambda: torch.topk(dists, keep, dim=1,
+                                          largest=False), max(1, it // 3))
+               if keep < W else None)
     b_ms, b_by = bound(R * W * 8 + R * keep * 8, R * network_ops(W, keep))
     return dict(shape=name, R=R, W=W, keep=keep, max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, torch_topk_ms=topk_ms)
 
 
 def sort_case(R, W, dev, gen):
@@ -558,6 +573,92 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
                 all_lanes_bytes=N * M * d * 4)
 
 
+def visible_pairs(Sq, Skv, window, q_offset) -> int:
+    """The (query, key) pairs the causal / window mask lets through."""
+    total = 0
+    for i in range(Sq):
+        p = q_offset + i
+        lo = max(0, p - window + 1) if window > 0 else 0
+        total += max(0, min(p, Skv - 1) - lo + 1)
+    return total
+
+
+def sdpa(q, k, v, window, q_offset):
+    """PyTorch's fused attention on the same inputs (the yardstick, never
+    called by the port): the causal flag where the mask is the plain
+    causal one, an explicit boolean mask otherwise."""
+    import torch
+    import torch.nn.functional as F
+
+    Sq, Skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    if window <= 0 and q_offset == 0 and Sq == Skv:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=gqa)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                          enable_gqa=gqa)
+
+
+def check_attention(name, q, k, v, window=0, q_offset=0):
+    """``ops.flash_attention`` against its plain version, the float32
+    oracle ``ref.attention_ref`` on the widened inputs: within
+    1e-5 * (P @ |V|), plus one rounding of the output (2^-8 * |out|) for
+    bfloat16."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    kw = dict(window=window, q_offset=q_offset)
+
+    def kern():
+        return ops.flash_attention(q, k, v, **kw)
+
+    def plain():
+        return ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+
+    out = kern()
+    want = plain()
+    weight = ref.attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 * weight
+    if q.dtype == torch.bfloat16:
+        tol += 2.0 ** -8 * want.abs()
+    err = (out.float() - want).abs()
+    if bool((err > tol).any()) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"flash_attention {name}: over 1e-5*(P@|V|)")
+    err_max = float(err.max())
+    del want, weight, tol, err
+    torch.cuda.empty_cache()
+    ms = cuda_ms(kern, 5)
+    plain_ms = cuda_ms(plain, 2)
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, window, q_offset), 5)
+    pairs = visible_pairs(Sq, Skv, window, q_offset)
+    flops = 4 * hd * pairs * B * H          # q.k and p.v, 2 ops per MAC
+    isz = q.element_size()
+    b_ms, b_by = bound((2 * B * Sq * H + 2 * B * Skv * KV) * hd * isz, flops)
+    return dict(shape=name, B=B, Sq=Sq, Skv=Skv, H=H, KV=KV, hd=hd,
+                window=window, q_offset=q_offset,
+                dtype=str(q.dtype).replace("torch.", ""),
+                max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                bf16_tensor_bound_ms=flops / BF16_OPS_PER_S * 1e3)
+
+
+def attention_case(B, Sq, Skv, H, KV, hd, dtype, dev, gen):
+    import torch
+
+    return [torch.randn((B, S, h, hd), generator=gen, device=dev).to(dtype)
+            for S, h in ((Sq, H), (Skv, KV), (Skv, KV))]
+
+
 def api_phase(ds, n, d, dev, gen) -> tuple:
     """Phase 9: each kernel of the kernel API against its plain version at
     full size, then the API's path with every counter reset: the exact
@@ -614,6 +715,28 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     spmm_shape = (f"N={GNN_NODES} M={GNN_FANOUT} [{GNN_NODES}, {GNN_FEAT}] "
                   f"@ [{GNN_FEAT}, {GNN_HIDDEN}] mean")
     shapes["packed_spmm"].append(check_spmm(spmm_shape, nbrs, feat, w))
+    bf16 = torch.bfloat16
+    attn_shape = (f"olmo_1b prefill [1, {LM_SEQ}, {OLMO_HEADS}, {HEAD_DIM}]"
+                  " causal bf16")
+    lm = attention_case(1, LM_SEQ, LM_SEQ, OLMO_HEADS, OLMO_HEADS, HEAD_DIM,
+                        bf16, dev, gen)
+    shapes["flash_attention"].append(check_attention(attn_shape, *lm))
+    for name, (B, Sq, Skv, H, KV, dt), window, q_offset in (
+            (f"olmo_1b prefill [1, {LM_SEQ // 2}, {OLMO_HEADS}, {HEAD_DIM}] "
+             "causal fp32", (1, LM_SEQ // 2, LM_SEQ // 2, OLMO_HEADS,
+                             OLMO_HEADS, torch.float32), 0, 0),
+            (f"gemma3_27b local [1, {LM_SEQ}, {GEMMA_HEADS}/"
+             f"{GEMMA_KV_HEADS}, {HEAD_DIM}] window {GEMMA_WINDOW} bf16",
+             (1, LM_SEQ, LM_SEQ, GEMMA_HEADS, GEMMA_KV_HEADS, bf16),
+             GEMMA_WINDOW, 0),
+            (f"olmo_1b decode [{LM_DECODE_BATCH}, 1, {OLMO_HEADS}, "
+             f"{HEAD_DIM}] over {LM_DECODE_KV} keys bf16",
+             (LM_DECODE_BATCH, 1, LM_DECODE_KV, OLMO_HEADS, OLMO_HEADS,
+              bf16), 0, LM_DECODE_KV - 1)):
+        case = attention_case(B, Sq, Skv, H, KV, HEAD_DIM, dt, dev, gen)
+        shapes["flash_attention"].append(check_attention(
+            name, *case, window=window, q_offset=q_offset))
+        del case
     for kname, rows in shapes.items():
         for r in rows:
             extra = ""
@@ -622,6 +745,12 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
                          f"valid lanes gather {r['gathered_bytes'] / 1e9:.2f}"
                          f" GB = {r['gathered_ms']:.3f} ms at 3.35 TB/s, all "
                          f"N*M lanes {r['all_lanes_bytes'] / 1e9:.2f} GB)")
+            elif kname == "flash_attention":
+                extra = (f" (bound at the fp32 rate, the reference's "
+                         f"arithmetic; at the bf16 tensor-core rate "
+                         f"{r['bf16_tensor_bound_ms']:.4f} ms)")
+            elif r.get("torch_topk_ms") is not None:
+                extra = f" (torch.topk {r['torch_topk_ms']:.4f} ms)"
             log_kernel(kname, r, extra)
 
     # the kernel API's path, counted
@@ -657,9 +786,17 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     if h.shape != (GNN_NODES, GNN_HIDDEN) or not bool(
             torch.isfinite(h).all()):
         raise AssertionError("packed_spmm: bad output")
+    t0 = time.perf_counter()
+    att = ops.flash_attention(*lm)
+    torch.cuda.synchronize()
+    out["flash_attention_ms"] = (time.perf_counter() - t0) * 1e3
+    if att.shape != lm[0].shape or not bool(torch.isfinite(att).all()):
+        raise AssertionError("flash_attention: bad output")
+    del att, lm
     log("[api] embedding_bag B=" + ", B=".join(
         f"{B}: {out[f'embedding_bag_{B}_ms']:.3f} ms" for B in BAG_BATCHES)
-        + f"; packed_spmm: {out['packed_spmm_ms']:.3f} ms (host clock)")
+        + f"; packed_spmm: {out['packed_spmm_ms']:.3f} ms; flash_attention "
+        f"(olmo_1b prefill): {out['flash_attention_ms']:.3f} ms (host clock)")
     launches = K.launch_counts()
     log("[launches] phase 9 " + json.dumps(launches))
     missing = [k for k in API_BODIES if launches[k] <= 0]
@@ -669,7 +806,7 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     main = dict(distance_matrix=knn_shape, bitonic_sort=topk_shape,
                 embedding_bag=f"[{BAG_ROWS}, {BAG_DIM}] bag {BAG_SIZE} mean "
                               f"B={BAG_BATCHES[-1]}",
-                packed_spmm=spmm_shape)
+                packed_spmm=spmm_shape, flash_attention=attn_shape)
     return shapes, main, {k: launches[k] for k in API_BODIES}, out
 
 
@@ -1215,6 +1352,9 @@ def main() -> int:
         "packed_spmm": ("src/repro_torch/kernels/csrc/segment_matmul.cu",
                         "src/repro/kernels/segment_matmul.py:51",
                         api_main["packed_spmm"]),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:71",
+                            api_main["flash_attention"]),
     }
     kernels = []
     for kname, (source, replaces, main_shape) in meta.items():

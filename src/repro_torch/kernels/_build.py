@@ -28,13 +28,14 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("l2dist", "topk", "visited", "block", "embedding_bag",
-           "segment_matmul")
+           "segment_matmul", "flash_attention")
 # launches of each kernel body, counted by its wrapper where it launches:
-# the six of the ANN path, then the four of the kernel API (kernels/ops.py)
+# the six of the ANN path, then the five of the kernel API (kernels/ops.py)
 LAUNCHES = dict.fromkeys(("gather_distances", "gather_distances_int8",
                           "rank_merge", "visited_filter", "block_distances",
                           "block_distances_int8", "distance_matrix",
-                          "bitonic_sort", "embedding_bag", "packed_spmm"), 0)
+                          "bitonic_sort", "embedding_bag", "packed_spmm",
+                          "flash_attention"), 0)
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import block as _block
 from repro_torch.kernels import embedding_bag as _eb
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import segment_matmul as _sm
 from repro_torch.kernels import topk as _topk
@@ -37,9 +38,10 @@ def bitonic_topk(dists, ids, k: int, *, use_kernel: bool = True):
 
 def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
                     use_kernel: bool = True):
-    raise NotImplementedError(
-        "flash_attention is not in the PyTorch port yet (ROADMAP.md queue "
-        "B, item 7)")
+    """q [B, Sq, H, hd]; k/v [B, Skv, KV, hd]; H = KV * G.  Causal."""
+    if not use_kernel:
+        return _ref.attention_ref(q, k, v, window=window, q_offset=q_offset)
+    return _fa.flash_attention(q, k, v, window=window, q_offset=q_offset)
 
 
 def embedding_bag(table, ids, *, combine: str = "mean",

@@ -1,8 +1,7 @@
 """Plain PyTorch oracles for the kernel API (the port's copy of the
-reference's ``kernels/ref.py``), on any device.
-
-``attention_ref`` comes with ``flash_attention`` (ROADMAP.md queue B,
-item 7).
+reference's ``kernels/ref.py``), on any device.  ``sort_ref``,
+``topk_ref`` and ``attention_ref`` are also the plain versions of their
+kernels.
 """
 from __future__ import annotations
 
@@ -24,6 +23,27 @@ def sort_ref(dists, ids):
 def topk_ref(dists, ids, k: int):
     sd, si = sort_ref(dists, ids)
     return sd[:, :k], si[:, :k]
+
+
+def attention_ref(q, k, v, *, window: int = 0, q_offset: int = 0):
+    """Exact softmax attention (fp32), causal + optional window, GQA:
+    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] -> [B, Sq, H, hd] in q's
+    dtype."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    scale = hd ** -0.5
+    qf = q.to(torch.float32).reshape(B, Sq, KV, G, hd) * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(torch.float32))
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > (q_pos[:, None] - window)
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def embedding_bag_ref(table, ids, *, combine: str = "mean"):

@@ -120,31 +120,20 @@ def _power_of_two(W: int) -> None:
         raise ValueError(f"width {W} must be a power of two")
 
 
-def bitonic_topk_plain(dists, ids, k: int):
-    """The first ``k`` lanes of each row in ascending (dist, id) order
-    (plain PyTorch, any device, any width)."""
-    return rank_merge_plain(dists, ids, keep=k)
-
-
-def bitonic_sort_plain(dists, ids):
-    """Row-wise ascending (dist, id) sort, ids carried (plain PyTorch, any
-    device, any width)."""
-    return rank_merge_plain(dists, ids, keep=dists.shape[1])
-
-
 def bitonic_topk(dists, ids, k: int):
     """dists [R, W] float32, ids [R, W] int32, W a power of two ->
     the first ``k`` lanes of each row in ascending (dist, id) order.
     A width that is not a power of two raises ``ValueError`` on any
     device, as the reference's kernel refuses it.  CPU tensors take
-    :func:`bitonic_topk_plain`; CUDA tensors launch the kernel (counted on
-    ``bitonic_sort``), in column chunks when W exceeds ``MAX_LANES``."""
+    :func:`rank_merge_plain` (the plain version, ``ref.topk_ref``); CUDA
+    tensors launch the kernel (counted on ``bitonic_sort``), in column
+    chunks when W exceeds ``MAX_LANES``."""
     W = dists.shape[1]
     _power_of_two(W)
     if not 0 < k <= W:
         raise ValueError(f"k={k} must be in (0, {W}]")
     if dists.device.type == "cpu":
-        return bitonic_topk_plain(dists, ids, k)
+        return rank_merge_plain(dists, ids, keep=k)
     _check_rows(dists, ids, None)
     if W > MAX_LANES:
         return merge_in_chunks(
@@ -156,8 +145,8 @@ def bitonic_topk(dists, ids, k: int):
 def bitonic_sort(dists, ids):
     """dists [R, W] float32, ids [R, W] int32, W a power of two of at
     most ``MAX_LANES`` -> both sorted row-wise by (dist, id).  Other widths
-    raise ``ValueError`` on any device; CPU tensors take
-    :func:`bitonic_sort_plain`, CUDA tensors launch the kernel (counted on
+    raise ``ValueError`` on any device; CPU tensors take the plain version
+    (``ref.sort_ref``), CUDA tensors launch the kernel (counted on
     ``bitonic_sort``)."""
     W = dists.shape[1]
     _power_of_two(W)

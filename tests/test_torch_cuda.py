@@ -9,7 +9,8 @@ package, so it runs on a GPU host that has only PyTorch:
 Tolerances: distances within 1e-5 * (qn + vn) (the kernel sums in another
 order than cuBLAS), merges, sorts and the visited filter exactly,
 embedding bags within 1e-6 * the bag's sum of |rows|, packed SpMM within
-1e-5 * (|agg| @ |W|).
+1e-5 * (|agg| @ |W|), attention within 1e-5 * (P @ |V|) of the float32
+oracle plus one rounding of the output (2^-8 * |out|) in bfloat16.
 """
 import dataclasses
 
@@ -23,7 +24,7 @@ from repro_torch.configs.tsdg_paper import reduced
 from repro_torch.core import hotpath as HP
 from repro_torch.data.synthetic import make_clustered, recall_at_k
 from repro_torch.ann.quantize import quantize_rows
-from repro_torch.kernels import (block, embedding_bag, l2dist, ops,
+from repro_torch.kernels import (block, embedding_bag, l2dist, ops, ref,
                                   segment_matmul, topk, visited)
 
 pytestmark = pytest.mark.cuda
@@ -315,7 +316,7 @@ def test_bitonic_sort_matches_plain(dev, rng, R, W):
     d, ids = _on(dev, d, rng.integers(0, 99, size=(R, W)).astype(np.int32))
     n0 = K.launch_counts()["bitonic_sort"]
     od, oi = ops.bitonic_sort(d, ids)
-    rd, ri = topk.bitonic_sort_plain(d, ids)
+    rd, ri = ref.sort_ref(d, ids)
     assert K.launch_counts()["bitonic_sort"] == n0 + 1
     assert torch.equal(oi, ri) and bool((od == rd).all())
 
@@ -328,7 +329,7 @@ def test_bitonic_topk_matches_plain(dev, rng, W, k, launches):
                  rng.integers(0, 1 << 20, size=(3, W)).astype(np.int32))
     n0 = K.launch_counts()["bitonic_sort"]
     od, oi = ops.bitonic_topk(d, ids, k)
-    rd, ri = topk.bitonic_topk_plain(d, ids, k)
+    rd, ri = ref.topk_ref(d, ids, k)
     assert K.launch_counts()["bitonic_sort"] - n0 == launches
     assert torch.equal(oi, ri) and torch.equal(od, rd)
 
@@ -369,3 +370,39 @@ def test_packed_spmm_matches_plain(dev, rng, N, M, d, f, combine):
     tol = 1e-5 * (agg.abs() @ w.abs())
     assert ((out - ref).abs() <= tol).all()
     assert (out[5] == 0).all()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset", [
+    (2, 200, 200, 6, 3, 24, 0, 0), (1, 130, 130, 4, 4, 128, 32, 0),
+    (2, 1, 300, 8, 2, 64, 0, 299), (1, 70, 100, 2, 1, 256, 40, 30),
+    (1, 64, 64, 2, 2, 33, 0, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, rng, B, Sq, Skv, H, KV, hd,
+                                       window, q_offset, dtype):
+    """GQA, windows that skip whole KV tiles, a decode step, the widest
+    head (256) and a head width off the kernel's 32-wide padding; ragged
+    query and key counts."""
+    q, k, v = _on(dev, *(rng.normal(size=(B, S, h, hd)).astype(np.float32)
+                         for S, h in ((Sq, H), (Skv, KV), (Skv, KV))))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    n0 = K.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), window=window,
+                             q_offset=q_offset)
+    weight = ref.attention_ref(q.float(), k.float(), v.float().abs(),
+                               window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == n0 + 1
+    assert out.dtype == dtype and out.shape == (B, Sq, H, hd)
+    tol = 1e-5 * weight
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * want.abs()
+    assert ((out.float() - want).abs() <= tol).all()
+
+
+def test_flash_attention_rejects_mixed_types(dev):
+    q = torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="^k:"):
+        ops.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), q.half(), q.half())

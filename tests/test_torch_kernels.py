@@ -325,11 +325,13 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
                       torch.zeros((2, 3), dtype=torch.int32))
     ops.packed_spmm(torch.zeros((2, 3), dtype=torch.int32),
                     torch.zeros((5, 4)), torch.zeros((4, 2)))
+    ops.flash_attention(torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 1, 8)),
+                        torch.zeros((1, 4, 1, 8)))
     assert K.launch_counts() == dict.fromkeys(
         ("gather_distances", "gather_distances_int8", "rank_merge",
          "visited_filter", "block_distances", "block_distances_int8",
-         "distance_matrix", "bitonic_sort", "embedding_bag", "packed_spmm"),
-        0)
+         "distance_matrix", "bitonic_sort", "embedding_bag", "packed_spmm",
+         "flash_attention"), 0)
 
 
 def test_resolve_backend():

@@ -10,7 +10,10 @@ to on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``), and
   different orders, both in float32);
 * sorts and top-k exactly: the same ids and the same values;
 * embedding bags within 1e-6 * the bag's sum of |rows| (/ bag for mean);
-* SpMM within 1e-5 * (|agg| @ |W|) per entry.
+* SpMM within 1e-5 * (|agg| @ |W|) per entry;
+* attention within 1e-5 * (P @ |V|) per entry (the softmax weights
+  applied to |v|), plus one bfloat16 rounding (2^-7 * |out|) when the
+  inputs are bfloat16: each side rounds its float32 result once.
 """
 import functools
 
@@ -60,6 +63,12 @@ def _jbag(table, ids, combine):
 def _jspmm(nbrs, feat, w, combine):
     return jops.packed_spmm(nbrs, feat, w, combine=combine,
                             use_pallas=False)
+
+
+@functools.partial(jax.jit, static_argnames=("window", "q_offset"))
+def _jattn(q, k, v, window, q_offset):
+    return jops.flash_attention(q, k, v, window=window, q_offset=q_offset,
+                                use_pallas=False)
 
 
 def _both(fn, *args, **kw):
@@ -237,7 +246,62 @@ def test_segment_matmul_ref_matches_reference(rng):
 
 
 def test_flash_attention_waits_for_its_slice():
+    """The slice this waited for has come: both routes compute, and on a
+    zero input they give zeros."""
     q = torch.zeros((1, 4, 2, 8))
     for use_kernel in (True, False):
-        with pytest.raises(NotImplementedError, match="queue B, item 7"):
-            ops.flash_attention(q, q, q, use_kernel=use_kernel)
+        out = ops.flash_attention(q, q, q, use_kernel=use_kernel)
+        assert out.shape == q.shape and not out.any()
+
+
+# ----------------------------------------------------------------------
+# flash attention
+# ----------------------------------------------------------------------
+
+def _attn_case(rng, B, Sq, Skv, H, KV, hd, dtype=np.float32):
+    q, k, v = (rng.normal(size=(B, S, h, hd)).astype(np.float32)
+               for S, h in ((Sq, H), (Skv, KV), (Skv, KV)))
+    if dtype != np.float32:   # round once to bf16, the same on both sides
+        q, k, v = (torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in (q, k, v))
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset,dtype", [
+    (2, 256, 256, 4, 2, 32, 64, 0, "float32"),
+    (2, 50, 70, 6, 3, 24, 16, 20, "float32"),
+    (3, 1, 300, 4, 2, 32, 0, 299, "float32"),
+    (1, 128, 128, 2, 2, 32, 0, 0, "bfloat16")])
+def test_flash_attention_matches_reference(rng, B, Sq, Skv, H, KV, hd,
+                                           window, q_offset, dtype):
+    """GQA under a window at a shape of the reference's own tests
+    (tests/test_kernels.py), a ragged chunk of prefill at an offset, one
+    decode step, and the reference's bfloat16 case."""
+    q, k, v = _attn_case(rng, B, Sq, Skv, H, KV, hd, dtype)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(_jattn(*(jnp.asarray(a).astype(jd) for a in (q, k, v)),
+                             window, q_offset).astype(jnp.float32))
+    weight = ref.attention_ref(*map(torch.from_numpy, (q, k, np.abs(v))),
+                               window=window, q_offset=q_offset).numpy()
+    tol = 1e-5 * weight + (2.0 ** -7 * np.abs(want) if dtype == "bfloat16"
+                           else 0.0)
+    args = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+    for got in _both(ops.flash_attention, *args, window=window,
+                     q_offset=q_offset):
+        assert got.dtype == args[0].dtype and got.shape == (B, Sq, H, hd)
+        assert (np.abs(got.float().numpy() - want) <= tol).all()
+
+
+def test_flash_attention_shapes_are_checked_on_every_device():
+    """The kernel's wrapper refuses, on the CPU as on the card, inputs that
+    leave a query row with no key to see; the oracle takes them."""
+    q = torch.zeros((1, 4, 2, 8))
+    kv = torch.zeros((1, 6, 1, 8))
+    for bad in (dict(q_offset=-1), dict(window=2, q_offset=4)):
+        with pytest.raises(ValueError, match="no key"):
+            ops.flash_attention(q, kv, kv, **bad)
+        assert ops.flash_attention(q, kv, kv, use_kernel=False,
+                                   **bad).shape == q.shape
+    with pytest.raises(ValueError, match="multiple of KV"):
+        ops.flash_attention(torch.zeros((1, 4, 3, 8)), kv.expand(
+            1, 6, 2, 8).contiguous(), kv.expand(1, 6, 2, 8).contiguous())
