@@ -29,8 +29,9 @@ Phases, each printing its own lines:
    effective corpus and to the plain path; 1,024 added rows must find
    themselves at rank 1; one B = 10240 search of an int8 index with the
    same mutations, and one more after a 16,385th add doubles its delta to
-   32,768 slots (wider than one ``rank_merge`` launch: it merges in column
-   chunks); then ``compact()`` and a search of the new generation;
+   32,768 slots (its pre-selection, 40 of 32,768, takes the top-k's
+   selection at twice the width); then ``compact()`` and a search of the
+   new generation;
 6. a ``torch.profiler`` trace of one build and of each search: the
    device's busy share of the wall time and the costliest device ops;
    and the k-NN recall of ``nn_descent`` on 2000 sampled nodes;
@@ -82,6 +83,7 @@ ANN_BODIES = ("gather_distances", "gather_distances_int8", "rank_merge",
 API_BODIES = ("distance_matrix", "bitonic_sort", "embedding_bag",
               "packed_spmm", "flash_attention")
 KNN_QUERIES = 1024            # exact k-NN: phase 3's first 1,024 queries
+TOPK_KERNELS = ("warp_topk_kernel", "select_kernel", "cta_sort_kernel")
 BAG_ROWS, BAG_DIM, BAG_SIZE = 10_000_000, 32, 10   # wide_deep's bag fields
 BAG_BATCHES = (512, 65536)    # RECSYS_SHAPES serve_p99, train_batch
 GNN_NODES, GNN_FANOUT = 232_965, 15   # GNN_SHAPES minibatch_lg (Reddit)
@@ -101,8 +103,13 @@ def log(msg: str) -> None:
 
 def log_kernel(kname: str, r: dict, extra: str = "") -> None:
     """One ``[kernel]`` line: a kernel at one shape against its plain
-    version, with its times and bound."""
+    version, with its times and bound (and, for the top-k, its path and
+    ``torch.topk``'s time)."""
     lib = r["library_ms"]
+    if r.get("path"):
+        extra = f" path={r['path']}" + extra
+    if r.get("torch_topk_ms") is not None:
+        extra += f" (torch.topk {r['torch_topk_ms']:.4f} ms)"
     log(f"[kernel] {kname} {r['shape']}: ms={r['ms']:.4f} "
         f"plain_ms={r['plain_ms']:.4f} library_ms="
         f"{lib if lib is None else round(lib, 4)} "
@@ -110,21 +117,26 @@ def log_kernel(kname: str, r: dict, extra: str = "") -> None:
         f"max_abs_err={r['max_abs_err']:.3g} ok{extra}")
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def cuda_ms(fn, iters: int = 10, warmup: int = 1, repeats: int = 1) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls; with
+    ``repeats``, the least of that many such means (a call shorter than
+    its host cost times the host, whose hiccups this sets aside)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -292,20 +304,34 @@ def check_block(name, S, Kq, C, d, quant, dev, gen):
         library_gemm_only_ms=gemm_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def network_ops(W: int, keep: int) -> int:
-    """Compare-exchanges of one row's bitonic merge of W lanes; rows wider
-    than the kernel's MAX_LANES go through in column chunks, whose
-    survivors are merged again (``topk.merge_in_chunks``)."""
-    from repro_torch.kernels.topk import MAX_LANES
+def topk_ops(W: int, keep: int) -> float:
+    """The least compares a row needs: one a lane to select a prefix,
+    W log2 W to sort the whole row."""
+    return W * max(1, W.bit_length() - 1) if keep == W else W
 
-    if W > MAX_LANES:
-        starts = range(0, W, MAX_LANES)
-        return sum(network_ops(min(MAX_LANES, W - c), keep)
-                   for c in starts) + network_ops(
-                       sum(min(keep, W - c) for c in starts), keep)
-    Wp = 1 << max(W - 1, 0).bit_length()
-    L = Wp.bit_length() - 1
-    return (Wp // 2) * L * (L + 1) // 2
+
+def topk_path(R: int, W: int, keep: int) -> str:
+    """The path ``kernels/topk.py`` takes, with its launches."""
+    from repro_torch.kernels import topk
+
+    p = topk.path(W, keep)
+    if p == "chunks":
+        return "chunks"
+    return p + "(" + "+".join(L.body for L in topk.plan(R, W, keep)) + ")"
+
+
+def selection_ms(dists, ids, keep, it, mask=None):
+    """``torch.topk`` as a yardstick of a top-k (tie order aside): the
+    masked ``where``, the selection and the gather of ids."""
+    import torch
+
+    def run():
+        d = dists if mask is None else torch.where(
+            mask, dists, torch.full_like(dists, 3.4e38))
+        v, j = torch.topk(d, keep, dim=1, largest=False)
+        return v, ids.gather(1, j)
+
+    return cuda_ms(run, it, repeats=3)
 
 
 def check_rank_merge(name, R, W, keep, dev, gen):
@@ -335,15 +361,21 @@ def check_rank_merge(name, R, W, keep, dev, gen):
     # holds -0.0 and the other +0.0 may trade places: one key, two zeros)
     if not (bool((od == rd).all()) and torch.equal(oi, ri)):
         raise AssertionError(f"rank_merge {name}: kernel != plain")
+    # the kernel and its yardsticks: the least of 3 means, each over 3
+    # calls (large shapes) or 20
     it = 3 if R * W > 1 << 24 else 20
-    ms = cuda_ms(kern, it)
+    ms = cuda_ms(kern, it, repeats=3)
     plain_ms = cuda_ms(lambda: chunked(plain, R, rows), max(1, it // 3))
-    lib_ms = cuda_ms(lambda: torch.sort(d, dim=1, stable=True),
-                     max(1, it // 3))
-    b_ms, b_by = bound(R * W * 9 + R * keep * 8, R * network_ops(W, keep))
+    lib_ms = cuda_ms(lambda: torch.sort(d, dim=1, stable=True), it,
+                     repeats=3)
+    # a second yardstick on wide rows, whose tie order is not (dist, id)
+    topk_ms = selection_ms(d, ids, keep, it, mask) \
+        if W >= 1024 and keep < W else None
+    b_ms, b_by = bound(R * W * 9 + R * keep * 8, R * topk_ops(W, keep))
     return dict(shape=name, R=R, W=W, keep=keep, max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, torch_topk_ms=topk_ms,
+                path=topk_path(R, W, keep))
 
 
 def check_visited(name, B, bound_ins, M, dev, gen):
@@ -461,20 +493,19 @@ def check_sort(name, dists, ids, keep):
     if not (bool((od == rd).all()) and torch.equal(oi, ri)):
         raise AssertionError(f"bitonic_sort {name}: kernel != plain")
     del od, oi, rd, ri
-    it = 3 if R * W > 1 << 24 else 20
-    ms = cuda_ms(kern, it)
+    it = 3 if R * W > 1 << 24 else 20     # as in check_rank_merge
+    ms = cuda_ms(kern, it, repeats=3)
     plain_ms = cuda_ms(lambda: chunked(plain, R, rows), max(1, it // 3))
-    lib_ms = cuda_ms(lambda: torch.sort(dists, dim=1, stable=True),
-                     max(1, it // 3))
+    lib_ms = cuda_ms(lambda: torch.sort(dists, dim=1, stable=True), it,
+                     repeats=3)
     # a second, informational yardstick for a top-k: a selection, whose
     # order among tied distances is not the (dist, id) order
-    topk_ms = (cuda_ms(lambda: torch.topk(dists, keep, dim=1,
-                                          largest=False), max(1, it // 3))
-               if keep < W else None)
-    b_ms, b_by = bound(R * W * 8 + R * keep * 8, R * network_ops(W, keep))
+    topk_ms = (selection_ms(dists, ids, keep, it) if keep < W else None)
+    b_ms, b_by = bound(R * W * 8 + R * keep * 8, R * topk_ops(W, keep))
     return dict(shape=name, R=R, W=W, keep=keep, max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, torch_topk_ms=topk_ms)
+                bound_by=b_by, torch_topk_ms=topk_ms,
+                path=topk_path(R, W, keep))
 
 
 def sort_case(R, W, dev, gen):
@@ -749,8 +780,6 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
                 extra = (f" (bound at the fp32 rate, the reference's "
                          f"arithmetic; at the bf16 tensor-core rate "
                          f"{r['bf16_tensor_bound_ms']:.4f} ms)")
-            elif r.get("torch_topk_ms") is not None:
-                extra = f" (torch.topk {r['torch_topk_ms']:.4f} ms)"
             log_kernel(kname, r, extra)
 
     # the kernel API's path, counted
@@ -937,7 +966,7 @@ def stream_phase(ds, cfg, graph, n, d, n_queries, dev, counted,
         f"recall@10={rec:.4f}; plain path recall {rec_t:.4f}, ids equal "
         f"{agree:.4%}")
     # a 16,385th add doubles the delta to 32,768 slots: the int8 scan's
-    # pre-selection is then wider than one rank_merge launch takes
+    # pre-selection then selects 40 of 32,768 lanes
     rng = np.random.default_rng(6789)
     extra = (centers[rng.integers(0, 64, 1)] + 0.15 * rng.normal(
         size=(1, d)).astype(np.float32)).astype(np.float32)
@@ -1008,7 +1037,7 @@ def device_time(prof, n_top: int = 6):
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             per[e["name"]] = per.get(e["name"], 0.0) + float(e.get("dur", 0))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:n_top]
-    return sum(per.values()), [(k, v / 1e3) for k, v in top]
+    return sum(per.values()), [(k, v / 1e3) for k, v in top], per
 
 
 def traced(label: str, fn) -> dict:
@@ -1023,12 +1052,16 @@ def traced(label: str, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy, top = device_time(prof)
+    busy, top, per = device_time(prof)
+    # the top-k's kernels (csrc/topk.cu), wherever they rank
+    topk_us = sum(v for k, v in per.items() if any(
+        f"namespace)::{t}{c}" in k for t in TOPK_KERNELS for c in "<("))
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}); top "
+        f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}); topk.cu "
+        f"{topk_us / 1e3:.2f} ms; top "
         + "; ".join(f"{k[:48]} {t:.2f} ms" for k, t in top))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                busy_share=busy / wall_us, top_ms=top)
+                busy_share=busy / wall_us, topk_ms=topk_us / 1e3, top_ms=top)
 
 
 def profile_run(ds, index, cfg, n_queries, dev) -> dict:
@@ -1096,7 +1129,7 @@ def main() -> int:
     from repro_torch.ann.quantize import quantize_rows
     from repro_torch.configs.base import ANNConfig
     from repro_torch.data.synthetic import make_clustered, recall_at_k
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, topk
 
     t_start = time.perf_counter()
     dev = card()
@@ -1112,6 +1145,9 @@ def main() -> int:
     record["kernel_build_s"] = time.perf_counter() - t0
     log(f"[build] {len(_build.SOURCES)} CUDA sources (sm_90a, nvcc in "
         f"parallel): {record['kernel_build_s']:.3f} s")
+    record["topk_bodies"] = topk.body_attributes()
+    log("[build] topk.cu kernels (registers, spilled bytes) a thread: "
+        + json.dumps(record["topk_bodies"]))
 
     # ---- phase 2: kernels vs plain versions at the main path's shapes ----
     n, d = args.n, 128
@@ -1161,7 +1197,7 @@ def main() -> int:
                    ("nn_descent merge", n, cfg.k_graph * 10, cfg.k_graph),
                    ("stream int8 delta", B_l, STREAM_ADDS,
                     cfg.rerank_mult * 10),
-                   ("stream int8 delta, 2 chunks", B_l, 2 * STREAM_ADDS,
+                   ("stream int8 delta, 32768 slots", B_l, 2 * STREAM_ADDS,
                     cfg.rerank_mult * 10)):
         shapes["rank_merge"].append(check_rank_merge(*args_r, dev=dev,
                                                      gen=gen))
@@ -1190,10 +1226,26 @@ def main() -> int:
     K.reset_launch_counts()
     steps: dict = {}
     phase_launches: dict = {}
+    # the top-k's launches by kernel and shape, per counted step (the
+    # wrapper's counters stay one count per launch)
+    topk_shapes: dict = {}
+    step = [None]
+    launch = topk._launch
+
+    def tallied(L, dists, *args):
+        if step[0] is not None:
+            key = f"{L.body} [{dists.shape[0]}, {L.W}] -> {L.keep}"
+            tally = topk_shapes.setdefault(step[0], {})
+            tally[key] = tally.get(key, 0) + 1
+        return launch(L, dists, *args)
+
+    topk._launch = tallied
 
     def counted(label, fn):
         before = K.launch_counts()
+        step[0] = label
         out = fn()
+        step[0] = None
         torch.cuda.synchronize()
         after = K.launch_counts()
         steps[label] = {k: after[k] - before[k] for k in after}
@@ -1242,6 +1294,11 @@ def main() -> int:
     phase_launches["3-4"] = K.launch_counts()
     log("[launches] phases 3-4 " + json.dumps(phase_launches["3-4"])
         + " by step " + json.dumps(steps))
+    for label in ("build", "search none B=10", "search hash B=10",
+                  f"search none B={args.queries}",
+                  f"search hash B={args.queries}"):
+        log(f"[topk] {label}: launches by kernel and shape "
+            + json.dumps(topk_shapes.get(label, {})))
 
     # ---- phase 5: parity with the plain PyTorch path on the card ----------
     for visited in ("none", "hash"):
@@ -1302,6 +1359,9 @@ def main() -> int:
                                     counted, check_ids)
     phase_launches["8"] = K.launch_counts()
     log("[launches] phase 8 " + json.dumps(phase_launches["8"]))
+    for label in ("stream int8 search", "stream int8 search, wide delta"):
+        log(f"[topk] {label}: launches by kernel and shape "
+            + json.dumps(topk_shapes.get(label, {})))
     launches = {k: sum(p[k] for p in phase_launches.values())
                 for k in ANN_BODIES}
     log("[launches] phases 3-4, 7, 8 " + json.dumps(launches))
@@ -1369,6 +1429,7 @@ def main() -> int:
             shapes=shapes[kname]))
     record.update(card=name_limit, n=n, d=d, kernels=kernels,
                   launches_by_step=steps, launches_by_phase=phase_launches,
+                  topk_launches_by_step=topk_shapes,
                   total_s=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -148,23 +148,69 @@ def test_gather_distances_self_query_matches_plain(dev, rng, K_, d):
     assert ((out.double() - ref.double()).abs() <= tol).all()
 
 
-@pytest.mark.parametrize("R,W,keep", [(50, 32, 32), (50, 320, 32),
-                                      (7, 2048, 10), (9, 5, 3),
-                                      (6, 40000, 40), (2, 16385, 16383)])
-def test_rank_merge_matches_plain(dev, rng, R, W, keep):
-    """Rows wider than the kernel's 16384 lanes go through in column
-    chunks, each a launch."""
+def _merge_launches(R, W, keep):
+    """Launches of one rank merge or top-k: its plan, or on the "chunks"
+    path each column chunk's and each merge of the survivors'."""
+    if topk.path(W, keep) != "chunks":
+        return len(topk.plan(R, W, keep))
+    n = 0
+    while W > topk.MAX_LANES:
+        starts = range(0, W, topk.MAX_LANES)
+        n += sum(_merge_launches(R, min(topk.MAX_LANES, W - c),
+                                 min(keep, W - c)) for c in starts)
+        W = sum(min(keep, W - c) for c in starts)
+    return n + _merge_launches(R, W, keep)
+
+
+def _merge_case(rng, R, W):
+    """Repeated dists, -0.0 beside +0.0 on equal ids, a row all masked and
+    a row all 3.4e38 (R >= 3), PAD_ID lanes and ids near 2^31 - 1."""
     d = (rng.integers(0, 6, size=(R, W)) * 0.5).astype(np.float32)
     d[rng.random((R, W)) < 0.1] = -0.0
-    d, ids, mask = _on(dev, d, rng.integers(0, 99, size=(R, W))
-                       .astype(np.int32), rng.random((R, W)) > 0.2)
+    d[rng.random((R, W)) < 0.03] = np.float32(topk.INF)
+    ids = rng.integers(0, 99, size=(R, W)).astype(np.int32)
+    ids[rng.random((R, W)) < 0.03] = topk.PAD_ID
+    ids[rng.random((R, W)) < 0.03] = topk.PAD_ID - 1
+    mask = rng.random((R, W)) > 0.2
+    if R >= 3:
+        mask[1] = False
+        d[2] = np.float32(topk.INF)
+    return d, ids, mask
+
+
+_WIDTHS = (1, 31, 32, 33, 64, 96, 320, 1024, 1025, 2048, 16384, 16385,
+           32768, 1 << 20)
+_MERGE_CASES = [(50, 32, 32), (50, 320, 32), (7, 2048, 10), (9, 5, 3),
+                (6, 40000, 40), (2, 16385, 16383)] + [
+    (3 if W <= 2048 else 2, W, keep) for W in _WIDTHS
+    for keep in sorted({1, 10, 32, 40, 64, topk.K_MAX, W})
+    if keep <= W and (W <= topk.MAX_LANES or keep < topk.MAX_LANES)]
+
+
+@pytest.mark.parametrize("R,W,keep", _MERGE_CASES)
+def test_rank_merge_matches_plain(dev, rng, R, W, keep):
+    """Every path's edges: ids equal bit for bit, dists by value, and
+    the launches its plan gives (each column chunk one more on the
+    "chunks" path)."""
+    d, ids, mask = _on(dev, *_merge_case(rng, R, W))
     n0 = K.launch_counts()["rank_merge"]
     od, oi = topk.rank_merge(d, ids, mask, keep=keep)
     rd, ri = topk.rank_merge_plain(d, ids, mask, keep=keep)
     assert torch.equal(oi, ri) and bool((od == rd).all())
-    chunks = -(-W // topk.MAX_LANES)
     assert K.launch_counts()["rank_merge"] - n0 \
-        == (1 if chunks == 1 else chunks + 1)
+        == _merge_launches(R, W, keep)
+
+
+def test_topk_bodies_fit_without_spills(dev):
+    """The card's own count: no body spills to local memory, and each
+    fits its launch (255 registers at most; 256 threads of the warp body,
+    512 of the CTA sort, in 65,536 registers)."""
+    attrs = topk.body_attributes()
+    assert len(attrs) == 11
+    for name, (regs, local) in attrs.items():
+        threads = 512 if name == "cta_sort" else topk.WARP_BODY_THREADS
+        assert local == 0, (name, local)
+        assert regs <= 255 and regs * threads <= 65536, (name, regs)
 
 
 def test_visited_filter_matches_plain(dev, rng):
@@ -307,10 +353,11 @@ def test_distance_matrix_rejects_mixed_types(dev):
 
 
 @pytest.mark.parametrize("R,W", [(3, 8), (37, 32), (200, 1024),
-                                 (4, 16384)])
+                                 (4, 16384), (5, 1), (3, 2048), (2, 4096)])
 def test_bitonic_sort_matches_plain(dev, rng, R, W):
     """Repeated distances, -0.0 beside +0.0 and repeated ids, up to the
-    kernel's widest row."""
+    kernel's widest row: the warp path to 1,024 lanes, the CTA sort
+    above."""
     d = (rng.integers(0, 6, size=(R, W)) * 0.5).astype(np.float32)
     d[rng.random((R, W)) < 0.1] = -0.0
     d, ids = _on(dev, d, rng.integers(0, 99, size=(R, W)).astype(np.int32))
@@ -321,16 +368,20 @@ def test_bitonic_sort_matches_plain(dev, rng, R, W):
     assert torch.equal(oi, ri) and bool((od == rd).all())
 
 
-@pytest.mark.parametrize("W,k,launches", [(1024, 10, 1), (32768, 10, 3)])
+@pytest.mark.parametrize("W,k,launches", [
+    (1024, 10, 1), (32768, 10, 2), (2048, 10, 1), (1 << 20, 10, 2),
+    (16384, 256, 1), (16384, 257, 1), (32768, 300, 3)])
 def test_bitonic_topk_matches_plain(dev, rng, W, k, launches):
-    """Rows wider than 16,384 lanes go through in column chunks, each a
-    launch, and the survivors are merged once more."""
+    """One warp a row up to 1,024 lanes; a selection up to ``K_MAX``
+    kept (a second launch where a row takes several CTAs); the CTA sort
+    above it; column chunks of 16,384, each sorted, and a merge beyond."""
     d, ids = _on(dev, rng.normal(size=(3, W)).astype(np.float32),
                  rng.integers(0, 1 << 20, size=(3, W)).astype(np.int32))
     n0 = K.launch_counts()["bitonic_sort"]
     od, oi = ops.bitonic_topk(d, ids, k)
     rd, ri = ref.topk_ref(d, ids, k)
-    assert K.launch_counts()["bitonic_sort"] - n0 == launches
+    assert K.launch_counts()["bitonic_sort"] - n0 == launches \
+        == _merge_launches(3, W, k)
     assert torch.equal(oi, ri) and torch.equal(od, rd)
 
 

@@ -232,6 +232,61 @@ def test_rank_merge_in_chunks_needs_keep_below_width():
         topk.merge_in_chunks(topk.rank_merge_plain, d, i, keep=64, width=64)
 
 
+# (R, W, keep) of every top-k the main path and the kernel API take at
+# full size: the small and large searches, nn_descent, the int8 delta's
+# pre-selection (one and two 16,384-slot deltas), the exact k-NN's top-10
+# and phase 9's sorts
+_MAIN_PATH_MERGES = [
+    (2048, 32, 32), (2048, 64, 32), (32, 2048, 10), (32, 2048, 40),
+    (10240, 128, 128), (10240, 96, 64), (81920, 160, 32), (81920, 64, 32),
+    (1 << 20, 32, 32), (1 << 20, 320, 32), (10240, 16384, 40),
+    (10240, 32768, 40), (1024, 1 << 20, 10), (2048, 64, 64),
+    (10240, 1024, 10), (64, 16384, 16384)]
+
+
+@pytest.mark.parametrize("R,W,keep", _MAIN_PATH_MERGES)
+def test_topk_path_fits_the_card(R, W, keep):
+    """One path for each main-path shape, never the column chunks; each
+    launch within the H100's budget (227 KB of shared memory a block, 255
+    registers a thread, 65,536 an SM); the launches chain from the row's
+    W lanes to ``keep``."""
+    p = topk.path(W, keep)
+    assert p in ("warp", "select", "cta")
+    launches = topk.plan(R, W, keep)
+    assert [L.body for L in launches] in {
+        "warp": [["warp"]], "cta": [["cta"]],
+        "select": [["select"], ["select", "warp"]]}[p]
+    width = W
+    for L in launches:
+        assert L.W == width and L.keep == keep
+        assert L.smem_bytes <= 232448 and L.threads <= 1024
+        # the pairs plus 48 registers of addresses and temporaries
+        regs = L.pair_registers + 48
+        assert regs <= 255 and L.threads * regs <= 65536
+        if L.body == "cta":
+            assert L.W <= L.Wp <= topk.MAX_LANES
+        else:
+            assert keep <= L.q <= 1024 and L.q % 32 == 0
+        if L.body == "select":
+            warps = L.threads // 32
+            assert L.q <= topk.K_MAX and L.slice % L.q == 0
+            assert warps * (L.groups - 1) * L.slice < L.W \
+                <= warps * L.groups * L.slice
+        width = L.out_width
+    assert width == keep
+
+
+def test_topk_path_bounds():
+    assert topk.path(1024, 1024) == "warp"
+    assert topk.path(1025, topk.K_MAX) == "select"
+    assert topk.path(1025, topk.K_MAX + 1) == "cta"
+    assert topk.path(topk.MAX_LANES + 1, topk.K_MAX + 1) == "chunks"
+    with pytest.raises(ValueError, match="chunks"):
+        topk.plan(1, topk.MAX_LANES + 1, topk.K_MAX + 1)
+    with pytest.raises(ValueError, match="keep="):
+        topk.path(8, 9)
+
+
 @pytest.mark.parametrize("k", [1, 4])
 def test_seed_select_matches_reference(rng, k):
     X, Q, _, _ = _case(rng, 10, 8, 16)
