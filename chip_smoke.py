@@ -47,7 +47,12 @@ Phases, each printing its own lines:
    (10,000,000 x 32, bag 10, B = 512 and 65,536) through
    ``ops.embedding_bag``, GraphSAGE's first layer on Reddit through
    ``ops.packed_spmm`` and one OLMo-1B attention layer (4,096 tokens,
-   16 heads of 128, bf16) through ``ops.flash_attention``.
+   16 heads of 128, bf16, the "tile" body) and one decode step over
+   32,768 keys (the "split" body) through ``ops.flash_attention``.
+   Attention also reports SDPA's own err/tol on the same inputs, both
+   bodies at 1-64 query rows a KV head (``[threshold]`` lines), and the
+   HMMA count of each compiled body (``cuobjdump -sass``; a tile body
+   without one fails the run).
 
 Phases 3-4, 7 and 8 each start with every launch counter at 0 and read
 the counters at their end; each of the six ANN kernel bodies must have
@@ -72,6 +77,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 ROUTE = "cuda"
 STREAM_ADDS = 16384           # phase 8's added rows (delta capacity 16384)
 STREAM_DELETED_ADDS = 1024    # ... of which deleted again
@@ -139,9 +145,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 1, repeats: int = 1) -> float:
     return best
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, rate: float = FP32_OPS_PER_S) -> tuple:
+    """The least ms for the bytes at 3.35 TB/s and the operations at
+    ``rate``, and which of the two binds."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / FP32_OPS_PER_S * 1e3
+    t_o = ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -636,18 +644,34 @@ def sdpa(q, k, v, window, q_offset):
                                           enable_gqa=gqa)
 
 
-def check_attention(name, q, k, v, window=0, q_offset=0):
-    """``ops.flash_attention`` against its plain version, the float32
-    oracle ``ref.attention_ref`` on the widened inputs: within
-    1e-5 * (P @ |V|), plus one rounding of the output (2^-8 * |out|) for
-    bfloat16."""
+def attention_err_over_tol(out, want, weight):
+    """The largest |out - want| / tol of the contract: 1e-5 * (P @ |V|),
+    plus one rounding of the output (2^-8 * |out|) for bfloat16."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    tol = 1e-5 * weight
+    if out.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * want.abs()
+    return float(((out.float() - want).abs() / tol.clamp_min(1e-30)).max())
+
+
+def check_attention(name, q, k, v, window=0, q_offset=0):
+    """``ops.flash_attention`` against its plain version, the float32
+    oracle ``ref.attention_ref`` on the widened inputs, within the contract
+    (:func:`attention_err_over_tol` <= 1); the SDPA yardstick's own
+    err/tol on the same inputs beside it.  Bound: the products at the
+    tensor-core rate of the input type (bf16 989, TF32 495 TFLOP/s) or the
+    bytes; as named extras, the same at the fp32 rate (the bound of the
+    earlier FFMA design) and the products the tile path issues (1.5x in
+    bf16, 3x in 3xTF32)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ops, ref
 
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     kw = dict(window=window, q_offset=q_offset)
+    body = flash_attention.path(B, Sq, Skv, H, KV, hd, q.dtype)
 
     def kern():
         return ops.flash_attention(q, k, v, **kw)
@@ -655,32 +679,107 @@ def check_attention(name, q, k, v, window=0, q_offset=0):
     def plain():
         return ref.attention_ref(q.float(), k.float(), v.float(), **kw)
 
+    def library():
+        return sdpa(q, k, v, window, q_offset)
+
     out = kern()
     want = plain()
     weight = ref.attention_ref(q.float(), k.float(), v.float().abs(), **kw)
     torch.cuda.synchronize()
-    tol = 1e-5 * weight
-    if q.dtype == torch.bfloat16:
-        tol += 2.0 ** -8 * want.abs()
-    err = (out.float() - want).abs()
-    if bool((err > tol).any()) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"flash_attention {name}: over 1e-5*(P@|V|)")
-    err_max = float(err.max())
-    del want, weight, tol, err
+    ratio = attention_err_over_tol(out, want, weight)
+    if not ratio <= 1.0 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"flash_attention {name}: err/tol {ratio}, "
+                             "over 1e-5*(P@|V|)")
+    err_max = float((out.float() - want).abs().max())
+    lib_ratio = attention_err_over_tol(
+        library().transpose(1, 2), want, weight)
+    del out, want, weight
     torch.cuda.empty_cache()
-    ms = cuda_ms(kern, 5)
+    ms = cuda_ms(kern, 10, repeats=3)
     plain_ms = cuda_ms(plain, 2)
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, window, q_offset), 5)
+    lib_ms = cuda_ms(library, 10, repeats=3)
     pairs = visible_pairs(Sq, Skv, window, q_offset)
     flops = 4 * hd * pairs * B * H          # q.k and p.v, 2 ops per MAC
-    isz = q.element_size()
-    b_ms, b_by = bound((2 * B * Sq * H + 2 * B * Skv * KV) * hd * isz, flops)
-    return dict(shape=name, B=B, Sq=Sq, Skv=Skv, H=H, KV=KV, hd=hd,
-                window=window, q_offset=q_offset,
+    nbytes = (2 * B * Sq * H + 2 * B * Skv * KV) * hd * q.element_size()
+    bf16 = q.dtype == torch.bfloat16
+    rate = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S
+    b_ms, b_by = bound(nbytes, flops, rate)
+    issued = flops * (1.5 if bf16 else 3.0) if body == "tile" else flops
+    return dict(shape=name, path=body, B=B, Sq=Sq, Skv=Skv, H=H, KV=KV,
+                hd=hd, window=window, q_offset=q_offset,
                 dtype=str(q.dtype).replace("torch.", ""),
-                max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err_max, err_over_tol=ratio,
+                sdpa_err_over_tol=lib_ratio, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                bf16_tensor_bound_ms=flops / BF16_OPS_PER_S * 1e3)
+                fp32_rate_bound_ms=bound(nbytes, flops)[0],
+                issued_products_bound_ms=bound(
+                    nbytes, issued, rate if body == "tile"
+                    else FP32_OPS_PER_S)[0])
+
+
+def attention_threshold(dev, gen) -> list:
+    """Both bodies of ``flash_attention`` at decode-like shapes with a
+    growing number of query rows a KV head (Sq * G): 8 sequences, 16
+    heads of 128 (G = 1) over 32,768 keys of cache, bf16.  Where the split
+    path stops winning sets ``flash_attention.SPLIT_ROWS``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+
+    rows = []
+    for Sq in (1, 2, 4, 8, 16, 32, 64):
+        case = attention_case(LM_DECODE_BATCH, Sq, LM_DECODE_KV, OLMO_HEADS,
+                              OLMO_HEADS, HEAD_DIM, torch.bfloat16, dev, gen)
+        kw = dict(q_offset=LM_DECODE_KV - Sq)
+        t = {via: cuda_ms(lambda: flash_attention.flash_attention(
+            *case, via=via, **kw), 5, repeats=2) for via in ("tile", "split")}
+        rows.append(dict(rows=Sq, tile_ms=t["tile"], split_ms=t["split"],
+                         path=flash_attention.path(
+                             LM_DECODE_BATCH, Sq, LM_DECODE_KV, OLMO_HEADS,
+                             OLMO_HEADS, HEAD_DIM, torch.bfloat16)))
+        log(f"[threshold] flash_attention {Sq} query rows a KV head over "
+            f"{LM_DECODE_KV} keys (8 x 16 heads of 128, bf16): tile "
+            f"{t['tile']:.4f} ms, split {t['split']:.4f} ms; path "
+            f"{rows[-1]['path']}")
+        del case
+    return rows
+
+
+def attention_sass() -> dict:
+    """HMMA (tensor-core) instructions in each compiled body of
+    ``csrc/flash_attention.cu``, from ``cuobjdump -sass`` where the toolkit
+    has it (else an empty dict)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(_build._target(
+        "flash_attention"))], capture_output=True, text=True,
+        timeout=120).stdout
+    counts: dict = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Function : \S*?(tile|split|combine)_kernelI"
+                      r"(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Li(\d+)E)?"
+                      r"(?:Lb([01])E)?", line)
+        if m:   # the name flash_attention.BODIES gives the kernel
+            kind, t, hd, nq, vl = m.groups()
+            name = f"{kind}_{'bf16' if t != 'f' else 'f32'}"
+            if hd:
+                name += f"_hd{hd}"
+            if nq:
+                name += f"_nq{nq}" if vl == "1" else "_scalar"
+            counts[name] = 0
+        elif "Function : " in line:
+            name = None
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def attention_case(B, Sq, Skv, H, KV, hd, dtype, dev, gen):
@@ -749,6 +848,8 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     bf16 = torch.bfloat16
     attn_shape = (f"olmo_1b prefill [1, {LM_SEQ}, {OLMO_HEADS}, {HEAD_DIM}]"
                   " causal bf16")
+    decode_shape = (f"olmo_1b decode [{LM_DECODE_BATCH}, 1, {OLMO_HEADS}, "
+                    f"{HEAD_DIM}] over {LM_DECODE_KV} keys bf16")
     lm = attention_case(1, LM_SEQ, LM_SEQ, OLMO_HEADS, OLMO_HEADS, HEAD_DIM,
                         bf16, dev, gen)
     shapes["flash_attention"].append(check_attention(attn_shape, *lm))
@@ -760,14 +861,20 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
              f"{GEMMA_KV_HEADS}, {HEAD_DIM}] window {GEMMA_WINDOW} bf16",
              (1, LM_SEQ, LM_SEQ, GEMMA_HEADS, GEMMA_KV_HEADS, bf16),
              GEMMA_WINDOW, 0),
-            (f"olmo_1b decode [{LM_DECODE_BATCH}, 1, {OLMO_HEADS}, "
-             f"{HEAD_DIM}] over {LM_DECODE_KV} keys bf16",
-             (LM_DECODE_BATCH, 1, LM_DECODE_KV, OLMO_HEADS, OLMO_HEADS,
+            (decode_shape, (LM_DECODE_BATCH, 1, LM_DECODE_KV, OLMO_HEADS,
+                            OLMO_HEADS, bf16), 0, LM_DECODE_KV - 1),
+            (f"gemma3_27b global decode [{LM_DECODE_BATCH}, 1, "
+             f"{GEMMA_HEADS}/{GEMMA_KV_HEADS}, {HEAD_DIM}] over "
+             f"{LM_DECODE_KV} keys bf16",
+             (LM_DECODE_BATCH, 1, LM_DECODE_KV, GEMMA_HEADS, GEMMA_KV_HEADS,
               bf16), 0, LM_DECODE_KV - 1)):
         case = attention_case(B, Sq, Skv, H, KV, HEAD_DIM, dt, dev, gen)
         shapes["flash_attention"].append(check_attention(
             name, *case, window=window, q_offset=q_offset))
+        if name == decode_shape:
+            decode = case
         del case
+    threshold = attention_threshold(dev, gen)
     for kname, rows in shapes.items():
         for r in rows:
             extra = ""
@@ -777,9 +884,13 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
                          f" GB = {r['gathered_ms']:.3f} ms at 3.35 TB/s, all "
                          f"N*M lanes {r['all_lanes_bytes'] / 1e9:.2f} GB)")
             elif kname == "flash_attention":
-                extra = (f" (bound at the fp32 rate, the reference's "
-                         f"arithmetic; at the bf16 tensor-core rate "
-                         f"{r['bf16_tensor_bound_ms']:.4f} ms)")
+                rate = "bf16" if r["dtype"] == "bfloat16" else "TF32"
+                extra = (f" err/tol={r['err_over_tol']:.3f} (SDPA's "
+                         f"{r['sdpa_err_over_tol']:.3f}); bound at the "
+                         f"{rate} tensor-core rate or bytes; at the "
+                         f"fp32 rate {r['fp32_rate_bound_ms']:.4f} ms, the "
+                         f"products issued {r['issued_products_bound_ms']:.4f}"
+                         " ms")
             log_kernel(kname, r, extra)
 
     # the kernel API's path, counted
@@ -815,23 +926,35 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     if h.shape != (GNN_NODES, GNN_HIDDEN) or not bool(
             torch.isfinite(h).all()):
         raise AssertionError("packed_spmm: bad output")
-    t0 = time.perf_counter()
-    att = ops.flash_attention(*lm)
-    torch.cuda.synchronize()
-    out["flash_attention_ms"] = (time.perf_counter() - t0) * 1e3
-    if att.shape != lm[0].shape or not bool(torch.isfinite(att).all()):
-        raise AssertionError("flash_attention: bad output")
-    del att, lm
+    for label, case, kw in (("prefill", lm, {}),
+                            ("decode", decode,
+                             dict(q_offset=LM_DECODE_KV - 1))):
+        t0 = time.perf_counter()
+        att = ops.flash_attention(*case, **kw)
+        torch.cuda.synchronize()
+        out[f"flash_attention_{label}_ms"] = (time.perf_counter() - t0) * 1e3
+        if att.shape != case[0].shape or not bool(
+                torch.isfinite(att).all()):
+            raise AssertionError(f"flash_attention {label}: bad output")
+        del att
+    del lm, decode
     log("[api] embedding_bag B=" + ", B=".join(
         f"{B}: {out[f'embedding_bag_{B}_ms']:.3f} ms" for B in BAG_BATCHES)
         + f"; packed_spmm: {out['packed_spmm_ms']:.3f} ms; flash_attention "
-        f"(olmo_1b prefill): {out['flash_attention_ms']:.3f} ms (host clock)")
+        f"olmo_1b prefill (tile): {out['flash_attention_prefill_ms']:.3f} ms,"
+        f" decode (split): {out['flash_attention_decode_ms']:.3f} ms (host "
+        "clock)")
     launches = K.launch_counts()
     log("[launches] phase 9 " + json.dumps(launches))
     missing = [k for k in API_BODIES if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the kernel API's "
                              f"path: {missing}")
+    if launches["flash_attention"] != 3:
+        raise AssertionError("flash_attention: a prefill (tile, 1 launch) "
+                             "and a decode step (split, 2) launched "
+                             f"{launches['flash_attention']} times")
+    out["flash_attention_threshold"] = threshold
     main = dict(distance_matrix=knn_shape, bitonic_sort=topk_shape,
                 embedding_bag=f"[{BAG_ROWS}, {BAG_DIM}] bag {BAG_SIZE} mean "
                               f"B={BAG_BATCHES[-1]}",
@@ -1129,7 +1252,7 @@ def main() -> int:
     from repro_torch.ann.quantize import quantize_rows
     from repro_torch.configs.base import ANNConfig
     from repro_torch.data.synthetic import make_clustered, recall_at_k
-    from repro_torch.kernels import _build, topk
+    from repro_torch.kernels import _build, flash_attention, topk
 
     t_start = time.perf_counter()
     dev = card()
@@ -1148,6 +1271,16 @@ def main() -> int:
     record["topk_bodies"] = topk.body_attributes()
     log("[build] topk.cu kernels (registers, spilled bytes) a thread: "
         + json.dumps(record["topk_bodies"]))
+    record["flash_attention_bodies"] = flash_attention.body_attributes()
+    log("[build] flash_attention.cu kernels (registers, spilled bytes) a "
+        "thread: " + json.dumps(record["flash_attention_bodies"]))
+    record["flash_attention_sass_hmma"] = sass = attention_sass()
+    log("[sass] HMMA instructions a flash_attention.cu kernel "
+        "(cuobjdump -sass): " + (json.dumps(sass) if sass
+                                 else "cuobjdump not found"))
+    idle = [n for n, c in sass.items() if n.startswith("tile_") and c == 0]
+    if idle:
+        raise AssertionError(f"tile bodies without HMMA: {idle}")
 
     # ---- phase 2: kernels vs plain versions at the main path's shapes ----
     n, d = args.n, 128

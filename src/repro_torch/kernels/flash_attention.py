@@ -1,13 +1,23 @@
 """Causal + sliding-window GQA attention: CUDA kernel wrapper + its plain
-version.
+versions.
 
 Replaces the reference's ``kernels/flash_attention.py::
-flash_attention_pallas``.  The kernel is ``csrc/flash_attention.cu`` (one
-CTA per 64-query tile, head and batch row, KV streamed in tiles with the
-online softmax in float32, masked tiles skipped through the loop bounds);
-its header note gives the bound and the design.  The plain version is the
-oracle :func:`repro_torch.kernels.ref.attention_ref`, the exact softmax in
-float32.
+flash_attention_pallas``.  The kernel is ``csrc/flash_attention.cu``, two
+bodies chosen by :func:`path` from the shapes alone:
+
+* ``"tile"`` (prefill): tensor-core tiles of 64 query rows, K and V
+  streamed through a cp.async ring, the online softmax in float32; bf16
+  inputs multiply S in bf16 and P @ V with P split into two bf16 parts,
+  float32 inputs multiply both products in 3xTF32.  One launch.
+* ``"split"`` (decode, few query rows a KV head): the visible keys cut
+  into chunks (:func:`split_plan`), one CTA a (chunk, KV head, batch row)
+  writing float32 partials (m, l, acc), then a combine.  Two launches.
+
+The source's header note gives the bounds, both designs and why the
+operand splits exist.  The plain version of the kernel's function is the
+oracle :func:`repro_torch.kernels.ref.attention_ref`, the exact softmax
+in float32; :func:`split_plain` is the split path's arithmetic (partials
+per planned chunk, then the combine) in plain PyTorch.
 
 q [B, Sq, H, hd], k and v [B, Skv, KV, hd], H = KV * G; query i sits at
 position ``q_offset + i`` and sees key j when ``j <= q_offset + i`` and,
@@ -16,6 +26,8 @@ for ``window > 0``, ``j > q_offset + i - window``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -23,7 +35,25 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.block import check
 
-MAX_HEAD_DIM = 256   # the kernel's widest head (its shared-memory tile)
+MAX_HEAD_DIM = 256     # the widest head the kernels pad to
+HEAD_DIMS = (32, 64, 128, 256)   # the padded head widths compiled
+# the split path at every decode step (Sq = 1: the tile path would read K
+# and V once for each of the G heads) and up to this many query rows
+# (Sq * G) a KV head; the tile path above it.  On the H100 at G = 1 over
+# 32,768 keys, split wins at 1 and 2 rows and the tile path from 4
+# (PERF.md; chip_smoke.py's [threshold] lines)
+SPLIT_ROWS = 2
+SPLIT_NQ = (1, 2, 4, 8)  # query rows a split CTA takes (compiled)
+SPLIT_CTAS = 132 * 16    # a split launch aims at 16 CTAs an H100 SM
+MIN_CHUNK = 256          # keys a chunk at least
+CHUNK_ALIGN = 64         # chunks a multiple of this many keys
+# the compiled bodies, in the order of csrc/flash_attention.cu
+# repro_flash_attrs
+BODIES = ([f"tile_{t}_hd{d}" for t in ("bf16", "f32") for d in HEAD_DIMS]
+          + [f"split_{t}_hd{d}_{r}" for t in ("bf16", "f32")
+             for d in HEAD_DIMS for r in ("nq1", "nq2", "nq4", "nq8",
+                                           "scalar")]
+          + ["combine_bf16", "combine_f32"])
 
 
 def check_shapes(q, k, v, *, window: int, q_offset: int) -> None:
@@ -46,11 +76,118 @@ def check_shapes(q, k, v, *, window: int, q_offset: int) -> None:
                          f"Skv={Skv}: some query row would see no key")
 
 
-def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0):
+def path(B: int, Sq: int, Skv: int, H: int, KV: int, hd: int,
+         dtype) -> str:
+    """The kernel body of a call: ``"split"`` for a decode step (Sq = 1)
+    or at most ``SPLIT_ROWS`` query rows a KV head, else ``"tile"``."""
+    return "split" if Sq == 1 or Sq * (H // KV) <= SPLIT_ROWS else "tile"
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """The split path's chunks: ``chunks`` runs of ``chunk`` keys from
+    key ``lo``, and ``nq`` query rows a CTA."""
+    lo: int
+    chunk: int
+    chunks: int
+    nq: int
+
+
+def split_plan(B: int, Sq: int, Skv: int, H: int, KV: int, *,
+               window: int = 0, q_offset: int = 0,
+               chunk: int | None = None) -> SplitPlan:
+    """Cut the keys some query row sees, [lo, hi), into chunks: enough for
+    about ``SPLIT_CTAS`` CTAs, each of at least ``MIN_CHUNK`` keys (or
+    ``chunk`` keys each, where given)."""
+    rows = Sq * (H // KV)
+    nq = min(SPLIT_NQ[-1], 1 << max(0, rows - 1).bit_length())
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    hi = min(Skv, q_offset + Sq)
+    span = hi - lo
+    if chunk is None:
+        ctas = B * KV * -(-rows // nq)
+        n = max(1, min(-(-SPLIT_CTAS // ctas), span // MIN_CHUNK))
+        chunk = -(-span // n)
+        chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+    return SplitPlan(lo, chunk, -(-span // chunk), nq)
+
+
+def split_plain(q, k, v, *, window: int = 0, q_offset: int = 0,
+                chunk: int | None = None):
+    """The split path's arithmetic in plain PyTorch (any device): float32
+    partials (m, l, acc) over each chunk of :func:`split_plan`, an empty
+    chunk m = -inf and l = 0, then acc and l rescaled by exp(m_c - M),
+    summed and divided.  Same layout and result type as
+    :func:`flash_attention`."""
+    check_shapes(q, k, v, window=window, q_offset=q_offset)
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    plan = split_plan(B, Sq, Skv, H, KV, window=window, q_offset=q_offset,
+                      chunk=chunk)
+    qf = q.to(torch.float32).reshape(B, Sq, KV, G, hd) * hd ** -0.5
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    ms, ls, accs = [], [], []
+    for c in range(plan.chunks):
+        ks = plan.lo + c * plan.chunk
+        ke = min(Skv, ks + plan.chunk)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf[:, ks:ke])
+        k_pos = torch.arange(ks, ke, device=q.device)
+        mask = k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(-1)                                   # [B, KV, G, Sq]
+        p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgqs,bskh->bkgqh", p, vf[:, ks:ke]))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(0))          # an empty chunk: exp(-inf) = 0
+    l_sum = (w * torch.stack(ls)).sum(0)
+    o = (w[..., None] * torch.stack(accs)).sum(0) / l_sum[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library, its entry points typed once."""
+    lib = _build.library("flash_attention")
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.repro_flash_tile.argtypes = [p] * 4 + [i] * 8 + [f, i, i, p]
+    lib.repro_flash_split.argtypes = [p] * 6 + [i] * 12 + [f, i, i, p]
+    lib.repro_flash_combine.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.repro_flash_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 2
+    for fn in (lib.repro_flash_tile, lib.repro_flash_split,
+               lib.repro_flash_combine, lib.repro_flash_attrs):
+        fn.restype = i
+    return lib
+
+
+def body_attributes() -> dict:
+    """Registers and spilled (local) bytes a thread of each compiled
+    kernel, as the card reports them: ``{"tile_bf16_hd32": (regs, local),
+    ..., "combine_f32": ...}``."""
+    out = {}
+    for which, name in enumerate(BODIES):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        _build.check(_lib().repro_flash_attrs(which, ctypes.byref(regs),
+                                              ctypes.byref(local)),
+                     "flash_attention attributes")
+        out[name] = (regs.value, local.value)
+    return out
+
+
+def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
+                    via: str | None = None, chunk: int | None = None):
     """q [B, Sq, H, hd], k/v [B, Skv, KV, hd], all float32 or all bfloat16
     -> [B, Sq, H, hd] in q's dtype.  CPU tensors take
     :func:`repro_torch.kernels.ref.attention_ref`; CUDA tensors launch the
-    kernel (counted on ``flash_attention``)."""
+    kernel along :func:`path`, each launch counted on ``flash_attention``.
+    ``via`` ("tile" or "split") and ``chunk`` (the split path's keys a
+    chunk) override the plan, to hold a body to shapes it would not
+    take."""
     check_shapes(q, k, v, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, window=window, q_offset=q_offset)
@@ -65,14 +202,39 @@ def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0):
     if hd > MAX_HEAD_DIM or B > 65535 or H > 65535:
         raise ValueError(f"hd={hd} (at most {MAX_HEAD_DIM}), B={B} and "
                          f"H={H} (at most 65535 each) exceed the kernel")
+    body = via or path(B, Sq, Skv, H, KV, hd, q.dtype)
+    if body not in ("tile", "split"):
+        raise ValueError(f"via: 'tile' or 'split', got {via!r}")
     out = torch.empty_like(q)
-    fn = _build.library("flash_attention").repro_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-             B, Sq, Skv, H, KV, hd, window, q_offset, hd ** -0.5,
-             int(q.dtype == torch.bfloat16), _build.stream_of(q))
-    _build.check(err, "flash_attention")
+    bf16 = int(q.dtype == torch.bfloat16)
+    # 16-byte rows for cp.async and vector loads
+    vec = int(hd * q.element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    stream = _build.stream_of(q)
+    ptrs = [_build.ptr(t) for t in (q, k, v)]
+    if body == "tile":
+        err = _lib().repro_flash_tile(*ptrs, _build.ptr(out), B, Sq, Skv, H,
+                                      KV, hd, window, q_offset, hd ** -0.5,
+                                      bf16, vec, stream)
+        _build.check(err, "flash_attention")
+        _build.LAUNCHES["flash_attention"] += 1
+        return out
+    plan = split_plan(B, Sq, Skv, H, KV, window=window, q_offset=q_offset,
+                      chunk=chunk)
+    rows = B * Sq * H
+    part = torch.empty(rows * plan.chunks * (hd + 2), dtype=torch.float32,
+                       device=dev)
+    n = rows * plan.chunks
+    pm, pl, pacc = (_build.ptr(t) for t in (part[:n], part[n:2 * n],
+                                             part[2 * n:]))
+    err = _lib().repro_flash_split(*ptrs, pm, pl, pacc, B, Sq, Skv, H, KV,
+                                   hd, window, q_offset, plan.lo, plan.chunk,
+                                   plan.chunks, plan.nq, hd ** -0.5, bf16,
+                                   vec, stream)
+    _build.check(err, "flash_attention split")
+    _build.LAUNCHES["flash_attention"] += 1
+    err = _lib().repro_flash_combine(pm, pl, pacc, _build.ptr(out), rows, hd,
+                                     plan.chunks, bf16, stream)
+    _build.check(err, "flash_attention combine")
     _build.LAUNCHES["flash_attention"] += 1
     return out

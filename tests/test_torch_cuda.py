@@ -24,8 +24,9 @@ from repro_torch.configs.tsdg_paper import reduced
 from repro_torch.core import hotpath as HP
 from repro_torch.data.synthetic import make_clustered, recall_at_k
 from repro_torch.ann.quantize import quantize_rows
-from repro_torch.kernels import (block, embedding_bag, l2dist, ops, ref,
-                                  segment_matmul, topk, visited)
+from repro_torch.kernels import (block, embedding_bag, flash_attention,
+                                  l2dist, ops, ref, segment_matmul, topk,
+                                  visited)
 
 pytestmark = pytest.mark.cuda
 
@@ -423,32 +424,101 @@ def test_packed_spmm_matches_plain(dev, rng, N, M, d, f, combine):
     assert (out[5] == 0).all()
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset", [
-    (2, 200, 200, 6, 3, 24, 0, 0), (1, 130, 130, 4, 4, 128, 32, 0),
-    (2, 1, 300, 8, 2, 64, 0, 299), (1, 70, 100, 2, 1, 256, 40, 30),
-    (1, 64, 64, 2, 2, 33, 0, 0)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_matches_plain(dev, rng, B, Sq, Skv, H, KV, hd,
-                                       window, q_offset, dtype):
-    """GQA, windows that skip whole KV tiles, a decode step, the widest
-    head (256) and a head width off the kernel's 32-wide padding; ragged
-    query and key counts."""
+def _attention_case(dev, rng, B, Sq, Skv, H, KV, hd, dtype):
     q, k, v = _on(dev, *(rng.normal(size=(B, S, h, hd)).astype(np.float32)
                          for S, h in ((Sq, H), (Skv, KV), (Skv, KV))))
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    n0 = K.launch_counts()["flash_attention"]
-    out = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _assert_attention_close(out, q, k, v, window, q_offset):
+    """Within 1e-5 * (P @ |V|) of the float32 oracle, plus one rounding
+    of the output (2^-8 * |out|) in bfloat16."""
     want = ref.attention_ref(q.float(), k.float(), v.float(), window=window,
                              q_offset=q_offset)
     weight = ref.attention_ref(q.float(), k.float(), v.float().abs(),
                                window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert K.launch_counts()["flash_attention"] == n0 + 1
-    assert out.dtype == dtype and out.shape == (B, Sq, H, hd)
+    assert out.dtype == q.dtype and out.shape == q.shape
     tol = 1e-5 * weight
-    if dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         tol = tol + 2.0 ** -8 * want.abs()
     assert ((out.float() - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset", [
+    (2, 200, 200, 6, 3, 24, 0, 0), (1, 130, 130, 4, 4, 128, 32, 0),
+    (2, 1, 300, 8, 2, 64, 0, 299), (1, 70, 100, 2, 1, 256, 40, 30),
+    (1, 64, 64, 2, 2, 33, 0, 0),
+    # 2 query rows a KV head (the split path's threshold), then 3 and 4
+    (1, 2, 400, 2, 2, 64, 0, 398), (1, 3, 400, 2, 2, 64, 0, 397),
+    (1, 2, 400, 4, 2, 64, 0, 398)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, rng, B, Sq, Skv, H, KV, hd,
+                                       window, q_offset, dtype):
+    """GQA, windows that skip whole KV tiles, a decode step, the widest
+    head (256) and a head width off the kernel's padding; ragged query and
+    key counts; both sides of the split path's threshold.  The tile path
+    launches once, the split path twice (partials, combine)."""
+    q, k, v = _attention_case(dev, rng, B, Sq, Skv, H, KV, hd, dtype)
+    n0 = K.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    body = flash_attention.path(B, Sq, Skv, H, KV, hd, dtype)
+    assert K.launch_counts()["flash_attention"] - n0 \
+        == (1 if body == "tile" else 2)
+    _assert_attention_close(out, q, k, v, window, q_offset)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset,chunk", [
+    (2, 1, 5000, 8, 4, 128, 0, 4999, None),   # GQA decode, G = 2; the
+    #                                           last chunk ragged
+    (2, 1, 3000, 4, 2, 64, 700, 2999, None),  # decode under a window
+    (3, 1, 700, 32, 2, 256, 0, 699, None),    # G = 16: two row groups
+    (1, 4, 600, 4, 2, 128, 3, 500, 2),        # chunks some rows see not
+    (1, 8, 300, 1, 1, 33, 5, 200, 8),         # element-wise loads
+    (2, 2, 90, 2, 1, 32, 0, 60, 16)])         # an offset, G = 2
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_split_matches_plain(dev, rng, B, Sq, Skv, H, KV, hd,
+                                             window, q_offset, chunk, dtype):
+    """The split body at its own edges (chunks of the plan, or of
+    ``chunk`` keys; 1 to 16 query rows a KV head), two launches each, and
+    its plain version ``split_plain`` within the same tolerance."""
+    q, k, v = _attention_case(dev, rng, B, Sq, Skv, H, KV, hd, dtype)
+    n0 = K.launch_counts()["flash_attention"]
+    out = flash_attention.flash_attention(q, k, v, window=window,
+                                          q_offset=q_offset, via="split",
+                                          chunk=chunk)
+    assert K.launch_counts()["flash_attention"] - n0 == 2
+    _assert_attention_close(out, q, k, v, window, q_offset)
+    plain = flash_attention.split_plain(q, k, v, window=window,
+                                        q_offset=q_offset, chunk=chunk)
+    _assert_attention_close(plain, q, k, v, window, q_offset)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset", [
+    (1, 64, 500, 4, 2, 64, 100, 300), (2, 3, 200, 2, 2, 128, 0, 197),
+    (1, 17, 40, 3, 1, 48, 9, 23)])
+@pytest.mark.parametrize("via", ["tile", "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bodies_agree(dev, rng, B, Sq, Skv, H, KV, hd,
+                                      window, q_offset, via, dtype):
+    """Each body also holds at shapes the other one takes."""
+    q, k, v = _attention_case(dev, rng, B, Sq, Skv, H, KV, hd, dtype)
+    n0 = K.launch_counts()["flash_attention"]
+    out = flash_attention.flash_attention(q, k, v, window=window,
+                                          q_offset=q_offset, via=via)
+    assert K.launch_counts()["flash_attention"] - n0 \
+        == (1 if via == "tile" else 2)
+    _assert_attention_close(out, q, k, v, window, q_offset)
+
+
+def test_flash_attention_bodies_fit_without_spills(dev):
+    """The card's own count for every compiled body of
+    flash_attention.cu: no spill to local memory, at most 255 registers."""
+    attrs = flash_attention.body_attributes()
+    assert list(attrs) == flash_attention.BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0, (name, local)
+        assert regs <= 255, (name, regs)
 
 
 def test_flash_attention_rejects_mixed_types(dev):
