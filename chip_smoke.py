@@ -7,11 +7,18 @@ Phases, each printing its own lines:
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel) and print the build time;
+   parallel) and print the build time, the registers and spills of the
+   top-k, attention, self-query and distance-matrix bodies, and the HMMA
+   count of each tensor-core body (``cuobjdump -sass``; one without HMMA
+   fails the run);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (distances within 1e-5 * (qn + vn),
    rank merge and visited filter exactly), with the kernel's, the plain
-   version's and a library call's times and the bound;
+   version's and a library call's times and the bound (for the
+   tensor-core tiles also at the tensor-core rate and for the products
+   they issue); then relaxed GD's keep mask and soft GD's occlusion
+   factors of one 2,048-node tile through the self-query kernel and
+   through the plain version, equal on >= 99% of entries;
 3. the main path: ``make_clustered`` at SIFT1M scale, ``Index.build`` with
    the default config (per-stage seconds);
 4. ``Index.search`` at B = 10 (small regime) and B = 10240 (large regime),
@@ -50,9 +57,7 @@ Phases, each printing its own lines:
    16 heads of 128, bf16, the "tile" body) and one decode step over
    32,768 keys (the "split" body) through ``ops.flash_attention``.
    Attention also reports SDPA's own err/tol on the same inputs, both
-   bodies at 1-64 query rows a KV head (``[threshold]`` lines), and the
-   HMMA count of each compiled body (``cuobjdump -sass``; a tile body
-   without one fails the run).
+   bodies at 1-64 query rows a KV head (``[threshold]`` lines).
 
 Phases 3-4, 7 and 8 each start with every launch counter at 0 and read
 the counters at their end; each of the six ANN kernel bodies must have
@@ -78,6 +83,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+# mma.sync's own ceiling on the H100 (tools/mma_sync_bench.cu, PERF.md §6):
+# the rate the products of a 3xTF32 or bf16 mma.sync tile are issued at
+MMA_SYNC_TF32_OPS_PER_S = 313e12
+MMA_SYNC_BF16_OPS_PER_S = 625e12
+DIVERSIFY_AGREEMENT = 0.99    # phase 2: keep / occlusion entries equal
 ROUTE = "cuda"
 STREAM_ADDS = 16384           # phase 8's added rows (delta capacity 16384)
 STREAM_DELETED_ADDS = 1024    # ... of which deleted again
@@ -116,6 +126,12 @@ def log_kernel(kname: str, r: dict, extra: str = "") -> None:
         extra = f" path={r['path']}" + extra
     if r.get("torch_topk_ms") is not None:
         extra += f" (torch.topk {r['torch_topk_ms']:.4f} ms)"
+    if r.get("issued_bound_ms") is not None:
+        rate = "bf16" if r.get("dtype") == "bfloat16" else "TF32"
+        extra += (f" err/tol={r['err_over_tol']:.3f}; bound at the {rate} "
+                  f"tensor-core rate or bytes; at the fp32 rate "
+                  f"{r['fp32_rate_bound_ms']:.4f} ms, the products issued "
+                  f"at mma.sync's ceiling {r['issued_bound_ms']:.4f} ms")
     log(f"[kernel] {kname} {r['shape']}: ms={r['ms']:.4f} "
         f"plain_ms={r['plain_ms']:.4f} library_ms="
         f"{lib if lib is None else round(lib, 4)} "
@@ -227,10 +243,11 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
                                                       .expand_as(out)]).all():
         raise AssertionError(f"gather_distances {name}: {bad} entries over "
                              f"1e-5*(qn+vn), masked lanes INF={masked_ok}")
-    it = 3 if S * C > 1 << 24 else 20
-    ms = cuda_ms(kern, it)
+    it, reps = (3, 1) if S * C > 1 << 24 else (20, 3)   # reps: see cuda_ms
+    ms = cuda_ms(kern, it, repeats=reps)
     plain_ms = cuda_ms(lambda: chunked(plain, S, rows), max(1, it // 3))
-    lib_ms = cuda_ms(lambda: chunked(library, S, rows), max(1, it // 3))
+    lib_ms = cuda_ms(lambda: chunked(library, S, rows), max(1, it // 3),
+                     repeats=reps)
     n_valid = int(valid.sum())
     kq = C if self_q else Kq
     # self-query tiles read every row; the row kernel skips masked lanes
@@ -240,10 +257,71 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
         + S * C * 5 + S * kq * C * 4
     flops = 2 * lanes * kq * d + 2 * lanes * d + (0 if self_q else
                                                   2 * S * Kq * d)
-    b_ms, b_by = bound(nbytes, flops)
-    return dict(shape=name, S=S, Kq=kq, C=C, d=d, max_abs_err=float(
-        err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by)
+    row = dict(shape=name, S=S, Kq=kq, C=C, d=d, max_abs_err=float(
+        err.max()), err_over_tol=float((err / tol).max()), ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms)
+    if self_q:   # the tile's products run on tensor cores in 3xTF32
+        row.update(tensor_bounds(nbytes, flops, 2 * lanes * kq * d, False))
+    else:
+        row.update(zip(("bound_ms", "bound_by"), bound(nbytes, flops)))
+    return row
+
+
+def tensor_bounds(nbytes, flops, products, bf16) -> dict:
+    """The bounds of a tensor-core distance tile: ``bound_ms``, all its
+    operations at the tensor-core rate of its input (bf16 989, TF32 495
+    TFLOP/s) or the bytes; as named extras, the same at the fp32 rate (the
+    bound of the earlier FFMA design) and the products it issues (3x in
+    3xTF32, 1x in bf16) at mma.sync's measured ceiling."""
+    rate = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S
+    issued = (products, MMA_SYNC_BF16_OPS_PER_S) if bf16 else (
+        3 * products, MMA_SYNC_TF32_OPS_PER_S)
+    b_ms, b_by = bound(nbytes, flops, rate)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                fp32_rate_bound_ms=bound(nbytes, flops)[0],
+                issued_bound_ms=bound(nbytes, *issued)[0])
+
+
+def check_diversify(dev, cfg, gen, n: int = 1 << 20) -> dict:
+    """Relaxed GD's keep mask and soft GD's occlusion factors of one
+    2,048-node tile, computed with the self-query kernel and with the
+    plain version (``backend="torch"``) from the same lists: the exact
+    ``2 k_graph``-NN of the tile's nodes (self left out) in n x 128
+    make_clustered-like rows (64 centres, noise 0.15), the last 8 lanes of
+    each soft-GD list the sentinel n (appended lists end so), the first
+    ``k_graph`` for relaxed GD.  Near ties may flip; returns the share of
+    equal entries of each."""
+    import torch
+
+    from repro_torch.core import diversify
+    from repro_torch.kernels import block
+
+    d, T, K = 128, 2048, cfg.k_graph
+    centres = torch.randn((64, d), generator=gen, device=dev)
+    X = centres[torch.randint(0, 64, (n,), generator=gen, device=dev)] \
+        + 0.15 * torch.randn((n, d), generator=gen, device=dev)
+    lists = []
+    for lo in range(0, T, 256):
+        D = block.distance_matrix_plain(X[lo:lo + 256], X)
+        D[torch.arange(256, device=dev), lo + torch.arange(256, device=dev)] \
+            = float("inf")
+        lists.append(torch.topk(D, 2 * K, dim=1, largest=False))
+        del D
+    dists = torch.cat([v for v, _ in lists])
+    ids = torch.cat([i for _, i in lists]).int()
+    soft_ids, soft_d = ids.clone(), dists.clone()
+    soft_ids[:, -8:], soft_d[:, -8:] = n, 3.4e38
+    out = {}
+    for name, fn, args, kw in (
+            ("relaxed_gd keep", diversify.relaxed_gd_tile,
+             (ids[:, :K].contiguous(), dists[:, :K].contiguous()),
+             dict(alpha=cfg.alpha)),
+            ("soft_gd occlusion factors", diversify.occlusion_factors_tile,
+             (soft_ids, soft_d), {})):
+        kern = fn(X, *args, metric="l2", **kw)
+        plain = fn(X, *args, metric="l2", backend="torch", **kw)
+        out[name] = float((kern == plain).float().mean())
+    return out
 
 
 def check_block(name, S, Kq, C, d, quant, dev, gen):
@@ -454,27 +532,29 @@ def check_distance_matrix(name, Q, X, metric="l2"):
     torch.cuda.synchronize()
     xn = (X.double() ** 2).sum(1)
     qn = (Q.double() ** 2).sum(1)
-    err_max, bad = 0.0, 0
+    err_max, ratio, bad = 0.0, 0.0, 0
     for lo in range(0, B, 64):     # the float64 check in row chunks
         err = (out[lo:lo + 64].double() - ref[lo:lo + 64].double()).abs()
-        bad += int((err > 1e-5 * (qn[lo:lo + 64, None] + xn)).sum())
+        tol = 1e-5 * (qn[lo:lo + 64, None] + xn)
+        bad += int((err > tol).sum())
         err_max = max(err_max, float(err.max()))
+        ratio = max(ratio, float((err / tol).max()))
     if bad or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"distance_matrix {name}: {bad} entries over "
                              "1e-5*(qn+xn)")
     del ref
     big = B * N > 1 << 26
-    it = 3 if big else 20
-    ms = cuda_ms(kern, it)
+    it, reps = (3, 1) if big else (20, 3)   # reps: see cuda_ms
+    ms = cuda_ms(kern, it, repeats=reps)
     plain_ms = cuda_ms(plain, max(1, it // 3))
-    lib_ms = cuda_ms(library, max(1, it // 3))
+    lib_ms = cuda_ms(library, max(1, it // 3), repeats=reps)
     isz = Q.element_size()
     nbytes = (B + N) * d * isz + B * N * 4
     flops = 2 * B * N * d + (2 * (B + N) * d if metric == "l2" else 0)
-    b_ms, b_by = bound(nbytes, flops)
     return dict(shape=name, B=B, N=N, d=d, dtype=str(Q.dtype).replace(
-        "torch.", ""), max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), out
+        "torch.", ""), max_abs_err=err_max, err_over_tol=ratio, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, **tensor_bounds(
+            nbytes, flops, 2 * B * N * d, Q.dtype == torch.bfloat16)), out
 
 
 def check_sort(name, dists, ids, keep):
@@ -745,10 +825,37 @@ def attention_threshold(dev, gen) -> list:
     return rows
 
 
-def attention_sass() -> dict:
+def _flash_body(kind, t, hd, nq, vl) -> str:
+    name = f"{kind}_{'bf16' if t != 'f' else 'f32'}"
+    if hd:
+        name += f"_hd{hd}"
+    if nq:
+        name += f"_nq{nq}" if vl == "1" else "_scalar"
+    return name
+
+
+# the tensor-core kernels of each source, as their cuobjdump symbols
+# start, and the name kernels/<module>.py's BODIES give each
+SASS_BODIES = {
+    "flash_attention": (r"(tile|split|combine)_kernelI(13__nv_bfloat16|f)"
+                        r"(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb([01])E)?",
+                        _flash_body),
+    "l2dist": (r"gather_selfq_kernelILi(\d+)ELb([01])ELb([01])E",
+               lambda nt, vec, one: f"selfq_nt{nt}"
+               + ("" if vec == "1" else "_scalar")
+               + ("" if one == "1" else "_streamed")),
+    "block": (r"dm_kernelI(13__nv_bfloat16|f)Lb([01])E",
+              lambda t, vec: f"dm_{'f32' if t == 'f' else 'bf16'}"
+              + ("" if vec == "1" else "_scalar")),
+}
+
+
+def sass_hmma() -> dict:
     """HMMA (tensor-core) instructions in each compiled body of
-    ``csrc/flash_attention.cu``, from ``cuobjdump -sass`` where the toolkit
-    has it (else an empty dict)."""
+    ``csrc/flash_attention.cu``, of ``csrc/l2dist.cu``'s self-query tile
+    and of ``csrc/block.cu``'s distance matrix, from ``cuobjdump -sass``
+    where the toolkit has it (else an empty dict): ``{source: {body:
+    count}}``."""
     import re
     import shutil
 
@@ -758,28 +865,22 @@ def attention_sass() -> dict:
         os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
-    text = subprocess.run([tool, "-sass", str(_build._target(
-        "flash_attention"))], capture_output=True, text=True,
-        timeout=120).stdout
-    counts: dict = {}
-    name = None
-    for line in text.splitlines():
-        m = re.search(r"Function : \S*?(tile|split|combine)_kernelI"
-                      r"(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Li(\d+)E)?"
-                      r"(?:Lb([01])E)?", line)
-        if m:   # the name flash_attention.BODIES gives the kernel
-            kind, t, hd, nq, vl = m.groups()
-            name = f"{kind}_{'bf16' if t != 'f' else 'f32'}"
-            if hd:
-                name += f"_hd{hd}"
-            if nq:
-                name += f"_nq{nq}" if vl == "1" else "_scalar"
-            counts[name] = 0
-        elif "Function : " in line:
-            name = None
-        elif name and "HMMA" in line:
-            counts[name] += 1
-    return counts
+    out: dict = {}
+    for source, (pattern, body) in SASS_BODIES.items():
+        text = subprocess.run([tool, "-sass", str(_build._target(source))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        counts = out[source] = {}
+        name = None
+        for line in text.splitlines():
+            if "Function : " in line:
+                m = re.search(r"Function : \S*?" + pattern, line)
+                name = body(*m.groups()) if m else None
+                if name:
+                    counts[name] = 0
+            elif name and "HMMA" in line:
+                counts[name] += 1
+    return out
 
 
 def attention_case(B, Sq, Skv, H, KV, hd, dtype, dev, gen):
@@ -1252,7 +1353,7 @@ def main() -> int:
     from repro_torch.ann.quantize import quantize_rows
     from repro_torch.configs.base import ANNConfig
     from repro_torch.data.synthetic import make_clustered, recall_at_k
-    from repro_torch.kernels import _build, flash_attention, topk
+    from repro_torch.kernels import _build, block, flash_attention, l2dist, topk
 
     t_start = time.perf_counter()
     dev = card()
@@ -1274,13 +1375,26 @@ def main() -> int:
     record["flash_attention_bodies"] = flash_attention.body_attributes()
     log("[build] flash_attention.cu kernels (registers, spilled bytes) a "
         "thread: " + json.dumps(record["flash_attention_bodies"]))
-    record["flash_attention_sass_hmma"] = sass = attention_sass()
-    log("[sass] HMMA instructions a flash_attention.cu kernel "
-        "(cuobjdump -sass): " + (json.dumps(sass) if sass
-                                 else "cuobjdump not found"))
-    idle = [n for n, c in sass.items() if n.startswith("tile_") and c == 0]
-    if idle:
-        raise AssertionError(f"tile bodies without HMMA: {idle}")
+    record["l2dist_bodies"] = l2dist.body_attributes()
+    log("[build] l2dist.cu self-query kernels (registers, spilled bytes) a "
+        "thread: " + json.dumps(record["l2dist_bodies"]))
+    record["block_bodies"] = block.body_attributes()
+    log("[build] block.cu distance-matrix kernels (registers, spilled "
+        "bytes) a thread: " + json.dumps(record["block_bodies"]))
+    record["sass_hmma"] = sass = sass_hmma()
+    for source, counts in sass.items():
+        log(f"[sass] HMMA instructions a {source}.cu kernel (cuobjdump "
+            f"-sass): " + json.dumps(counts))
+    if not sass:
+        log("[sass] cuobjdump not found")
+    else:   # every tensor-core body holds HMMA
+        want = {"flash_attention": [b for b in flash_attention.BODIES
+                                    if b.startswith("tile_")],
+                "l2dist": l2dist.SELFQ_BODIES, "block": block.DM_BODIES}
+        idle = [f"{src}:{b}" for src, bodies in want.items()
+                for b in bodies if sass[src].get(b, 0) == 0]
+        if idle:
+            raise AssertionError(f"tensor-core bodies without HMMA: {idle}")
 
     # ---- phase 2: kernels vs plain versions at the main path's shapes ----
     n, d = args.n, 128
@@ -1302,6 +1416,12 @@ def main() -> int:
                    ("soft_gd self-q", 2048, None, 2 * cfg.k_graph, True)):
         shapes["gather_distances"].append(check_gather(Xr, xn, *args_g,
                                                        gen=gen))
+    record["diversify_agreement"] = agree = check_diversify(dev, cfg, gen)
+    log("[diversify] one 2048-node tile, kernel against backend=\"torch\": "
+        + ", ".join(f"{k} equal {v:.4%}" for k, v in agree.items())
+        + f" (limit {DIVERSIFY_AGREEMENT:.0%})")
+    if min(agree.values()) < DIVERSIFY_AGREEMENT:
+        raise AssertionError(f"diversify decisions disagree: {agree}")
     B_l = args.queries
     quant = quantize_rows(Xr)
     xn8 = ((quant[0].double() * quant[1].double()[:, None]) ** 2).sum(1)

@@ -119,3 +119,19 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def body_attributes(name: str, entry: str, bodies) -> dict:
+    """Registers and spilled (local) bytes a thread of each compiled body
+    of ``csrc/<name>.cu``, through its ``entry(which, &regs, &local)``:
+    ``{body: (regs, local)}`` in the order of ``bodies``."""
+    fn = getattr(library(name), entry)
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    out = {}
+    for which, body in enumerate(bodies):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        check(fn(which, ctypes.byref(regs), ctypes.byref(local)),
+              f"{name} attributes")
+        out[body] = (regs.value, local.value)
+    return out

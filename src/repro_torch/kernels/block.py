@@ -5,9 +5,9 @@ CUDA kernel wrappers + their plain versions.
 ``kernels/l2dist.py::block_distances_pallas`` (fp32 and int8 bodies).  Its
 caller on the search path is ``hotpath.scan_distances``, the brute-force
 scan of the delta shard.  :func:`distance_matrix` replaces
-``kernels/l2dist.py::distance_matrix_pallas`` with the same tile.  The
-kernel is ``csrc/block.cu``; its header note gives the bounds and the
-design.
+``kernels/l2dist.py::distance_matrix_pallas`` with a tensor-core tile of
+its own.  The kernels are in ``csrc/block.cu``; its header note gives the
+bounds and the designs.
 
 ``out[s, q, c] = qn + vn - 2 <Q[s, q], V[s, c]>`` (``-<., .>`` for ip/cos),
 3.4e38 where ``mask`` is False.  With ``v_scales`` the rows of V are int8
@@ -16,12 +16,15 @@ codes, dequantized as ``code * scale`` before the same formula.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
 INF = 3.4e38
+# the compiled distance-matrix bodies, in repro_block_attrs' order
+DM_BODIES = ["dm_f32", "dm_f32_scalar", "dm_bf16", "dm_bf16_scalar"]
 
 
 def block_distances_plain(Q, V, mask=None, v_scales=None, *,
@@ -103,12 +106,23 @@ def distance_matrix_plain(Q, X, *, metric: str = "l2") -> torch.Tensor:
                                  metric=metric)[0]
 
 
+@functools.cache
+def _matrix_fn():
+    """The built kernel's C entry point, typed once."""
+    fn = _build.library("block").repro_distance_matrix
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def distance_matrix(Q, X, *, metric: str = "l2") -> torch.Tensor:
     """Q [B, d] x X [N, d], both float32 or both bfloat16 -> [B, N]
     float32.  CPU tensors take :func:`distance_matrix_plain`; CUDA tensors
-    launch ``csrc/block.cu``'s tile with S = 1 and no mask (counted on
-    ``distance_matrix``).  Replaces the reference's
-    ``kernels/l2dist.py::distance_matrix_pallas``."""
+    launch ``csrc/block.cu``'s tensor-core tile (3xTF32 for float32, one
+    bf16 product for bfloat16; counted on ``distance_matrix``), in at
+    most 2^31 - 1 output tiles of 128 x 64 (a larger call raises).
+    Replaces the reference's ``kernels/l2dist.py::distance_matrix_pallas``."""
     if X.device.type == "cpu":
         return distance_matrix_plain(Q, X, metric=metric)
     if metric not in ("l2", "ip", "cos"):
@@ -120,17 +134,18 @@ def distance_matrix(Q, X, *, metric: str = "l2") -> torch.Tensor:
     N, d = X.shape
     check(Q, "Q", X.dtype, (None, d), dev)
     B = Q.shape[0]
-    if -(-B // 64) > 65535:
-        raise ValueError(f"B={B} exceeds the kernel's 65535 row tiles "
-                         f"(at most {65535 * 64} queries per call)")
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    fn = _build.library("block").repro_distance_matrix
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_build.ptr(Q), _build.ptr(X), _build.ptr(out), B, N, d,
+    err = _matrix_fn()(_build.ptr(Q), _build.ptr(X), _build.ptr(out), B, N, d,
              int(metric in ("ip", "cos")), int(X.dtype == torch.bfloat16),
              _build.stream_of(X))
     _build.check(err, "distance_matrix")
     _build.LAUNCHES["distance_matrix"] += 1
     return out
+
+
+def body_attributes() -> dict:
+    """Registers and spilled (local) bytes a thread of each compiled
+    distance-matrix body, as the card reports them: ``{"dm_f32": (regs,
+    local), ...}`` ("_scalar": the element-wise staging for rows that are
+    not 16-byte aligned)."""
+    return _build.body_attributes("block", "repro_block_attrs", DM_BODIES)

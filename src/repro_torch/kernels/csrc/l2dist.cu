@@ -27,20 +27,43 @@
 //   * masked / out-of-range lanes skip their gather altogether;
 //   * the int8 body moves a quarter of the bytes: a 128-byte row
 //     (d = 128) is one char4 load per lane, plus one scale per candidate;
-//   * the self-query kernel stages the C rows of one tile in shared memory
-//     a d-chunk at a time (C x 32 floats), so every row is read from
-//     device memory once per tile and reused by all C^2 pair products,
-//     and any d (GIST's 960 included) fits without refusing a shape.
+//   * the self-query kernel (the diversify tiles, [T, K, K] with K = 32
+//     and 64) does K^2 d products on K d floats in and K^2 out: 21 flops
+//     a byte at K = 64, the fp32 FFMA ridge (20) and far under the TF32
+//     tensor cores' (148).  So it runs the products on tensor cores in
+//     3xTF32 (mma_tf32.cuh): the reference's distances are fp32, and one
+//     TF32 rounding of the operands misses 1e-5 * (qn + vn) many times
+//     over, while the split holds it.  Persistent CTAs of 4 warps each
+//     stage 64 rows at a time (one K = 64 tile, two of K = 32, four of
+//     K <= 16) with 16-byte cp.async into rows padded to 8 mod 32 words
+//     against bank conflicts and zero-filled past d and K, so d and K
+//     need not be multiples of 8 or 16.  With d <= 128 the next group's
+//     rows load into a second buffer while this one multiplies; a larger
+//     d (GIST's 960) streams through the two buffers in 128-column chunks.
+//     Each warp owns a 16-row strip of a tile's K x K block (up to 64
+//     columns) and splits the operands into hi + lo as it loads them; the
+//     norms are fp32 FFMA sums of the staged rows, and the epilogue writes
+//     the formula and the column mask from the accumulator fragments
+//     (8-byte stores).  Each row is read from device memory once per
+//     tile, and K may reach 1,024 (two buffers of 1,024 rows of 16
+//     columns fill a CTA's shared memory).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr float kInf = 3.4e38f;
 constexpr int kRowThreads = 256;
-constexpr int kSqThreads = 256;
-constexpr int kSqEpt = 16;   // pair entries per thread per pass
-constexpr int kSqDc = 32;    // d chunk staged in shared memory
+constexpr int kSqWarps = 4;
+constexpr int kSqThreads = 32 * kSqWarps;
+constexpr int kSqRows = 64;      // rows a self-query CTA stages (K <= 64)
+constexpr int kSqMaxDc = 128;    // d columns a staged chunk
+constexpr int kSqMinDc = 16;
+constexpr size_t kMaxSmem = 232448;   // a CTA's shared memory on sm_90
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -128,74 +151,334 @@ gather_rowq_kernel(const float* __restrict__ Q, const void* __restrict__ X,
   }
 }
 
+// --------------------------------------------------------------------------
+// self-query tiles on tensor cores (3xTF32 mma.m16n8k8)
+// --------------------------------------------------------------------------
+
+// Rows [0, R) of d-chunk [d0, d0 + DC) into buf ([R][DC + 8] floats):
+// 16-byte cp.async where every row is 16-byte aligned (VEC), else 4-byte;
+// pad rows (rid < 0) and columns past d are zeros.  A warp copies one
+// 512-byte row (DC = 128) per instruction.
+template <bool VEC>
+__device__ __forceinline__ void sq_stage(float* buf, const float* X,
+                                         const int* rid, int R, int d,
+                                         int d0, int lg_dc) {
+  const int DC = 1 << lg_dc, LD = DC + 8;
+  if constexpr (VEC) {
+    const int lg = lg_dc - 2;                  // 16-byte pieces a row
+    for (int e = threadIdx.x; e < (R << lg); e += kSqThreads) {
+      const int r = e >> lg, c = (e & ((1 << lg) - 1)) * 4;
+      const int id = rid[r];
+      const bool ok = id >= 0 && d0 + c < d;
+      cp_async16(buf + r * LD + c, ok ? X + (long long)id * d + d0 + c : X,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < (R << lg_dc); e += kSqThreads) {
+      const int r = e >> lg_dc, c = e & (DC - 1);
+      const int id = rid[r];
+      const bool ok = id >= 0 && d0 + c < d;
+      cp_async4(buf + r * LD + c, ok ? X + (long long)id * d + d0 + c : X,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// norms[r] += the squares of staged row r, in fp32 FFMA (a warp a row)
+__device__ __forceinline__ void sq_norms(const float* buf, float* norms,
+                                         int R, int DC) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < R; r += kSqWarps) {
+    const float* row = buf + r * (DC + 8);
+    float acc = 0.f;
+    for (int c = lane; c < DC; c += 32) acc += row[c] * row[c];
+    acc = warp_sum(acc);
+    if (lane == 0) norms[r] += acc;
+  }
+}
+
+// acc[n] += one 8-column step of rows [m0, m0 + 16) . rows [n0 + 8n, +8)
+// in 3xTF32, lo.hi + hi.lo + hi.hi (the small products first, each pass
+// over independent tiles); ar and br point at the step's column 2t of
+// rows m0 + g and n0 + g.  k-index t of a step is column 2t and t + 4 is
+// 2t + 1, so each operand pair is one 8-byte load (row stride DC + 8 = 8
+// mod 32 words: no bank conflict in a half-warp).
+template <int NT>
+__device__ __forceinline__ void sq_step(float (&acc)[NT][4], const float* ar,
+                                        const float* br, int LD) {
+  const float2 x0 = *reinterpret_cast<const float2*>(ar);
+  const float2 x1 = *reinterpret_cast<const float2*>(ar + 8 * LD);
+  uint32_t ah[4], al[4];
+  split_tf32(x0.x, ah[0], al[0]);
+  split_tf32(x1.x, ah[1], al[1]);
+  split_tf32(x0.y, ah[2], al[2]);
+  split_tf32(x1.y, ah[3], al[3]);
+  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 y = *reinterpret_cast<const float2*>(br + n * 8 * LD);
+    split_tf32(y.x, bh[n][0], bl[n][0]);
+    split_tf32(y.y, bh[n][1], bl[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) mma_tf32(acc[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) mma_tf32(acc[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) mma_tf32(acc[n], ah, bh[n][0], bh[n][1]);
+}
+
+// acc[n] += rows [m0, m0 + 16) . rows [n0 + 8n, n0 + 8n + 8) over the
+// chunk's first 8 * ksteps columns
+template <int NT>
+__device__ __forceinline__ void sq_products(float (&acc)[NT][4],
+                                            const float* buf, int LD, int m0,
+                                            int n0, int ksteps) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const float* ar = buf + (m0 + g) * LD + 2 * t4;
+  const float* br = buf + (n0 + g) * LD + 2 * t4;
+#pragma unroll 4
+  for (int kk = 0; kk < ksteps; ++kk)
+    sq_step<NT>(acc, ar + kk * 8, br + kk * 8, LD);
+}
+
+// The clipped ids (-1: a pad row), column validity and zeroed norms of
+// the R staged rows of the group of tiles [s0, s0 + TPC)
+__device__ __forceinline__ void sq_ids(const int32_t* idx, const uint8_t* mask,
+                                       int* rid, int* rval, float* norms,
+                                       long long s0, int S, int K, int KP,
+                                       int TPC, int R, long long N) {
+  for (int r = threadIdx.x; r < R; r += kSqThreads) {
+    const int ts = r / KP, i = r - ts * KP;
+    const long long s = s0 + ts;
+    int id = -1, ok = 0;
+    if (ts < TPC && i < K && s < S) {
+      const int32_t raw = idx[s * K + i];
+      ok = (mask == nullptr || mask[s * K + i] != 0) && raw >= 0 && raw < N;
+      id = raw < 0 ? 0 : (raw >= N ? (int)(N - 1) : raw);
+    }
+    rid[r] = id;
+    rval[r] = ok;
+    norms[r] = 0.f;
+  }
+}
+
+// A persistent CTA walks groups of TPC tiles s (KP = K rounded up to 16;
+// TPC = 64 / KP for K <= 64, else 1), staging a group's rows (TPC * KP,
+// padded with zero rows to R so that every warp's 8 * NT columns exist;
+// NT = 4 for K <= 32, else 8) DC columns of d at a time.  ONE: d fits one chunk, and the next group's
+// rows load into the second buffer while this group multiplies.  Else the
+// two buffers are a ring of d-chunks, and each chunk sums into a fresh
+// accumulator added to the running one rounded to nearest: the tensor
+// cores' adder truncates, and over d = 960 its bias would pass the
+// tolerance on the diagonal (up to 128 columns it stays under a third).
+// Warp items are (tile, 16-row strip, 64-column block): with K <= 64 every
+// warp owns one item; above, the warps walk their items in rounds, and
+// for d > DC each round streams the chunks again.
+template <int NT, bool VEC, bool ONE>
 __global__ void __launch_bounds__(kSqThreads)
 gather_selfq_kernel(const float* __restrict__ X,
                     const int32_t* __restrict__ idx,
                     const uint8_t* __restrict__ mask, float* __restrict__ out,
-                    int K, int d, long long N, int ip) {
-  extern __shared__ float smem[];
-  float* rows = smem;                        // [K][kSqDc + 1]
-  float* norms = rows + K * (kSqDc + 1);     // [K]
-  int* rid = reinterpret_cast<int*>(norms + K);   // [K] clipped ids
-  int* rval = rid + K;                       // [K] column validity
-  const long long s = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = tid; i < K; i += blockDim.x) {
-    const long long li = s * K + i;
-    const int32_t id = idx[li];
-    rval[i] = (mask == nullptr || mask[li] != 0) && id >= 0 && id < N;
-    rid[i] = id < 0 ? 0 : (id >= N ? (int)(N - 1) : id);
+                    int S, int K, int KP, int TPC, int R, int d, int lg_dc,
+                    long long N, int ip) {
+  extern __shared__ __align__(16) float smem[];
+  const int DC = 1 << lg_dc, LD = DC + 8;
+  const int n_chunks = (d + DC - 1) / DC;
+  const long long G = (S + TPC - 1) / TPC;
+  float* rows = smem;                          // [2][R][LD]
+  float* norms = rows + 2 * R * LD;            // [2][R]
+  int* rid = reinterpret_cast<int*>(norms + 2 * R);   // [2][R]
+  int* rval = rid + 2 * R;                     // [2][R] column validity
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int strips = KP / 16, blocks = (KP + 63) / 64;
+  const int items = TPC * strips * blocks;
+  if constexpr (ONE) {   // the first group's rows
+    sq_ids(idx, mask, rid, rval, norms, blockIdx.x * (long long)TPC, S, K,
+           KP, TPC, R, N);
+    __syncthreads();
+    sq_stage<VEC>(rows, X, rid, R, d, 0, lg_dc);
+    cp_async_commit();
   }
-  __syncthreads();
-  for (int i = warp; i < K; i += nwarps) {
-    const float* v = X + (long long)rid[i] * d;
-    float acc = 0.f;
-    for (int j = lane; j < d; j += 32) {
-      const float a = __ldg(v + j);
-      acc += a * a;
+  int cur = 0;   // the slot of this group's rows and ids
+  for (long long g = blockIdx.x; g < G; g += gridDim.x) {
+    const long long s0 = g * TPC, gn = g + gridDim.x;
+    __syncthreads();   // the previous group is done with the other slot
+    if constexpr (ONE) {
+      const int nxt = cur ^ 1;
+      if (gn < G)
+        sq_ids(idx, mask, rid + nxt * R, rval + nxt * R, norms + nxt * R,
+               gn * TPC, S, K, KP, TPC, R, N);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (gn < G)   // in flight while this group multiplies
+        sq_stage<VEC>(rows + nxt * R * LD, X, rid + nxt * R, R, d, 0,
+                      lg_dc);
+      cp_async_commit();
+      if (!ip) sq_norms(rows + cur * R * LD, norms + cur * R, R, DC);
+    } else {
+      sq_ids(idx, mask, rid, rval, norms, s0, S, K, KP, TPC, R, N);
     }
-    acc = warp_sum(acc);
-    if (lane == 0) norms[i] = acc;
-  }
-  const int KK = K * K;
-  for (int base = 0; base < KK; base += kSqThreads * kSqEpt) {
-    float acc[kSqEpt];
+    __syncthreads();
+    for (int base = 0; base < items; base += kSqWarps) {
+      const int item = base + warp;
+      const int nb = item % blocks, strip = (item / blocks) % strips;
+      const int ts = item / (blocks * strips);
+      const bool live = item < items && s0 + ts < S;
+      const int m0 = ts * KP + 16 * strip, n0 = ts * KP + 64 * nb;
+      float acc[NT][4];
 #pragma unroll
-    for (int t = 0; t < kSqEpt; ++t) acc[t] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += kSqDc) {
-      const int dc = min(kSqDc, d - d0);
-      __syncthreads();
-      for (int e = tid; e < K * kSqDc; e += blockDim.x) {
-        const int r = e / kSqDc, col = e - r * kSqDc;
-        rows[r * (kSqDc + 1) + col] =
-            col < dc ? __ldg(X + (long long)rid[r] * d + d0 + col) : 0.f;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      if constexpr (ONE) {
+        if (live)
+          sq_products<NT>(acc, rows + cur * R * LD, LD, m0, n0, (d + 7) / 8);
+      } else {
+        sq_stage<VEC>(rows, X, rid, R, d, 0, lg_dc);
+        cp_async_commit();
+        for (int ch = 0; ch < n_chunks; ++ch) {
+          if (ch + 1 < n_chunks) {   // the next chunk loads while this runs
+            sq_stage<VEC>(rows + ((ch + 1) & 1) * R * LD, X, rid, R, d,
+                          (ch + 1) * DC, lg_dc);
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+          const float* buf = rows + (ch & 1) * R * LD;
+          if (base == 0 && !ip) sq_norms(buf, norms, R, DC);
+          if (live) {
+            float part[NT][4];
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+            sq_products<NT>(part, buf, LD, m0, n0,
+                            (min(DC, d - ch * DC) + 7) / 8);
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+          }
+          __syncthreads();   // every read of this stage (and norm) is done
+        }
       }
-      __syncthreads();
+      if (!live) continue;
+      // the formula and the column mask straight from the fragments: c0,
+      // c1 are row g8, columns 2t and 2t + 1; c2, c3 the same on g8 + 8
+      float* o = out + (s0 + ts) * K * K;
+      const float* tn = norms + cur * R + ts * KP;
+      const int* tv = rval + cur * R + ts * KP;
+      const bool pairs = (K & 1) == 0;
 #pragma unroll
-      for (int t = 0; t < kSqEpt; ++t) {
-        const int e = base + t * kSqThreads + tid;
-        if (e < KK) {
-          const int i = e / K, j = e - (e / K) * K;
-          const float* a = rows + i * (kSqDc + 1);
-          const float* b = rows + j * (kSqDc + 1);
-          float part = 0.f;
-          for (int c = 0; c < dc; ++c) part += a[c] * b[c];
-          acc[t] += part;
+      for (int n = 0; n < NT; ++n) {
+        const int j = 64 * nb + 8 * n + 2 * t4;
+        if (j >= K) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 16 * strip + g8 + 8 * h;
+          if (i >= K) continue;
+          float x = acc[n][2 * h], y = acc[n][2 * h + 1];
+          if (!ip) {
+            x = (tn[i] + tn[j]) - 2.f * x;
+            y = (tn[i] + tn[j + 1]) - 2.f * y;
+          } else {
+            x = -x;
+            y = -y;
+          }
+          x = tv[j] ? x : kInf;
+          y = tv[j + 1] ? y : kInf;
+          float* p = o + (long long)i * K + j;
+          if (pairs) {
+            *reinterpret_cast<float2*>(p) = make_float2(x, y);
+          } else {
+            p[0] = x;
+            if (j + 1 < K) p[1] = y;
+          }
         }
       }
     }
-    __syncthreads();  // norms written before the first pass are visible
-#pragma unroll
-    for (int t = 0; t < kSqEpt; ++t) {
-      const int e = base + t * kSqThreads + tid;
-      if (e < KK) {
-        const int i = e / K, j = e - (e / K) * K;
-        const float r = ip ? -acc[t] : (norms[i] + norms[j]) - 2.f * acc[t];
-        out[s * KK + e] = rval[j] ? r : kInf;
-      }
-    }
+    if constexpr (ONE) cur ^= 1;
   }
+  cp_async_wait<0>();
+}
+
+// The launch plan of a self-query call; false if no chunk width fits.
+struct SqPlan {
+  int KP, TPC, R, lg_dc, nt;
+  size_t smem;
+  bool one;
+};
+
+bool sq_plan(int K, int d, SqPlan& p) {
+  p.KP = (K + 15) / 16 * 16;
+  p.TPC = p.KP < kSqRows ? kSqRows / p.KP : 1;
+  p.nt = p.KP <= 32 ? 4 : 8;
+  // rows for every warp's 8 * nt columns from its tile's first: columns
+  // past K read the next tile's rows or zero rows, and are not stored
+  const int blocks = (p.KP + 63) / 64;
+  p.R = std::max(p.TPC * p.KP,
+                 (p.TPC - 1) * p.KP + 64 * (blocks - 1) + 8 * p.nt);
+  int dc = kSqMaxDc;
+  while (dc > kSqMinDc && dc / 2 >= d) dc /= 2;   // d <= DC: one chunk
+  for (;; dc /= 2) {   // two buffers of R rows, and three [R] arrays twice
+    p.smem = sizeof(float) * 2 * p.R * (dc + 8) + sizeof(float) * 6 * p.R;
+    if (p.smem <= kMaxSmem) break;
+    if (dc == kSqMinDc) return false;
+  }
+  p.one = d <= dc;
+  p.lg_dc = 0;
+  while ((1 << p.lg_dc) < dc) ++p.lg_dc;
+  return true;
+}
+
+template <int NT, bool VEC, bool ONE>
+int launch_selfq(const float* x, const int32_t* ix, const uint8_t* m,
+                 float* o, int S, int K, int d, long long N, int ip,
+                 const SqPlan& p, cudaStream_t st) {
+  auto kern = gather_selfq_kernel<NT, VEC, ONE>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(p.smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // persistent: as many CTAs as X's card holds at once, or one a group
+  cudaPointerAttributes pa;
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaPointerGetAttributes(&pa, x);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               pa.device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kSqThreads, p.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long groups = (S + p.TPC - 1) / p.TPC;
+  const long long grid = std::min<long long>(
+      groups, static_cast<long long>(std::max(1, per_sm)) * sms);
+  kern<<<static_cast<unsigned>(grid), kSqThreads, p.smem, st>>>(
+      x, ix, m, o, S, K, p.KP, p.TPC, p.R, d, p.lg_dc, N, ip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int dispatch_selfq(const float* x, const int32_t* ix, const uint8_t* m,
+                   float* o, int S, int K, int d, long long N, int ip,
+                   const SqPlan& p, cudaStream_t st) {
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (vec)
+    return p.one ? launch_selfq<NT, true, true>(x, ix, m, o, S, K, d, N, ip,
+                                                p, st)
+                 : launch_selfq<NT, true, false>(x, ix, m, o, S, K, d, N, ip,
+                                                 p, st);
+  return p.one ? launch_selfq<NT, false, true>(x, ix, m, o, S, K, d, N, ip,
+                                               p, st)
+               : launch_selfq<NT, false, false>(x, ix, m, o, S, K, d, N, ip,
+                                                p, st);
 }
 
 template <bool VEC, bool QUANT>
@@ -224,16 +507,12 @@ extern "C" int repro_gather_distances(const void* Q, const void* X,
   float* o = static_cast<float*>(out);
   if (self_q) {
     if (sc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = sizeof(float) * ((size_t)C * (kSqDc + 1) + C)
-                        + sizeof(int) * 2 * (size_t)C;
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(gather_selfq_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    }
-    gather_selfq_kernel<<<S, kSqThreads, smem, st>>>(
-        static_cast<const float*>(X), ix, m, o, C, d, N, ip);
-    return static_cast<int>(cudaGetLastError());
+    SqPlan p;
+    if (!sq_plan(C, d, p)) return static_cast<int>(cudaErrorInvalidValue);
+    const float* x = static_cast<const float*>(X);
+    return p.nt == 4
+        ? dispatch_selfq<4>(x, ix, m, o, S, C, d, N, ip, p, st)
+        : dispatch_selfq<8>(x, ix, m, o, S, C, d, N, ip, p, st);
   }
   const float* q = static_cast<const float*>(Q);
   const size_t align = sc != nullptr ? 4 : 16;  // char4 vs float4 rows
@@ -248,4 +527,25 @@ extern "C" int repro_gather_distances(const void* Q, const void* X,
     else launch_rowq<false, false>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local (spilled) bytes a thread of self-query body `which`,
+// in the order of kernels/l2dist.py SELFQ_BODIES: NT = 4, 8 n-tiles a
+// warp; 16-byte staging, then 4-byte; d in one chunk, then streamed.
+extern "C" int repro_l2dist_attrs(int which, int* regs, int* local_bytes) {
+#define REPRO_SELFQ_BODIES(VEC, ONE)                               \
+  reinterpret_cast<const void*>(gather_selfq_kernel<4, VEC, ONE>), \
+      reinterpret_cast<const void*>(gather_selfq_kernel<8, VEC, ONE>)
+  static const void* const bodies[] = {
+      REPRO_SELFQ_BODIES(true, true), REPRO_SELFQ_BODIES(false, true),
+      REPRO_SELFQ_BODIES(true, false), REPRO_SELFQ_BODIES(false, false)};
+#undef REPRO_SELFQ_BODIES
+  constexpr int n = sizeof(bodies) / sizeof(bodies[0]);
+  if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, bodies[which]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return 0;
 }

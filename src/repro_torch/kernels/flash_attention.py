@@ -158,9 +158,8 @@ def _lib() -> ctypes.CDLL:
     lib.repro_flash_tile.argtypes = [p] * 4 + [i] * 8 + [f, i, i, p]
     lib.repro_flash_split.argtypes = [p] * 6 + [i] * 12 + [f, i, i, p]
     lib.repro_flash_combine.argtypes = [p] * 4 + [i] * 4 + [p]
-    lib.repro_flash_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 2
     for fn in (lib.repro_flash_tile, lib.repro_flash_split,
-               lib.repro_flash_combine, lib.repro_flash_attrs):
+               lib.repro_flash_combine):
         fn.restype = i
     return lib
 
@@ -169,14 +168,8 @@ def body_attributes() -> dict:
     """Registers and spilled (local) bytes a thread of each compiled
     kernel, as the card reports them: ``{"tile_bf16_hd32": (regs, local),
     ..., "combine_f32": ...}``."""
-    out = {}
-    for which, name in enumerate(BODIES):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        _build.check(_lib().repro_flash_attrs(which, ctypes.byref(regs),
-                                              ctypes.byref(local)),
-                     "flash_attention attributes")
-        out[name] = (regs.value, local.value)
-    return out
+    return _build.body_attributes("flash_attention", "repro_flash_attrs",
+                                  BODIES)
 
 
 def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0,

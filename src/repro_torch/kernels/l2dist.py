@@ -12,6 +12,7 @@ With ``scales`` [N], X holds per-row int8 codes, dequantized as
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,6 +20,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.block import block_distances_plain, check
 
 INF = 3.4e38
+# the compiled self-query bodies (NT 8-column tiles a warp; "_scalar":
+# 4-byte staging; "_streamed": d in more than one chunk), in
+# repro_l2dist_attrs' order
+SELFQ_BODIES = [f"selfq_nt{nt}{vec}{one}" for one in ("", "_streamed")
+                for vec in ("", "_scalar") for nt in (4, 8)]
 
 
 def _valid(X, idx, mask):
@@ -38,6 +44,16 @@ def gather_distances_plain(Q, X, idx, mask=None, *, metric: str = "l2",
                                  sc, metric=metric)
 
 
+@functools.cache
+def _gather_fn():
+    """The built kernel's C entry point, typed once."""
+    fn = _build.library("l2dist").repro_gather_distances
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def gather_distances(Q, X, idx, mask=None, *, metric: str = "l2",
                      self_q: bool = False, scales=None) -> torch.Tensor:
     """Distance block with the row gather inside the kernel.
@@ -47,7 +63,9 @@ def gather_distances(Q, X, idx, mask=None, *, metric: str = "l2",
     or None -> [S, Kq, C] float32 (Kq = C when ``self_q``).  CPU tensors
     take :func:`gather_distances_plain`; CUDA tensors launch the kernel
     (counted on ``gather_distances`` or, with ``scales``, on
-    ``gather_distances_int8``)."""
+    ``gather_distances_int8``).  On the card, ``self_q`` tiles take
+    C <= 1,024 (their staged rows fill a CTA's shared memory); a wider
+    tile raises."""
     if self_q and scales is not None:
         raise ValueError("self_q tiles (build-time diversify) score fp32 "
                          "rows; scales= is a search-time knob")
@@ -72,12 +90,7 @@ def gather_distances(Q, X, idx, mask=None, *, metric: str = "l2",
         check(Q, "Q", torch.float32, (S, None, d), dev)
         Kq = Q.shape[1]
     out = torch.empty((S, Kq, C), dtype=torch.float32, device=dev)
-    lib = _build.library("l2dist")
-    fn = lib.repro_gather_distances
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_build.ptr(None if self_q else Q), _build.ptr(X),
+    err = _gather_fn()(_build.ptr(None if self_q else Q), _build.ptr(X),
              _build.ptr(scales), _build.ptr(idx), _build.ptr(mask),
              _build.ptr(out), S, Kq, C, d, N, int(metric in ("ip", "cos")),
              int(self_q), _build.stream_of(X))
@@ -86,3 +99,11 @@ def gather_distances(Q, X, idx, mask=None, *, metric: str = "l2",
                     else "gather_distances"] += 1
     return out
 
+
+def body_attributes() -> dict:
+    """Registers and spilled (local) bytes a thread of each compiled
+    self-query body, as the card reports them: ``{"selfq_nt8": (regs,
+    local), ...}`` (NT: 8-column tiles a warp, 4 for K <= 32, 8
+    above)."""
+    return _build.body_attributes("l2dist", "repro_l2dist_attrs",
+                                  SELFQ_BODIES)

@@ -196,10 +196,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p]
     lib.repro_topk_cta.argtypes = ptrs + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
-    lib.repro_topk_attrs.argtypes = [ctypes.c_int] + [
-        ctypes.POINTER(ctypes.c_int)] * 2
-    for fn in (lib.repro_topk_warp, lib.repro_topk_cta,
-               lib.repro_topk_attrs):
+    for fn in (lib.repro_topk_warp, lib.repro_topk_cta):
         fn.restype = ctypes.c_int
     return lib
 
@@ -210,14 +207,7 @@ def body_attributes() -> dict:
     "select_q256": ..., "cta_sort": ...}``."""
     names = ([f"warp_q{32 << p}" for p in range(6)]
              + [f"select_q{32 << p}" for p in range(4)] + ["cta_sort"])
-    out = {}
-    for which, name in enumerate(names):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        _build.check(_lib().repro_topk_attrs(which, ctypes.byref(regs),
-                                             ctypes.byref(local)),
-                     "topk attributes")
-        out[name] = (regs.value, local.value)
-    return out
+    return _build.body_attributes("topk", "repro_topk_attrs", names)
 
 
 def _launch(L: Launch, dists, ids, mask, stream, counter: str):

@@ -135,18 +135,41 @@ def test_scan_distances_through_the_seam(dev, rng):
         assert torch.allclose(out, ref, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("K_,d", [(32, 128), (64, 128), (64, 960)])
-def test_gather_distances_self_query_matches_plain(dev, rng, K_, d):
-    """The diversify tiles, GIST's d = 960 included (d looped in chunks)."""
+@pytest.mark.parametrize("K_,d", [
+    *((k, d) for k in (8, 20, 32, 64) for d in (20, 33, 128, 960)),
+    (100, 128), (100, 960), (128, 128), (128, 960), (1024, 48)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gather_distances_self_query_matches_plain(dev, rng, K_, d, metric):
+    """The diversify tiles on tensor cores: four tiles a CTA (K = 8), two
+    (K = 20 and 32) or one; d in one chunk (20, 128) or streamed (GIST's
+    960); d = 33 stages 4-byte rows; ids past N are clipped and masked.
+    K > 64 takes two or more 64-column blocks, walked by the warps in
+    rounds, each round streaming d again when d > 128; K = 1,024 is the
+    widest tile, in 16-column chunks."""
     N = 3000
     X, idx, mask = _on(dev, rng.normal(size=(N, d)).astype(np.float32),
-                       rng.integers(0, N + 5, size=(40, K_)).astype(np.int32),
-                       rng.random((40, K_)) > 0.2)
-    out = l2dist.gather_distances(None, X, idx, mask, self_q=True)
-    ref = l2dist.gather_distances_plain(None, X, idx, mask, self_q=True)
+                       rng.integers(0, N + 5, size=(41, K_)).astype(np.int32),
+                       rng.random((41, K_)) > 0.2)
+    n0 = K.launch_counts()["gather_distances"]
+    out = l2dist.gather_distances(None, X, idx, mask, metric=metric,
+                                  self_q=True)
+    ref = l2dist.gather_distances_plain(None, X, idx, mask, metric=metric,
+                                        self_q=True)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["gather_distances"] == n0 + 1
     vn = (X.double() ** 2).sum(1)[idx.long().clamp(0, N - 1)]
     tol = 1e-5 * (vn[:, :, None] + vn[:, None, :])
     assert ((out.double() - ref.double()).abs() <= tol).all()
+    valid = ((idx < N) & mask)[:, None, :].expand_as(out)
+    assert torch.equal(out == 3.4e38, ~valid)
+
+
+def test_gather_distances_self_query_rejects_wide_tiles(dev):
+    """Past K = 1,024 the staged rows do not fit a CTA: the call raises."""
+    X = torch.zeros((10, 16), device=dev)
+    idx = torch.zeros((1, 1025), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="gather_distances"):
+        l2dist.gather_distances(None, X, idx, self_q=True)
 
 
 def _merge_launches(R, W, keep):
@@ -328,10 +351,14 @@ def test_int8_stream_past_the_merge_width_matches_plain_path(dev):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("B,N,d", [(1, 300, 33), (70, 200, 48),
-                                   (130, 1000, 128)])
+                                   (130, 1000, 128), (129, 8193, 128),
+                                   (129, 1001, 960)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_distance_matrix_matches_plain(dev, rng, B, N, d, metric, dtype):
+    """Ragged 128 x 64 tiles (B = 129, N = 8,193 and 1,001), odd N (one
+    float at a time), d in one chunk or many (960), and 4-byte rows
+    (d = 33) staged element-wise."""
     Q, X = _on(dev, rng.normal(size=(B, d)).astype(np.float32),
                rng.normal(size=(N, d)).astype(np.float32))
     Q, X = Q.to(dtype), X.to(dtype)
@@ -343,6 +370,17 @@ def test_distance_matrix_matches_plain(dev, rng, B, N, d, metric, dtype):
     assert out.dtype == torch.float32 and out.shape == (B, N)
     norms = (Q.double() ** 2).sum(1)[:, None] + (X.double() ** 2).sum(1)
     assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
+
+
+def test_distance_tile_bodies_fit_without_spills(dev):
+    """The card's own count for the tensor-core distance tiles (the
+    self-query body of l2dist.cu, the distance matrix of block.cu): no
+    spill to local memory, at most 255 registers."""
+    attrs = {**l2dist.body_attributes(), **block.body_attributes()}
+    assert list(attrs) == l2dist.SELFQ_BODIES + block.DM_BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0, (name, local)
+        assert regs <= 255, (name, regs)
 
 
 def test_distance_matrix_rejects_mixed_types(dev):
