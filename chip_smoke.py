@@ -8,12 +8,14 @@ Phases, each printing its own lines:
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel) and print the build time, the registers and spills of the
-   top-k, attention, self-query and distance-matrix bodies, and the HMMA
-   count of each tensor-core body (``cuobjdump -sass``; one without HMMA
-   fails the run);
+   top-k, attention, self-query, int8 row, visited-filter and
+   distance-matrix bodies, and the HMMA count of each tensor-core body
+   (``cuobjdump -sass``; one without HMMA fails the run);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (distances within 1e-5 * (qn + vn),
-   rank merge and visited filter exactly), with the kernel's, the plain
+   rank merge and visited filter exactly, the filter also on a 16-bucket
+   table where lanes collide and drop), with the kernel's (for the
+   gather and the filter also with the calls queued ahead), the plain
    version's and a library call's times and the bound (for the
    tensor-core tiles also at the tensor-core rate and for the products
    they issue); then relaxed GD's keep mask and soft GD's occlusion
@@ -39,8 +41,10 @@ Phases, each printing its own lines:
    32,768 slots (its pre-selection, 40 of 32,768, takes the top-k's
    selection at twice the width); then ``compact()`` and a search of the
    new generation;
-6. a ``torch.profiler`` trace of one build and of each search: the
-   device's busy share of the wall time and the costliest device ops;
+6. a ``torch.profiler`` trace of one build, of each search and of the
+   int8 large search in both visited modes: the device's busy share of
+   the wall time, the device time of the top-k and of the search hop's
+   kernels and the costliest device ops;
    and the k-NN recall of ``nn_descent`` on 2000 sampled nodes;
 9. the kernel API (``repro_torch.kernels.ops``): each of its five kernels
    against its plain version at full size (distances within
@@ -100,6 +104,9 @@ API_BODIES = ("distance_matrix", "bitonic_sort", "embedding_bag",
               "packed_spmm", "flash_attention")
 KNN_QUERIES = 1024            # exact k-NN: phase 3's first 1,024 queries
 TOPK_KERNELS = ("warp_topk_kernel", "select_kernel", "cta_sort_kernel")
+# the search hop's kernels (csrc/l2dist.cu's row bodies, csrc/visited.cu)
+HOP_KERNELS = ("gather_rowq_kernel", "gather_row8_kernel",
+               "visited_filter_kernel")
 BAG_ROWS, BAG_DIM, BAG_SIZE = 10_000_000, 32, 10   # wide_deep's bag fields
 BAG_BATCHES = (512, 65536)    # RECSYS_SHAPES serve_p99, train_batch
 GNN_NODES, GNN_FANOUT = 232_965, 15   # GNN_SHAPES minibatch_lg (Reddit)
@@ -126,6 +133,15 @@ def log_kernel(kname: str, r: dict, extra: str = "") -> None:
         extra = f" path={r['path']}" + extra
     if r.get("torch_topk_ms") is not None:
         extra += f" (torch.topk {r['torch_topk_ms']:.4f} ms)"
+    if r.get("device_ms") is not None:
+        extra += (f"; device_ms={r['device_ms']:.4f} (the calls queued "
+                  f"ahead: the kernel without its wrapper's host cost)")
+    if r.get("probe_sector_bytes") is not None:
+        extra += (f"; {r['fresh']} lanes fresh, {r['drops']} dropped"
+                  f"; a probe reads {r['probe_sector_bytes']} B of sectors "
+                  f"for {r['probe_bytes']} B of ways (the bytes bound "
+                  f"counts {r['probe_bytes']}; the reference's [B, W, S] "
+                  f"layout: {r['way_major_sector_bytes']} B)")
     if r.get("issued_bound_ms") is not None:
         rate = "bf16" if r.get("dtype") == "bfloat16" else "TF32"
         extra += (f" err/tol={r['err_over_tol']:.3f}; bound at the {rate} "
@@ -139,10 +155,14 @@ def log_kernel(kname: str, r: dict, extra: str = "") -> None:
         f"max_abs_err={r['max_abs_err']:.3g} ok{extra}")
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 1, repeats: int = 1) -> float:
+def cuda_ms(fn, iters: int = 10, warmup: int = 1, repeats: int = 1,
+            ahead: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls; with
     ``repeats``, the least of that many such means (a call shorter than
-    its host cost times the host, whose hiccups this sets aside)."""
+    its host cost times the host, whose hiccups this sets aside).  With
+    ``ahead``, the card first sleeps (``torch.cuda._sleep``, ~1 ms a
+    10 calls) while the host queues every call, so that a call shorter
+    than its host cost times the device alone."""
     import torch
 
     for _ in range(warmup):
@@ -152,6 +172,8 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 1, repeats: int = 1) -> float:
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            torch.cuda._sleep(200_000 * iters)
         start.record()
         for _ in range(iters):
             fn()
@@ -245,6 +267,7 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
                              f"1e-5*(qn+vn), masked lanes INF={masked_ok}")
     it, reps = (3, 1) if S * C > 1 << 24 else (20, 3)   # reps: see cuda_ms
     ms = cuda_ms(kern, it, repeats=reps)
+    device_ms = cuda_ms(kern, it, repeats=reps, ahead=True)
     plain_ms = cuda_ms(lambda: chunked(plain, S, rows), max(1, it // 3))
     lib_ms = cuda_ms(lambda: chunked(library, S, rows), max(1, it // 3),
                      repeats=reps)
@@ -259,7 +282,7 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
                                                   2 * S * Kq * d)
     row = dict(shape=name, S=S, Kq=kq, C=C, d=d, max_abs_err=float(
         err.max()), err_over_tol=float((err / tol).max()), ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms)
+        device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms)
     if self_q:   # the tile's products run on tensor cores in 3xTF32
         row.update(tensor_bounds(nbytes, flops, 2 * lanes * kq * d, False))
     else:
@@ -464,14 +487,22 @@ def check_rank_merge(name, R, W, keep, dev, gen):
                 path=topk_path(R, W, keep))
 
 
-def check_visited(name, B, bound_ins, M, dev, gen):
+def check_visited(name, B, bound_ins, M, dev, gen, n_buckets=None):
+    """The filter against its plain version, bit for bit (table and fresh
+    lanes), on a table that three calls have partly filled.  The table is
+    ``visited_table``'s for ``bound_ins`` insertions, or, with
+    ``n_buckets``, one of that many buckets (``visited_table`` never sizes
+    below 64): 32 lanes a call on 16 buckets collide, fill buckets and
+    drop."""
     import torch
 
     from repro_torch.core import hotpath as HP
     from repro_torch.kernels import visited
 
-    table = HP.visited_table(B, bound_ins, device=dev)
-    W = table.shape[1]
+    table = HP.visited_table(B, bound_ins, device=dev) if n_buckets is None \
+        else torch.full((B, n_buckets, 8), visited.VF_EMPTY,
+                        dtype=torch.int32, device=dev)
+    S, W = table.shape[1:]
 
     def lanes():
         ids = torch.randint(0, 1 << 20, (B, M), generator=gen, device=dev,
@@ -487,16 +518,27 @@ def check_visited(name, B, bound_ins, M, dev, gen):
     torch.cuda.synchronize()
     if not (torch.equal(tk, tp) and torch.equal(fk, fp)):
         raise AssertionError(f"visited_filter {name}: kernel != plain")
+    held = (tp.gather(1, visited.hash_bucket(ids, visited.shift_for(S))
+                      [:, :, None].expand(B, M, W)) == ids[:, :, None]).any(2)
+    n_drops = int((valid & ~fp & ~held).sum())
     work = table.clone()
     ms = cuda_ms(lambda: visited.visited_filter(work, ids, valid), 20)
+    device_ms = cuda_ms(lambda: visited.visited_filter(work, ids, valid), 20,
+                        repeats=3, ahead=True)
     plain_ms = cuda_ms(lambda: visited.visited_filter_plain(work, ids, valid),
                        3)
     n_valid, n_fresh = int(valid.sum()), int(fp.sum())
     b_ms, b_by = bound(B * M * 6 + n_valid * W * 4 + n_fresh * 4,
                        n_valid * W)
-    return dict(shape=name, B=B, W=W, S=table.shape[2], M=M, max_abs_err=0.0,
-                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)
+    # a probe reads its bucket's ways: contiguous here, S words apart in
+    # the reference's layout (a 32-byte sector each)
+    sector = 32
+    return dict(shape=name, B=B, W=W, S=S, M=M, max_abs_err=0.0, ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, fresh=n_fresh, drops=n_drops,
+                probe_bytes=W * 4,
+                probe_sector_bytes=-(-W * 4 // sector) * sector,
+                way_major_sector_bytes=W * sector)
 
 
 # --------------------------------------------------------------------------
@@ -1264,6 +1306,14 @@ def device_time(prof, n_top: int = 6):
     return sum(per.values()), [(k, v / 1e3) for k, v in top], per
 
 
+def kernel_us(per: dict, names) -> float:
+    """Device us of the kernels ``names`` (their template instances too)
+    in ``device_time``'s per-kernel map, wherever they rank: the trace
+    names them ``...namespace)::<name><`` or ``(``."""
+    return sum(v for k, v in per.items() if any(
+        f"namespace)::{t}{c}" in k for t in names for c in "<("))
+
+
 def traced(label: str, fn) -> dict:
     """One synchronised call of ``fn`` under ``torch.profiler``: wall ms,
     device busy ms and share, the costliest device ops."""
@@ -1277,15 +1327,16 @@ def traced(label: str, fn) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, top, per = device_time(prof)
-    # the top-k's kernels (csrc/topk.cu), wherever they rank
-    topk_us = sum(v for k, v in per.items() if any(
-        f"namespace)::{t}{c}" in k for t in TOPK_KERNELS for c in "<("))
+    topk_us = kernel_us(per, TOPK_KERNELS)
+    hop_ms = {k: kernel_us(per, (k,)) / 1e3 for k in HOP_KERNELS}
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}); topk.cu "
-        f"{topk_us / 1e3:.2f} ms; top "
+        f"{topk_us / 1e3:.2f} ms; search hop "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in hop_ms.items()) + "; top "
         + "; ".join(f"{k[:48]} {t:.2f} ms" for k, t in top))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                busy_share=busy / wall_us, topk_ms=topk_us / 1e3, top_ms=top)
+                busy_share=busy / wall_us, topk_ms=topk_us / 1e3,
+                hop_ms=hop_ms, top_ms=top)
 
 
 def profile_run(ds, index, cfg, n_queries, dev) -> dict:
@@ -1306,6 +1357,16 @@ def profile_run(ds, index, cfg, n_queries, dev) -> dict:
             torch.cuda.synchronize()
             out[f"{visited}_B{B}"] = traced(f"visited={visited} B={B}",
                                             lambda: idx_v.search(Q))
+    Q = ds.Q[:n_queries]
+    for visited in ("none", "hash"):   # int8 residency, the large regime
+        idx_v = Index(ds.X, dataclasses.replace(
+            cfg, visited_filter=visited, quantization="int8"),
+            graph=index.graph, device=dev)
+        idx_v.search(Q)
+        torch.cuda.synchronize()
+        out[f"int8_{visited}_B{n_queries}"] = traced(
+            f"int8 visited={visited} B={n_queries}", lambda: idx_v.search(Q))
+    del idx_v
     X = torch.as_tensor(ds.X, device=dev)
     n, k = X.shape[0], cfg.k_graph
     knn, _ = nn_descent(X, k)
@@ -1353,7 +1414,8 @@ def main() -> int:
     from repro_torch.ann.quantize import quantize_rows
     from repro_torch.configs.base import ANNConfig
     from repro_torch.data.synthetic import make_clustered, recall_at_k
-    from repro_torch.kernels import _build, block, flash_attention, l2dist, topk
+    from repro_torch.kernels import (_build, block, flash_attention, l2dist,
+                                     topk, visited)
 
     t_start = time.perf_counter()
     dev = card()
@@ -1376,8 +1438,11 @@ def main() -> int:
     log("[build] flash_attention.cu kernels (registers, spilled bytes) a "
         "thread: " + json.dumps(record["flash_attention_bodies"]))
     record["l2dist_bodies"] = l2dist.body_attributes()
-    log("[build] l2dist.cu self-query kernels (registers, spilled bytes) a "
-        "thread: " + json.dumps(record["l2dist_bodies"]))
+    log("[build] l2dist.cu self-query and int8 row kernels (registers, "
+        "spilled bytes) a thread: " + json.dumps(record["l2dist_bodies"]))
+    record["visited_bodies"] = visited.body_attributes()
+    log("[build] visited.cu kernels (registers, spilled bytes) a thread: "
+        + json.dumps(record["visited_bodies"]))
     record["block_bodies"] = block.body_attributes()
     log("[build] block.cu distance-matrix kernels (registers, spilled "
         "bytes) a thread: " + json.dumps(record["block_bodies"]))
@@ -1460,6 +1525,9 @@ def main() -> int:
                     + cfg.large_hops * cfg.max_degree, cfg.max_degree)):
         shapes["visited_filter"].append(check_visited(*args_v, dev=dev,
                                                       gen=gen))
+    shapes["visited_filter"].append(check_visited(
+        "collisions, 16 buckets", B_l, 0, cfg.max_degree, dev=dev, gen=gen,
+        n_buckets=16))
     for kname, rows in shapes.items():
         for r in rows:
             log_kernel(kname, r)

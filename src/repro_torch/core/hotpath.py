@@ -138,19 +138,21 @@ def visited_table(rows: int, bound: int, *, ways: int = 8,
                   device=None) -> torch.Tensor:
     """Empty visited-filter table for ``rows`` searches, sized for at most
     ``bound`` distinct insertions each at load factor <= 1/2 (a power of two
-    >= 64 buckets).  Shape [rows, ways, n_buckets] int32, all EMPTY."""
+    >= 64 buckets).  Shape [rows, n_buckets, ways] int32, all EMPTY:
+    bucket-major, so a bucket's ways are one contiguous sector (the
+    reference's table is [rows, ways, n_buckets])."""
     n_buckets = 64
     need = -(-2 * bound // ways)
     while n_buckets < need:
         n_buckets *= 2
-    return torch.full((rows, ways, n_buckets), _vf.VF_EMPTY,
+    return torch.full((rows, n_buckets, ways), _vf.VF_EMPTY,
                       dtype=torch.int32, device=device)
 
 
 def visited_filter(table, ids, *, valid, backend: str | None = None):
     """Probe-and-insert a lane block into per-row visited hash sets.
 
-    ``table`` [B, W, S] int32 — updated IN PLACE and returned —, ``ids``
+    ``table`` [B, S, W] int32 — updated IN PLACE and returned —, ``ids``
     [B, M] int32, ``valid`` [B, M] bool -> ``(table, fresh [B, M] bool)``.
     Lanes are processed in the reference's canonical order (ascending id,
     invalid lanes last, stable), so the drop set does not depend on how the

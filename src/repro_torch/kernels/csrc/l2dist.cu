@@ -20,13 +20,28 @@
 // (S * C * d * 4 bytes for the valid lanes) and write S * Kq * C floats;
 // the arithmetic is 2 flops per byte gathered, far under the card's
 // ridge.  Design against that bound:
-//   * the row kernel gives one CTA to one row s and one warp to one
+//   * the fp32 row kernel gives one CTA to one row s and one warp to one
 //     candidate: a warp reads a whole 512-byte row (d = 128) with one
 //     16-byte load per lane, coalesced, and reduces with shuffles, so
 //     no row is staged in shared memory and nothing is read twice;
 //   * masked / out-of-range lanes skip their gather altogether;
-//   * the int8 body moves a quarter of the bytes: a 128-byte row
-//     (d = 128) is one char4 load per lane, plus one scale per candidate;
+//   * the int8 body moves a quarter of the bytes (a 128-byte row at
+//     d = 128, plus one scale a candidate), so it is bound by latency,
+//     not bandwidth: a warp that walks its candidates one by one waits
+//     on idx, mask, scale and row in turn for each.  So one warp owns a
+//     row s and all of its loads are in flight together: lane c loads
+//     idx, mask and scale of candidate c (one coalesced load each, 32
+//     candidates a block), then each group of 8 lanes takes one candidate
+//     row in 16-byte pieces, 4 candidates a warp instruction, and every
+//     lane issues its 8 pieces of the block's candidates before it uses
+//     any.  A warp's critical path is two dependent round trips (idx,
+//     then codes and scales).  Each lane keeps its 16 floats of the
+//     query in registers, qn is summed once a query, the 8 candidates'
+//     sums leave the 8-lane group by a 7-shuffle reduce-scatter (lane j
+//     of a group ends with candidate j's sum), and the block's results go
+//     out as one coalesced store.  Codes become exact floats by a byte
+//     permute into 2^23's mantissa and one subtraction, cheaper than the
+//     int-to-float conversion;
 //   * the self-query kernel (the diversify tiles, [T, K, K] with K = 32
 //     and 64) does K^2 d products on K d floats in and K^2 out: 21 flops
 //     a byte at K = 64, the fp32 FFMA ridge (20) and far under the TF32
@@ -71,38 +86,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One row element group: 4 fp32 values, or 4 int8 codes dequantized.
-template <bool QUANT>
-__device__ __forceinline__ float4 load4(const void* X, long long off,
-                                        float sc) {
-  if constexpr (QUANT) {
-    const char4 c = __ldg(reinterpret_cast<const char4*>(
-        static_cast<const int8_t*>(X) + off));
-    return make_float4(__fmul_rn(static_cast<float>(c.x), sc),
-                       __fmul_rn(static_cast<float>(c.y), sc),
-                       __fmul_rn(static_cast<float>(c.z), sc),
-                       __fmul_rn(static_cast<float>(c.w), sc));
-  } else {
-    return __ldg(reinterpret_cast<const float4*>(
-        static_cast<const float*>(X) + off));
-  }
-}
-
-template <bool QUANT>
-__device__ __forceinline__ float load1(const void* X, long long off,
-                                       float sc) {
-  if constexpr (QUANT) {
-    return __fmul_rn(
-        static_cast<float>(static_cast<const int8_t*>(X)[off]), sc);
-  } else {
-    return __ldg(static_cast<const float*>(X) + off);
-  }
-}
-
-template <bool VEC, bool QUANT>
+template <bool VEC>
 __global__ void __launch_bounds__(kRowThreads)
-gather_rowq_kernel(const float* __restrict__ Q, const void* __restrict__ X,
-                   const float* __restrict__ scales,
+gather_rowq_kernel(const float* __restrict__ Q, const float* __restrict__ X,
                    const int32_t* __restrict__ idx,
                    const uint8_t* __restrict__ mask, float* __restrict__ out,
                    int Kq, int C, int d, long long N, int ip) {
@@ -120,14 +106,13 @@ gather_rowq_kernel(const float* __restrict__ Q, const void* __restrict__ X,
       continue;
     }
     const long long v = (long long)id * d;
-    const float sc = QUANT ? __ldg(scales + id) : 1.f;
     float vn = 0.f;
     for (int q = 0; q < Kq; ++q) {
       const float* qq = qrow + (long long)q * d;
       float dot = 0.f, qn = 0.f, vv = 0.f;
       if (VEC) {
         for (int j = lane * 4; j < d; j += 128) {
-          const float4 a = load4<QUANT>(X, v + j, sc);
+          const float4 a = __ldg(reinterpret_cast<const float4*>(X + v + j));
           const float4 b = __ldg(reinterpret_cast<const float4*>(qq + j));
           dot += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
           qn += b.x * b.x + b.y * b.y + b.z * b.z + b.w * b.w;
@@ -135,7 +120,7 @@ gather_rowq_kernel(const float* __restrict__ Q, const void* __restrict__ X,
         }
       } else {
         for (int j = lane; j < d; j += 32) {
-          const float a = load1<QUANT>(X, v + j, sc), b = __ldg(qq + j);
+          const float a = __ldg(X + v + j), b = __ldg(qq + j);
           dot += a * b;
           qn += b * b;
           vv += a * a;
@@ -147,6 +132,164 @@ gather_rowq_kernel(const float* __restrict__ Q, const void* __restrict__ X,
         if (q == 0) vn = warp_sum(vv);
       }
       if (lane == 0) o[(long long)q * C] = ip ? -dot : (qn + vn) - 2.f * dot;
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// the int8 row body: one warp a row s
+// --------------------------------------------------------------------------
+
+constexpr int kRow8Slots = 8;   // candidates a lane sums (32 / 4 groups)
+
+// 16 codes of a candidate row from byte `off` on, as 4 words: one 16-byte
+// load where rows are 16-byte aligned (VEC: d % 16 == 0), else byte by
+// byte; zeros past d and for a lane without a row (id < 0).
+template <bool VEC>
+__device__ __forceinline__ uint4 load_codes(const int8_t* X, int id, int off,
+                                            int d) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (id < 0 || off >= d) return r;
+  const int8_t* p = X + static_cast<long long>(id) * d + off;
+  if constexpr (VEC) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (off + e < d)
+        w[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + e)))
+                     << (8 * (e & 3));
+    r = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  return r;
+}
+
+// 16 query floats from `off` on (zeros past d): four 16-byte loads (VEC)
+// or one at a time.
+template <bool VEC>
+__device__ __forceinline__ void load_query(const float* q, int off, int d,
+                                           float (&v)[16]) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 a = off < d
+          ? __ldg(reinterpret_cast<const float4*>(q + off) + j)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * j] = a.x;
+      v[4 * j + 1] = a.y;
+      v[4 * j + 2] = a.z;
+      v[4 * j + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) v[e] = off + e < d ? __ldg(q + off + e) : 0.f;
+  }
+}
+
+// Signed byte k of w as an exact float: the byte, biased by 128, becomes
+// the low mantissa bits of 2^23, and one subtraction removes 2^23 + 128.
+template <int K>
+__device__ __forceinline__ float code_at(uint32_t w) {
+  const uint32_t f = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 | K);
+  return __fsub_rn(__uint_as_float(f), 8388736.f);
+}
+
+// The 8-lane group's sums of v[0..7], scattered: lane j of the group ends
+// with the sum of v[j] over the group (3 halving steps, 4 + 2 + 1
+// shuffles).
+__device__ __forceinline__ float sum8_scatter(float (&v)[kRow8Slots],
+                                              int sub) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) {
+    const bool hi = (sub & o) != 0;
+#pragma unroll
+    for (int i = 0; i < o; ++i) {
+      const float send = hi ? v[i] : v[i + o];
+      const float keep = hi ? v[i + o] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  return v[0];
+}
+
+// Warp w of a CTA owns row s = 8 * blockIdx.x + w.  Candidates go in
+// blocks of 32: lane c holds candidate cb + c's clipped id (-1: masked or
+// out of range) and scale; lane g * 8 + j sums slots t = 0..7, candidate
+// cb + 4t + g, over bytes [16 j, 16 j + 16) of each 128-byte pass of d,
+// and ends with candidate cb + 4j + g's sums.  With d <= 128 (one pass)
+// the codes stay in registers across the Kq queries.
+template <bool VEC>
+__global__ void __launch_bounds__(kRowThreads)
+gather_row8_kernel(const float* __restrict__ Q, const int8_t* __restrict__ X,
+                   const float* __restrict__ scales,
+                   const int32_t* __restrict__ idx,
+                   const uint8_t* __restrict__ mask, float* __restrict__ out,
+                   int S, int Kq, int C, int d, long long N, int ip) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const long long s = static_cast<long long>(blockIdx.x) * (kRowThreads / 32)
+                      + (threadIdx.x >> 5);
+  if (s >= S) return;   // warp-uniform
+  const int lane = threadIdx.x & 31, g = lane >> 3, sub = lane & 7;
+  const int passes = (d + 127) >> 7;
+  for (int cb = 0; cb < C; cb += 32) {
+    int id = -1;
+    float sc = 0.f;
+    if (cb + lane < C) {
+      const long long lc = s * C + cb + lane;
+      const int32_t raw = __ldg(idx + lc);
+      if ((mask == nullptr || __ldg(mask + lc) != 0) && raw >= 0 && raw < N) {
+        id = raw;
+        sc = __ldg(scales + raw);
+      }
+    }
+    int sid[kRow8Slots];
+#pragma unroll
+    for (int t = 0; t < kRow8Slots; ++t)
+      sid[t] = __shfl_sync(kFull, id, 4 * t + g);
+    const int mine = __shfl_sync(kFull, id, 4 * sub + g);
+    uint4 code[kRow8Slots];
+    for (int q = 0; q < Kq; ++q) {
+      const float* qrow = Q + (s * Kq + q) * d;
+      float dot[kRow8Slots] = {}, vv[kRow8Slots] = {}, qn = 0.f;
+      for (int p = 0; p < passes; ++p) {
+        const int off = p * 128 + sub * 16;
+        if (q == 0 || passes > 1) {
+#pragma unroll
+          for (int t = 0; t < kRow8Slots; ++t)
+            code[t] = load_codes<VEC>(X, sid[t], off, d);
+        }
+        float qv[16];
+        load_query<VEC>(qrow, off, d, qv);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) qn = fmaf(qv[e], qv[e], qn);
+#pragma unroll
+        for (int t = 0; t < kRow8Slots; ++t) {
+          const float st = __shfl_sync(kFull, sc, 4 * t + g);
+          const uint32_t w[4] = {code[t].x, code[t].y, code[t].z, code[t].w};
+          float v[16];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {   // v = code * scale, rounded once
+            v[4 * k] = __fmul_rn(code_at<0>(w[k]), st);
+            v[4 * k + 1] = __fmul_rn(code_at<1>(w[k]), st);
+            v[4 * k + 2] = __fmul_rn(code_at<2>(w[k]), st);
+            v[4 * k + 3] = __fmul_rn(code_at<3>(w[k]), st);
+          }
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            dot[t] = fmaf(v[e], qv[e], dot[t]);
+            vv[t] = fmaf(v[e], v[e], vv[t]);
+          }
+        }
+      }
+      const float dj = sum8_scatter(dot, sub);
+      const float vj = sum8_scatter(vv, sub);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) qn += __shfl_xor_sync(kFull, qn, o);
+      const int c = cb + 4 * sub + g;
+      if (c < C)
+        out[(s * Kq + q) * C + c] =
+            mine < 0 ? kInf : (ip ? -dj : (qn + vj) - 2.f * dj);
     }
   }
 }
@@ -481,13 +624,22 @@ int dispatch_selfq(const float* x, const int32_t* ix, const uint8_t* m,
                                                 p, st);
 }
 
-template <bool VEC, bool QUANT>
-void launch_rowq(const float* q, const void* x, const float* sc,
+template <bool VEC>
+void launch_rowq(const float* q, const float* x, const int32_t* ix,
+                 const uint8_t* m, float* o, int S, int Kq, int C, int d,
+                 long long N, int ip, cudaStream_t st) {
+  gather_rowq_kernel<VEC><<<S, kRowThreads, 0, st>>>(q, x, ix, m, o, Kq, C,
+                                                     d, N, ip);
+}
+
+template <bool VEC>
+void launch_row8(const float* q, const int8_t* x, const float* sc,
                  const int32_t* ix, const uint8_t* m, float* o, int S,
                  int Kq, int C, int d, long long N, int ip,
                  cudaStream_t st) {
-  gather_rowq_kernel<VEC, QUANT><<<S, kRowThreads, 0, st>>>(
-      q, x, sc, ix, m, o, Kq, C, d, N, ip);
+  constexpr int rows = kRowThreads / 32;
+  gather_row8_kernel<VEC><<<(S + rows - 1) / rows, kRowThreads, 0, st>>>(
+      q, x, sc, ix, m, o, S, Kq, C, d, N, ip);
 }
 
 }  // namespace
@@ -515,30 +667,37 @@ extern "C" int repro_gather_distances(const void* Q, const void* X,
         : dispatch_selfq<8>(x, ix, m, o, S, C, d, N, ip, p, st);
   }
   const float* q = static_cast<const float*>(Q);
-  const size_t align = sc != nullptr ? 4 : 16;  // char4 vs float4 rows
-  const bool vec = (d % 4 == 0)
-      && (reinterpret_cast<uintptr_t>(X) % align == 0)
-      && (reinterpret_cast<uintptr_t>(q) % 16 == 0);
-  if (sc != nullptr) {
-    if (vec) launch_rowq<true, true>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
-    else launch_rowq<false, true>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
+  if (sc != nullptr) {   // 16-byte code pieces and query loads
+    const int8_t* x = static_cast<const int8_t*>(X);
+    const bool vec = d % 16 == 0
+        && reinterpret_cast<uintptr_t>(x) % 16 == 0
+        && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    if (vec) launch_row8<true>(q, x, sc, ix, m, o, S, Kq, C, d, N, ip, st);
+    else launch_row8<false>(q, x, sc, ix, m, o, S, Kq, C, d, N, ip, st);
   } else {
-    if (vec) launch_rowq<true, false>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
-    else launch_rowq<false, false>(q, X, sc, ix, m, o, S, Kq, C, d, N, ip, st);
+    const float* x = static_cast<const float*>(X);
+    const bool vec = d % 4 == 0
+        && reinterpret_cast<uintptr_t>(x) % 16 == 0
+        && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    if (vec) launch_rowq<true>(q, x, ix, m, o, S, Kq, C, d, N, ip, st);
+    else launch_rowq<false>(q, x, ix, m, o, S, Kq, C, d, N, ip, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers and local (spilled) bytes a thread of self-query body `which`,
-// in the order of kernels/l2dist.py SELFQ_BODIES: NT = 4, 8 n-tiles a
-// warp; 16-byte staging, then 4-byte; d in one chunk, then streamed.
+// Registers and local (spilled) bytes a thread of each body, in the order
+// of kernels/l2dist.py BODIES: the self-query bodies (NT = 4, 8 n-tiles a
+// warp; 16-byte staging, then 4-byte; d in one chunk, then streamed), then
+// the int8 row body (16-byte pieces, then bytes).
 extern "C" int repro_l2dist_attrs(int which, int* regs, int* local_bytes) {
 #define REPRO_SELFQ_BODIES(VEC, ONE)                               \
   reinterpret_cast<const void*>(gather_selfq_kernel<4, VEC, ONE>), \
       reinterpret_cast<const void*>(gather_selfq_kernel<8, VEC, ONE>)
   static const void* const bodies[] = {
       REPRO_SELFQ_BODIES(true, true), REPRO_SELFQ_BODIES(false, true),
-      REPRO_SELFQ_BODIES(true, false), REPRO_SELFQ_BODIES(false, false)};
+      REPRO_SELFQ_BODIES(true, false), REPRO_SELFQ_BODIES(false, false),
+      reinterpret_cast<const void*>(gather_row8_kernel<true>),
+      reinterpret_cast<const void*>(gather_row8_kernel<false>)};
 #undef REPRO_SELFQ_BODIES
   constexpr int n = sizeof(bodies) / sizeof(bodies[0]);
   if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);

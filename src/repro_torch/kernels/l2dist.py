@@ -21,10 +21,13 @@ from repro_torch.kernels.block import block_distances_plain, check
 
 INF = 3.4e38
 # the compiled self-query bodies (NT 8-column tiles a warp; "_scalar":
-# 4-byte staging; "_streamed": d in more than one chunk), in
+# 4-byte staging; "_streamed": d in more than one chunk), then the int8
+# row bodies (one warp a row; "_scalar": byte loads where d % 16 != 0), in
 # repro_l2dist_attrs' order
 SELFQ_BODIES = [f"selfq_nt{nt}{vec}{one}" for one in ("", "_streamed")
                 for vec in ("", "_scalar") for nt in (4, 8)]
+ROW8_BODIES = ["row8", "row8_scalar"]
+BODIES = SELFQ_BODIES + ROW8_BODIES
 
 
 def _valid(X, idx, mask):
@@ -101,9 +104,8 @@ def gather_distances(Q, X, idx, mask=None, *, metric: str = "l2",
 
 
 def body_attributes() -> dict:
-    """Registers and spilled (local) bytes a thread of each compiled
-    self-query body, as the card reports them: ``{"selfq_nt8": (regs,
-    local), ...}`` (NT: 8-column tiles a warp, 4 for K <= 32, 8
-    above)."""
-    return _build.body_attributes("l2dist", "repro_l2dist_attrs",
-                                  SELFQ_BODIES)
+    """Registers and spilled (local) bytes a thread of each compiled body
+    of :data:`BODIES`, as the card reports them: ``{"selfq_nt8": (regs,
+    local), ..., "row8": ...}`` (NT: 8-column tiles a warp, 4 for K <= 32,
+    8 above)."""
+    return _build.body_attributes("l2dist", "repro_l2dist_attrs", BODIES)

@@ -64,18 +64,23 @@ def test_gather_distances_matches_plain(dev, rng, S, Kq, C, d, metric):
     assert torch.equal(out == 3.4e38, ref == 3.4e38)
 
 
-@pytest.mark.parametrize("S,Kq,C,d", [(64, 1, 32, 128), (33, 3, 20, 9),
-                                      (40, 1, 128, 130)])
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 128, 288])
+@pytest.mark.parametrize("d", [9, 16, 100, 128, 130, 960])
+@pytest.mark.parametrize("Kq", [1, 3])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_gather_distances_int8_matches_plain(dev, rng, S, Kq, C, d, metric):
-    """The int8 body: codes dequantized in registers, the scale gathered
-    by the clipped id (d = 130 takes the scalar path)."""
-    N = 5000
+def test_gather_distances_int8_matches_plain(dev, rng, C, d, Kq, metric):
+    """The int8 body (a warp a row, 32-candidate blocks, 16-byte pieces):
+    codes dequantized in registers, the scale gathered by the clipped id;
+    ids outside [0, N), masked lanes and an all-masked row give exactly
+    3.4e38.  d % 16 != 0 takes the byte-load body; C > 32 loops over
+    blocks; Kq > 1 reuses the codes (d <= 128) or reloads them."""
+    N, S = 5000, 40
     X, Q, idx, mask = _on(
         dev, rng.normal(size=(N, d)).astype(np.float32),
         rng.normal(size=(S, Kq, d)).astype(np.float32),
         rng.integers(-2, N + 20, size=(S, C)).astype(np.int32),
         rng.random((S, C)) > 0.3)
+    mask[3] = False
     codes, scales = quantize_rows(X)
     n0 = K.launch_counts()
     out = l2dist.gather_distances(Q, codes, idx, mask, metric=metric,
@@ -90,6 +95,8 @@ def test_gather_distances_int8_matches_plain(dev, rng, S, Kq, C, d, metric):
     norms = (Q.double() ** 2).sum(2)[:, :, None] \
         + (deq ** 2).sum(1)[idx.long().clamp(0, N - 1)][:, None, :]
     assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
+    valid = (mask & (idx >= 0) & (idx < N))[:, None, :].expand_as(out)
+    assert (out[~valid] == 3.4e38).all() and (out[3] == 3.4e38).all()
     assert torch.equal(out == 3.4e38, ref == 3.4e38)
 
 
@@ -237,15 +244,35 @@ def test_topk_bodies_fit_without_spills(dev):
         assert regs <= 255 and regs * threads <= 65536, (name, regs)
 
 
-def test_visited_filter_matches_plain(dev, rng):
-    t = HP.visited_table(64, 200, device=dev)
-    for _ in range(3):
-        ids, valid = _on(dev, rng.integers(0, 300, size=(64, 32))
-                         .astype(np.int32), rng.random((64, 32)) > 0.2)
+@pytest.mark.parametrize("M", [1, 7, 32, 33, 128])
+@pytest.mark.parametrize("S,W", [(16, 8), (64, 8), (16, 3)])
+def test_visited_filter_matches_plain(dev, rng, M, S, W):
+    """Bit for bit, table and fresh lanes, over successive calls: ids are
+    drawn from 1 or 3 buckets a row (chosen by their hash_bucket), so
+    lanes share buckets, buckets fill and lanes drop; ids repeat inside
+    and across calls; M > 32 runs in chunks of 32; W = 3 takes the
+    word-by-word body."""
+    B = 64
+    pool = np.arange(20 * S, dtype=np.int32)
+    home = visited.hash_bucket(torch.from_numpy(pool),
+                               visited.shift_for(S)).numpy()
+    # each row draws its ids from the same 1 (M < 32) or 3 buckets
+    rows = [pool[np.isin(home, rng.choice(S, 1 if M < 32 else 3))]
+            for _ in range(B)]
+    t = torch.full((B, S, W), visited.VF_EMPTY, dtype=torch.int32,
+                   device=dev)
+    drops = 0
+    for _ in range(4):
+        ids = np.stack([rng.choice(r, M) for r in rows]).astype(np.int32)
+        ids[:, M // 2:] = ids[:, :M - M // 2]
+        ids, valid = _on(dev, ids, rng.random((B, M)) > 0.2)
         tk, fk = visited.visited_filter(t.clone(), ids, valid)
         tp, fp = visited.visited_filter_plain(t.clone(), ids, valid)
         assert torch.equal(tk, tp) and torch.equal(fk, fp)
+        held = (tp[:, None] == ids[:, :, None, None]).any(3).any(2)
+        drops += int((valid & ~fp & ~held).sum())
         t = tk
+    assert drops > 0 or M == 1
 
 
 def test_wrappers_reject_bad_tensors(dev):
@@ -262,6 +289,11 @@ def test_wrappers_reject_bad_tensors(dev):
                                                   device=dev))
     with pytest.raises(ValueError, match="V"):
         block.block_distances(X[None], X[None].to(torch.int8))
+    with pytest.raises(ValueError, match="ways"):
+        visited.visited_filter(
+            torch.full((2, 64, 9), -1, dtype=torch.int32, device=dev),
+            idx.to(torch.int32), torch.ones((2, 3), dtype=torch.bool,
+                                             device=dev))
 
 
 @pytest.mark.parametrize("visited_mode", ["none", "hash"])
@@ -376,8 +408,23 @@ def test_distance_tile_bodies_fit_without_spills(dev):
     """The card's own count for the tensor-core distance tiles (the
     self-query body of l2dist.cu, the distance matrix of block.cu): no
     spill to local memory, at most 255 registers."""
-    attrs = {**l2dist.body_attributes(), **block.body_attributes()}
+    l2 = l2dist.body_attributes()
+    attrs = {**{b: l2[b] for b in l2dist.SELFQ_BODIES},
+             **block.body_attributes()}
     assert list(attrs) == l2dist.SELFQ_BODIES + block.DM_BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0, (name, local)
+        assert regs <= 255, (name, regs)
+
+
+def test_search_hop_bodies_fit_without_spills(dev):
+    """The card's own count for the search hop's bodies (l2dist.cu's int8
+    row body, visited.cu's filter): no spill to local memory, at most 255
+    registers."""
+    l2 = l2dist.body_attributes()
+    attrs = {**{b: l2[b] for b in l2dist.ROW8_BODIES},
+             **visited.body_attributes()}
+    assert list(attrs) == l2dist.ROW8_BODIES + visited.BODIES
     for name, (regs, local) in attrs.items():
         assert local == 0, (name, local)
         assert regs <= 255, (name, regs)

@@ -327,7 +327,9 @@ def test_shift_for_rejects_non_power_of_two():
 def test_visited_filter_matches_reference(rng, B, M, bound, id_range):
     """Several successive calls on one table: ids repeat inside and across
     calls (hits), tiny tables overflow buckets (drops) — the table and the
-    fresh lanes equal the reference's after every call."""
+    fresh lanes equal the reference's after every call.  The port's table
+    is bucket-major [B, S, W]; transposed back to the reference's
+    [B, W, S], it must equal it bit for bit."""
     jt = JHP.visited_table(B, bound)
     tt = HP.visited_table(B, bound)
     for _ in range(4):
@@ -340,13 +342,13 @@ def test_visited_filter_matches_reference(rng, B, M, bound, id_range):
         tt2, tf = HP.visited_filter(tt, _t(ids), valid=_t(valid))
         assert tt2 is tt  # in place
         assert np.array_equal(tf.numpy(), np.asarray(jf))
-        assert np.array_equal(tt.numpy(), np.asarray(jt))
+        assert np.array_equal(tt.permute(0, 2, 1).numpy(), np.asarray(jt))
 
 
 def test_visited_table_sizing():
     t = HP.visited_table(3, 193)
-    assert t.shape == (3, 8, 64) and t.dtype == torch.int32
-    assert HP.visited_table(2, 4224).shape == (2, 8, 2048)
+    assert t.shape == (3, 64, 8) and t.dtype == torch.int32
+    assert HP.visited_table(2, 4224).shape == (2, 2048, 8)
     assert (t == visited.VF_EMPTY).all()
 
 
