@@ -348,8 +348,8 @@ def check_diversify(dev, cfg, gen, n: int = 1 << 20) -> dict:
 
 
 def check_block(name, S, Kq, C, d, quant, dev, gen):
-    """The tiled block kernel (fp32, or int8 with ``quant``) against its
-    plain version at a scan or general shape."""
+    """The block on the tensor-core tile (fp32, or int8 codes with
+    ``quant``) against its plain version at a scan or general shape."""
     import torch
 
     from repro_torch.ann.quantize import quantize_rows
@@ -396,9 +396,11 @@ def check_block(name, S, Kq, C, d, quant, dev, gen):
             or not torch.isfinite(out[m3]).all():
         raise AssertionError(f"block_distances {name} (int8={quant}): "
                              f"{bad} entries over 1e-5*(qn+vn)")
-    del ref
+    ratio = float((err / tol).max())
+    del ref, tol
     it = 3 if S * Kq * C > 1 << 26 else 20
     ms = cuda_ms(kern, it)
+    device_ms = cuda_ms(kern, 2 * it, repeats=3, ahead=True)
     plain_ms = cuda_ms(plain, max(1, it // 3))
     lib_ms = cuda_ms(library, max(1, it // 3))
     gemm_ms = cuda_ms(gemm, max(1, it // 3))
@@ -407,10 +409,10 @@ def check_block(name, S, Kq, C, d, quant, dev, gen):
         5 if quant else 1) + S * Kq * C * 4
     flops = 2 * S * Kq * C * d + 2 * S * (Kq + C) * d + (
         S * C * d if quant else 0)
-    b_ms, b_by = bound(nbytes, flops)
     return dict(shape=name, S=S, Kq=Kq, C=C, d=d, max_abs_err=float(
-        err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_gemm_only_ms=gemm_ms, bound_ms=b_ms, bound_by=b_by)
+        err.max()), err_over_tol=ratio, ms=ms, device_ms=device_ms,
+        plain_ms=plain_ms, library_ms=lib_ms, library_gemm_only_ms=gemm_ms,
+        **tensor_bounds(nbytes, flops, 2 * S * Kq * C * d, False))
 
 
 def topk_ops(W: int, keep: int) -> float:
@@ -886,8 +888,9 @@ SASS_BODIES = {
                lambda nt, vec, one: f"selfq_nt{nt}"
                + ("" if vec == "1" else "_scalar")
                + ("" if one == "1" else "_streamed")),
-    "block": (r"dm_kernelI(13__nv_bfloat16|f)Lb([01])E",
-              lambda t, vec: f"dm_{'f32' if t == 'f' else 'bf16'}"
+    "block": (r"dm_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E",
+              lambda t, vec, i8: "dm_" + ("i8" if i8 == "1" else "f32"
+                                          if t == "f" else "bf16")
               + ("" if vec == "1" else "_scalar")),
 }
 
@@ -895,9 +898,9 @@ SASS_BODIES = {
 def sass_hmma() -> dict:
     """HMMA (tensor-core) instructions in each compiled body of
     ``csrc/flash_attention.cu``, of ``csrc/l2dist.cu``'s self-query tile
-    and of ``csrc/block.cu``'s distance matrix, from ``cuobjdump -sass``
-    where the toolkit has it (else an empty dict): ``{source: {body:
-    count}}``."""
+    and of ``csrc/block.cu``'s tile (float32, bf16, int8 codes), from
+    ``cuobjdump -sass`` where the toolkit has it (else an empty dict):
+    ``{source: {body: count}}``."""
     import re
     import shutil
 
@@ -1329,14 +1332,16 @@ def traced(label: str, fn) -> dict:
     busy, top, per = device_time(prof)
     topk_us = kernel_us(per, TOPK_KERNELS)
     hop_ms = {k: kernel_us(per, (k,)) / 1e3 for k in HOP_KERNELS}
+    tile_ms = kernel_us(per, ("dm_kernel",)) / 1e3
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}); topk.cu "
         f"{topk_us / 1e3:.2f} ms; search hop "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in hop_ms.items()) + "; top "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in hop_ms.items())
+        + f"; block.cu tile (the delta scan) {tile_ms:.2f} ms; top "
         + "; ".join(f"{k[:48]} {t:.2f} ms" for k, t in top))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 busy_share=busy / wall_us, topk_ms=topk_us / 1e3,
-                hop_ms=hop_ms, top_ms=top)
+                hop_ms=hop_ms, tile_ms=tile_ms, top_ms=top)
 
 
 def profile_run(ds, index, cfg, n_queries, dev) -> dict:
@@ -1444,8 +1449,9 @@ def main() -> int:
     log("[build] visited.cu kernels (registers, spilled bytes) a thread: "
         + json.dumps(record["visited_bodies"]))
     record["block_bodies"] = block.body_attributes()
-    log("[build] block.cu distance-matrix kernels (registers, spilled "
-        "bytes) a thread: " + json.dumps(record["block_bodies"]))
+    log("[build] block.cu tile kernels, the block's and the matrix's "
+        "(registers, spilled bytes) a thread: "
+        + json.dumps(record["block_bodies"]))
     record["sass_hmma"] = sass = sass_hmma()
     for source, counts in sass.items():
         log(f"[sass] HMMA instructions a {source}.cu kernel (cuobjdump "

@@ -1,167 +1,70 @@
-// Distance block over pre-gathered rows for Hopper (sm_90a).
+// Distance tiles for Hopper (sm_90a): the distance block over pre-gathered
+// rows and the dense distance matrix, one tensor-core tile.
 //
-// Replaces the reference's TPU kernel kernels/l2dist.py
-// block_distances_pallas (fp32 body _block_kernel and int8 body
-// _block_kernel_quant):
+// Replaces two TPU kernels of the reference, kernels/l2dist.py:
+//   * block_distances_pallas (bodies _block_kernel, _block_kernel_quant):
+//     Q [S, Kq, d] float32 x V [S, C, d] float32 (or int8 codes with
+//     v_scales [S, C] float32) x mask [S, C] (0 -> 3.4e38) -> [S, Kq, C];
+//   * distance_matrix_pallas (_dist_kernel): Q [B, d] x X [N, d] -> out
+//     [B, N], float32 or bfloat16 inputs (widened to float32 as the
+//     reference's .astype(float32)), no mask: the block with S = 1.
 //
-//   out[s, q, c] = qn + vn - 2 * <Q[s, q], V[s, c]>   (l2)
-//   out[s, q, c] = -<Q[s, q], V[s, c]>                (ip / cos)
+//   out = qn + vn - 2 <q, v>   (l2)      out = -<q, v>   (ip / cos)
 //
-// Q [S, Kq, d] float32, V [S, C, d] float32 or int8 codes with
-// v_scales [S, C] float32, mask [S, C] (0 -> 3.4e38) -> out [S, Kq, C].
 // The int8 body dequantizes while it stages, v = float(code) * scale
 // (rounded once, as the reference's widen-then-scale), and vn is taken over
-// the dequantized values.  Its main caller is scan_distances, the
-// brute-force scan of the streaming delta shard: S = 1, Kq = the query
-// batch (up to 10240), C = the delta capacity.
+// the dequantized values.
 //
-// Bound: that scan is a GEMM.  At B = 10240 x cap = 16384 x d = 128 it is
-// 42.9 GFLOP (0.64 ms at 67 TFLOP/s fp32 outside the tensor cores) and
-// writes a 671 MB output (0.20 ms at 3.35 TB/s), so the operations bound
-// it; no TF32 anywhere, the reference's distances are full fp32.  Design:
-//   * one CTA per 64 x 64 output tile over a grid (C tiles, Kq tiles, S),
-//     so the scan's single row s spreads over every SM;
-//   * per d-chunk of 32, the CTA stages a 64 x 32 slice of Q and of V in
-//     shared memory (k-major, padded against bank conflicts) and each of
-//     its 256 threads accumulates a 4 x 4 micro-tile in fp32 FFMA;
-//   * the row norms are summed from the same staged slices, and the
-//     epilogue applies the norm formula and the mask as it stores.
-// A wgmma / TMA pipeline is later work.
-//
-// A second kernel serves the reference's dense kernel kernels/l2dist.py
-// distance_matrix_pallas (_dist_kernel): Q [B, d] x X [N, d] -> out [B, N]
-// float32, the same formula with no mask (repro_distance_matrix below), Q
-// and X float32 or bfloat16 (widened to float32 as the reference's
-// .astype(float32)).  Its full-size caller is the exact k-NN of 1,024
-// queries against a 2^20 x 128 corpus: 275 GFLOP, 4.1 ms at 67 TFLOP/s on
-// CUDA cores but 0.56 ms at the 495 TFLOP/s of the TF32 tensor cores,
-// against 4.3 GB of output (1.28 ms at 3.35 TB/s).  So it runs on tensor
-// cores (mma_tf32.cuh):
-//   * float32: 3xTF32 mma.m16n8k8, x = hi + lo split as the fragments are
-//     loaded, lo.hi + hi.lo + hi.hi into one float32 accumulator; a single
-//     TF32 rounding misses the fp32 contract (1e-5 * (qn + xn)) many times
-//     over, the split holds it.  The products issued are 3x the work:
-//     825 GFLOP, 2.6 ms at mma.sync's ~313 TFLOP/s.  The tensor cores'
-//     adder truncates, so each chunk sums into a fresh accumulator that is
-//     added to the running one rounded to nearest;
-//   * bf16: one mma.m16n8k16 with float32 accumulation from ldmatrix
-//     fragments; a bf16 x bf16 product is exact in float32, so no split;
+// Callers and bounds on the H100 (3.35 TB/s; TF32 tensor cores 495
+// TFLOP/s, fp32 outside them 67; mma.sync issues TF32 products at ~313):
+//   * the scan of the streaming delta shard (hotpath.scan_distances): S = 1,
+//     Kq = 10240 queries, C = 16384 slots, d = 128.  42.9 GFLOP and 685 MB,
+//     671 MB of it the output: bytes 0.204 ms, TF32 rate 0.087 ms, the 3x
+//     products issued 0.412 ms, the fp32 rate outside the tensor cores
+//     0.641 ms;
+//   * the exact k-NN of 1,024 queries against a 2^20 x 128 corpus: 275
+//     GFLOP and 4.3 GB of output: bytes 1.28 ms, TF32 0.56, issued 2.6.
+// Both have d = 128 and an output that dominates the bytes: the same GEMM
+// shape.  So one tile serves both, on tensor cores (mma_tf32.cuh):
+//   * float32 operands: 3xTF32 mma.m16n8k8, x = hi + lo split as the
+//     fragments are loaded, lo.hi + hi.lo + hi.hi into one float32
+//     accumulator; a single TF32 rounding misses the fp32 contract
+//     (1e-5 * (qn + vn)) many times over, the split holds it.  The tensor
+//     cores' adder truncates, so each chunk sums into a fresh accumulator
+//     that is added to the running one rounded to nearest;
+//   * bfloat16 (matrix only): one mma.m16n8k16 with float32 accumulation
+//     from ldmatrix fragments; a bf16 x bf16 product is exact in float32;
+//   * int8 codes (block only): the codes are dequantized into the same
+//     float32 ring as they are staged, so the products and norms are the
+//     float32 body's.  cp.async cannot convert: each thread's 16-byte
+//     ld.global.nc of the codes of chunk ch + 2 is issued before chunk ch's
+//     products and written out (code x scale, four float4 stores) after
+//     them, so the products hide the load as the ring does for float32;
 //   * one CTA of 8 warps (4 x 2, each 32 x 32 outputs) per 128 x 64 tile
 //     and two CTAs an SM, d streamed in 128-byte chunks (32 float32 or 64
-//     bf16 columns) through a three-stage cp.async ring; the query tiles
-//     of one X tile run side by side, so X is read from device memory
-//     about once (128 x 128 tiles of 64 x 32 a warp, one CTA an SM, were
-//     slower at the exact k-NN's shape);
+//     bf16 columns) through a three-stage cp.async ring; the query tiles of
+//     one V tile run side by side in blockIdx.x, so V is read from device
+//     memory about once and Q stays in L2; blockIdx.y is the row s of the
+//     block (a grid a 65,535 rows);
 //   * the norms are fp32 FFMA sums of the staged chunks (one thread a row),
-//     and the epilogue writes the formula from the accumulator fragments
-//     with 8-byte streaming stores.
+//     the threads left over flag the tile's masked V rows in shared memory,
+//     and the epilogue writes the formula (3.4e38 where masked) from the
+//     accumulator fragments with 8-byte streaming stores.
+// Rows that are not 16-byte pieces (d % 4 for float32, d % 8 for bf16,
+// d % 16 for int8 codes) or not 16-byte aligned stage element by element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_tf32.cuh"
 
 namespace {
 
 constexpr float kInf = 3.4e38f;
-constexpr int kTile = 64;     // output rows (Kq) and columns (C) per CTA
-constexpr int kDc = 32;       // d chunk staged per step
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kPad = kTile + 1;
-
-template <bool QUANT>
-__global__ void __launch_bounds__(kThreads)
-block_kernel(const float* __restrict__ Q, const void* __restrict__ V,
-             const float* __restrict__ v_scales,
-             const uint8_t* __restrict__ mask, float* __restrict__ out,
-             int S, int Kq, int C, int d, int ip) {
-  __shared__ float qs[kDc][kPad];   // [k][row]
-  __shared__ float vs[kDc][kPad];   // [k][col]
-  __shared__ float qn_s[kTile], vn_s[kTile];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int c0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
-  for (long long s = blockIdx.z; s < S; s += gridDim.z) {
-    const float* qb = Q + s * Kq * d;
-    const long long vb = s * C * d;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float nacc = 0.f;  // threads 0-63: qn of row tid; 64-127: vn of col
-    for (int d0 = 0; d0 < d; d0 += kDc) {
-      __syncthreads();
-      // stage: a warp reads 32 consecutive elements of one row
-      for (int e = tid; e < kTile * kDc; e += kThreads) {
-        const int r = e / kDc, k = e - r * kDc;
-        const bool in_d = d0 + k < d;
-        const int q = q0 + r, c = c0 + r;
-        qs[k][r] = (in_d && q < Kq)
-                       ? __ldg(qb + (long long)q * d + d0 + k) : 0.f;
-        float v = 0.f;
-        if (in_d && c < C) {
-          const long long off = vb + (long long)c * d + d0 + k;
-          if constexpr (QUANT) {
-            v = __fmul_rn(
-                static_cast<float>(static_cast<const int8_t*>(V)[off]),
-                __ldg(v_scales + s * C + c));
-          } else {
-            v = __ldg(static_cast<const float*>(V) + off);
-          }
-        }
-        vs[k][r] = v;
-      }
-      __syncthreads();
-      if (tid < kTile) {
-#pragma unroll 8
-        for (int k = 0; k < kDc; ++k) nacc += qs[k][tid] * qs[k][tid];
-      } else if (tid < 2 * kTile) {
-#pragma unroll 8
-        for (int k = 0; k < kDc; ++k) {
-          nacc += vs[k][tid - kTile] * vs[k][tid - kTile];
-        }
-      }
-#pragma unroll 8
-      for (int k = 0; k < kDc; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = vs[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-      }
-    }
-    if (tid < kTile) qn_s[tid] = nacc;
-    else if (tid < 2 * kTile) vn_s[tid - kTile] = nacc;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + ty + 16 * i;
-      if (q >= Kq) continue;
-      float* orow = out + (s * Kq + q) * (long long)C;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c >= C) continue;
-        float r = ip ? -acc[i][j]
-                     : (qn_s[ty + 16 * i] + vn_s[tx + 16 * j])
-                           - 2.f * acc[i][j];
-        if (mask != nullptr && mask[s * C + c] == 0) r = kInf;
-        orow[c] = r;
-      }
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// the dense distance matrix on tensor cores
-// --------------------------------------------------------------------------
-
 constexpr int kDmQRows = 128;             // CTA tile: 128 queries x
-constexpr int kDmXRows = 64;              // ... 64 rows of X
+constexpr int kDmXRows = 64;              // ... 64 rows of V (X)
 constexpr int kDmWM = 4, kDmWN = 2;       // warps over the tile's rows, cols
 constexpr int kDmWarps = kDmWM * kDmWN;
 constexpr int kDmThreads = 32 * kDmWarps;
@@ -179,7 +82,8 @@ struct DmCfg {
   static constexpr int LD = DC + 8;
   static constexpr int kStage = (kDmQRows + kDmXRows) * LD;  // Q, then X
   static constexpr size_t kSmem = sizeof(T) * kDmStages * kStage
-                                  + sizeof(float) * (kDmQRows + kDmXRows);
+                                  + sizeof(float) * (kDmQRows + kDmXRows)
+                                  + kDmXRows;   // masked flags of V rows
 };
 
 // rows [0, ROWS) of a d-chunk of a [rows][d] block into a padded tile;
@@ -207,6 +111,58 @@ __device__ __forceinline__ void dm_stage(T* dst, const T* src, int valid,
                                ? src[(long long)r * d + d0 + c]
                                : static_cast<T>(0.f);
     }
+  }
+}
+
+// int8 codes of a 64-row V tile, 32 columns a chunk (one float32 chunk):
+// thread t < 128 takes row t / 2, columns 16 (t % 2) .. + 16, as one
+// 16-byte piece.  i8_fetch loads it (zeros past `valid` rows and past d),
+// i8_put writes it dequantized into the ring, code x scale rounded once.
+__device__ __forceinline__ int4 i8_fetch(const int8_t* src, int valid, int d,
+                                         int d0) {
+  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
+  int4 v = make_int4(0, 0, 0, 0);
+  if (threadIdx.x < 2 * kDmXRows && r < valid && d0 + c < d) {
+    asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(src + (long long)r * d + d0 + c));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float4 i8_dequant(int w, float scale) {
+  return make_float4(
+      __fmul_rn(static_cast<float>(static_cast<int8_t>(w)), scale),
+      __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 8)), scale),
+      __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> 16)), scale),
+      __fmul_rn(static_cast<float>(w >> 24), scale));
+}
+
+__device__ __forceinline__ void i8_put(float* dst, const int4& v,
+                                       float scale) {
+  if (threadIdx.x >= 2 * kDmXRows) return;
+  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
+  float4* p = reinterpret_cast<float4*>(dst + r * DmCfg<float>::LD + c);
+  p[0] = i8_dequant(v.x, scale);
+  p[1] = i8_dequant(v.y, scale);
+  p[2] = i8_dequant(v.z, scale);
+  p[3] = i8_dequant(v.w, scale);
+}
+
+// the element-wise int8 staging, for rows that are not 16-byte pieces;
+// rolled: unrolled, its loads in flight spill the body's registers
+__device__ __forceinline__ void i8_stage(float* dst, const int8_t* src,
+                                         const float* scales, int valid,
+                                         int d, int d0) {
+  using C = DmCfg<float>;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < kDmXRows * C::DC; e += kDmThreads) {
+    const int r = e / C::DC, c = e % C::DC;
+    dst[r * C::LD + c] =
+        (r < valid && d0 + c < d)
+            ? __fmul_rn(static_cast<float>(src[(long long)r * d + d0 + c]),
+                        __ldg(scales + r))
+            : 0.f;
   }
 }
 
@@ -316,35 +272,60 @@ __device__ __forceinline__ void dm_products(float (&acc)[kDmMI][kDmNI][4],
   }
 }
 
-// One CTA per 128 x 64 output tile, two CTAs an SM (128 registers a
-// thread, 92 KB of shared memory), so one CTA's epilogue runs beside the
-// other's products; the grid runs the q_tiles query tiles of one X column
-// tile next to each other, so X is read from device memory about once and
-// Q stays in L2.  d streams through a kDmStages cp.async ring of 128-byte
-// chunks, the next chunks loading while this one multiplies.  Thread
-// r < 128 sums the norm of the Q tile's row r, thread 128 + r that of the
-// X tile's row r, from the staged chunks.
-template <typename T, bool VEC>
+// One CTA per 128 x 64 output tile of a row s, two CTAs an SM (128
+// registers a thread, 92 KB of shared memory), so one CTA's epilogue runs
+// beside the other's products.  blockIdx.x is the tile, its q_tiles query
+// tiles of one V tile next to each other; blockIdx.y is the row s.  d
+// streams through a kDmStages ring of 128-byte chunks, the next chunks
+// loading while this one multiplies.  Thread r < 128 sums the norm of the
+// Q tile's row r, thread 128 + r that of the V tile's row r, from the
+// staged chunks.  I8: X holds int8 codes (T float32), dequantized with
+// v_scales as they are staged.
+template <typename T, bool VEC, bool I8>
 __global__ void __launch_bounds__(kDmThreads, 2)
-dm_kernel(const T* __restrict__ Q, const T* __restrict__ X,
-          float* __restrict__ out, int B, int N, int d, int q_tiles,
-          int ip) {
+dm_kernel(const T* __restrict__ Q, const void* __restrict__ Xv,
+          const float* __restrict__ v_scales,
+          const uint8_t* __restrict__ mask, float* __restrict__ out, int B,
+          int N, int d, int q_tiles, int ip) {
   using C = DmCfg<T>;
+  using TX = typename std::conditional<I8, int8_t, T>::type;
+  static_assert(!I8 || !C::kBf16, "int8 codes stage as float32");
   constexpr int MI = kDmMI, NI = kDmNI;
   extern __shared__ __align__(16) unsigned char dm_smem[];
   T* tiles = reinterpret_cast<T*>(dm_smem);   // [stage][Q rows | X rows][LD]
   float* qn_s = reinterpret_cast<float*>(tiles + kDmStages * C::kStage);
   float* xn_s = qn_s + kDmQRows;
+  uint8_t* dead_s = reinterpret_cast<uint8_t*>(xn_s + kDmXRows);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp / kDmWN, wn = warp % kDmWN;
   const int q0 = (blockIdx.x % q_tiles) * kDmQRows;
   const int n0 = (blockIdx.x / q_tiles) * kDmXRows;
-  const T* qt = Q + (long long)q0 * d;
-  const T* xt = X + (long long)n0 * d;
   const int qv = B - q0, xv = N - n0;
   const int n_chunks = (d + C::DC - 1) / C::DC;
   const bool norm_row = !ip && tid < kDmQRows + kDmXRows;
+  const bool pairs = (N & 1) == 0;
+  const long long s = blockIdx.y;
+  const T* qt = Q + (s * B + q0) * d;
+  const TX* xt = static_cast<const TX*>(Xv) + (s * N + n0) * d;
+  const float* sc = I8 ? v_scales + s * N + n0 : nullptr;
+  // int8, 16-byte pieces: the scale of this thread's row, loaded once
+  float scale = 0.f;
+  if constexpr (I8 && VEC) {
+    if (tid < 2 * kDmXRows && (tid >> 1) < xv)
+      scale = __ldg(sc + (tid >> 1));
+  }
+  // chunk c of V into the ring slot st (int8 codes: synchronously)
+  auto stage_x = [&](T* st, int c) {
+    T* dst = st + kDmQRows * C::LD;
+    if constexpr (!I8) {
+      dm_stage<T, VEC, kDmXRows>(dst, xt, xv, d, c * C::DC);
+    } else if constexpr (VEC) {
+      i8_put(dst, i8_fetch(xt, xv, d, c * C::DC), scale);
+    } else {
+      i8_stage(dst, xt, sc, xv, d, c * C::DC);
+    }
+  };
 
   float acc[MI][NI][4];
 #pragma unroll
@@ -354,14 +335,18 @@ dm_kernel(const T* __restrict__ Q, const T* __restrict__ X,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
   float nacc = 0.f;
+  // threads 192-255 (no norm to sum) flag the tile's masked V rows
+  if (mask != nullptr && tid >= kDmQRows + kDmXRows) {
+    const int c = tid - (kDmQRows + kDmXRows);
+    dead_s[c] = c < xv && mask[s * N + n0 + c] == 0;
+  }
 
 #pragma unroll
   for (int c = 0; c < kDmStages - 1; ++c) {
     if (c < n_chunks) {
       T* st = tiles + c * C::kStage;
       dm_stage<T, VEC, kDmQRows>(st, qt, qv, d, c * C::DC);
-      dm_stage<T, VEC, kDmXRows>(st + kDmQRows * C::LD, xt, xv, d,
-                                 c * C::DC);
+      stage_x(st, c);
     }
     cp_async_commit();
   }
@@ -369,11 +354,15 @@ dm_kernel(const T* __restrict__ Q, const T* __restrict__ X,
     cp_async_wait<kDmStages - 2>();
     __syncthreads();   // chunk ch is in; every read of the slot refilled
     const int nxt = ch + kDmStages - 1;
+    T* nst = tiles + (nxt % kDmStages) * C::kStage;
+    int4 codes = make_int4(0, 0, 0, 0);   // int8 pieces of chunk nxt
     if (nxt < n_chunks) {
-      T* st = tiles + (nxt % kDmStages) * C::kStage;
-      dm_stage<T, VEC, kDmQRows>(st, qt, qv, d, nxt * C::DC);
-      dm_stage<T, VEC, kDmXRows>(st + kDmQRows * C::LD, xt, xv, d,
-                                 nxt * C::DC);
+      dm_stage<T, VEC, kDmQRows>(nst, qt, qv, d, nxt * C::DC);
+      if constexpr (I8 && VEC) {
+        codes = i8_fetch(xt, xv, d, nxt * C::DC);
+      } else {
+        stage_x(nst, nxt);
+      }
     }
     cp_async_commit();
     const T* qs = tiles + (ch % kDmStages) * C::kStage;
@@ -389,62 +378,100 @@ dm_kernel(const T* __restrict__ Q, const T* __restrict__ X,
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+    if constexpr (I8 && VEC) {   // the slot's last reader was chunk ch - 1
+      if (nxt < n_chunks) i8_put(nst + kDmQRows * C::LD, codes, scale);
+    }
   }
   cp_async_wait<0>();
   if (norm_row) qn_s[tid] = nacc;   // xn_s = qn_s + 128
   __syncthreads();
 
-  const bool pairs = (N & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int lr = 16 * (MI * wm + mi) + g + 8 * h;
-      if (lr >= qv) continue;
-      float* orow = out + (long long)(q0 + lr) * N;
+  // The epilogue, compiled twice: with the mask, and without it for the
+  // dense matrix, which one shared epilogue made 3-5% slower for bf16.
+  auto epilogue = [&](auto masked) {
+    // bit 2 ni + e: column 8 (NI wn + ni) + 2 t4 + e of the tile is masked
+    unsigned dead = 0;
+    if constexpr (decltype(masked)::value) {
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int lc = 8 * (NI * wn + ni) + 2 * t4;
-        if (lc >= xv) continue;
-        float x = acc[mi][ni][2 * h], y = acc[mi][ni][2 * h + 1];
-        if (ip) {
-          x = -x;
-          y = -y;
-        } else {
-          x = (qn_s[lr] + xn_s[lc]) - 2.f * x;
-          y = (qn_s[lr] + xn_s[lc + 1]) - 2.f * y;
-        }
-        float* p = orow + n0 + lc;
-        if (pairs) {
-          __stcs(reinterpret_cast<float2*>(p), make_float2(x, y));
-        } else {
-          __stcs(p, x);
-          if (lc + 1 < xv) __stcs(p + 1, y);
-        }
+        dead |= (dead_s[lc] | dead_s[lc + 1] << 1) << (2 * ni);
       }
     }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lr = 16 * (MI * wm + mi) + g + 8 * h;
+        if (lr >= qv) continue;
+        float* orow = out + (s * B + q0 + lr) * N + n0;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int lc = 8 * (NI * wn + ni) + 2 * t4;
+          if (lc >= xv) continue;
+          float x = acc[mi][ni][2 * h], y = acc[mi][ni][2 * h + 1];
+          if (ip) {
+            x = -x;
+            y = -y;
+          } else {
+            x = (qn_s[lr] + xn_s[lc]) - 2.f * x;
+            y = (qn_s[lr] + xn_s[lc + 1]) - 2.f * y;
+          }
+          if constexpr (decltype(masked)::value) {
+            if (dead & (1u << (2 * ni))) x = kInf;
+            if (dead & (2u << (2 * ni))) y = kInf;
+          }
+          float* p = orow + lc;
+          if (pairs) {
+            __stcs(reinterpret_cast<float2*>(p), make_float2(x, y));
+          } else {
+            __stcs(p, x);
+            if (lc + 1 < xv) __stcs(p + 1, y);
+          }
+        }
+      }
+  };
+  if (mask != nullptr) {
+    epilogue(std::true_type());
+  } else {
+    epilogue(std::false_type());
+  }
 }
 
-template <typename T>
-int launch_dm(const void* Q, const void* X, float* out, int B, int N, int d,
+// Launch the tile over S rows of [B, d] x [N, d]: T float32 or bf16 for
+// both operands, or (I8) float32 queries and int8 codes with v_scales.  A
+// grid takes up to 65,535 rows s in blockIdx.y; more rows take more grids.
+template <typename T, bool I8>
+int launch_dm(const void* Q, const void* X, const float* v_scales,
+              const uint8_t* mask, float* out, int S, int B, int N, int d,
               int ip, cudaStream_t st) {
   using C = DmCfg<T>;
+  using TX = typename std::conditional<I8, int8_t, T>::type;
   const T* q = static_cast<const T*>(Q);
-  const T* x = static_cast<const T*>(X);
-  const bool vec = d % C::VEC == 0 &&
+  const TX* x = static_cast<const TX*>(X);
+  const int piece = I8 ? 16 : C::VEC;   // elements of X a 16-byte piece
+  const bool vec = d % piece == 0 &&
                    reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto kern = vec ? dm_kernel<T, true> : dm_kernel<T, false>;
+  auto kern = vec ? dm_kernel<T, true, I8> : dm_kernel<T, false, I8>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
+  // the caller holds q_tiles x (V tiles) to the grid's 2^31 - 1
   const long long q_tiles = (B + kDmQRows - 1) / kDmQRows;
   const long long tiles = q_tiles * ((N + kDmXRows - 1) / kDmXRows);
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kern<<<static_cast<unsigned>(tiles), kDmThreads, C::kSmem, st>>>(
-      q, x, out, B, N, d, static_cast<int>(q_tiles), ip);
-  return static_cast<int>(cudaGetLastError());
+  for (long long s0 = 0; s0 < S; s0 += 65535) {
+    const int rows = static_cast<int>(S - s0 < 65535 ? S - s0 : 65535);
+    kern<<<dim3(static_cast<unsigned>(tiles), rows), kDmThreads, C::kSmem,
+           st>>>(q + s0 * B * d, x + s0 * N * d,
+                 v_scales == nullptr ? nullptr : v_scales + s0 * N,
+                 mask == nullptr ? nullptr : mask + s0 * N, out + s0 * B * N,
+                 B, N, d, static_cast<int>(q_tiles), ip);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -457,21 +484,12 @@ extern "C" int repro_block_distances(const void* Q, const void* V,
                                      int ip, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 0 || Kq == 0 || C == 0) return static_cast<int>(cudaGetLastError());
-  const int q_tiles = (Kq + kTile - 1) / kTile;
-  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((C + kTile - 1) / kTile, q_tiles, S < 65535 ? S : 65535);
-  const float* q = static_cast<const float*>(Q);
   const float* sc = static_cast<const float*>(v_scales);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
-  if (sc != nullptr) {
-    block_kernel<true><<<grid, kThreads, 0, st>>>(q, V, sc, m, o, S, Kq, C,
-                                                  d, ip);
-  } else {
-    block_kernel<false><<<grid, kThreads, 0, st>>>(q, V, sc, m, o, S, Kq, C,
-                                                   d, ip);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return sc != nullptr
+             ? launch_dm<float, true>(Q, V, sc, m, o, S, Kq, C, d, ip, st)
+             : launch_dm<float, false>(Q, V, sc, m, o, S, Kq, C, d, ip, st);
 }
 
 // Dense distance matrix: Q [B, d] x X [N, d] -> out [B, N] float32, both
@@ -482,19 +500,30 @@ extern "C" int repro_distance_matrix(const void* Q, const void* X, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || N == 0) return static_cast<int>(cudaGetLastError());
   float* o = static_cast<float*>(out);
-  return bf16 ? launch_dm<__nv_bfloat16>(Q, X, o, B, N, d, ip, st)
-              : launch_dm<float>(Q, X, o, B, N, d, ip, st);
+  return bf16 ? launch_dm<__nv_bfloat16, false>(Q, X, nullptr, nullptr, o, 1,
+                                               B, N, d, ip, st)
+              : launch_dm<float, false>(Q, X, nullptr, nullptr, o, 1, B, N,
+                                        d, ip, st);
 }
 
-// Registers and local (spilled) bytes a thread of distance-matrix body
-// `which`, in the order of kernels/block.py DM_BODIES: float32 with
-// 16-byte staging, float32 element-wise, bf16 16-byte, bf16 element-wise.
+// The tile's shape, query rows x rows of V, for the wrapper's grid check.
+extern "C" void repro_block_tile(int* rows, int* cols) {
+  *rows = kDmQRows;
+  *cols = kDmXRows;
+}
+
+// Registers and local (spilled) bytes a thread of tile body `which`, in
+// the order of kernels/block.py DM_BODIES: float32 with 16-byte staging,
+// float32 element-wise, bf16 16-byte, bf16 element-wise, int8 codes
+// 16-byte, int8 codes element-wise.
 extern "C" int repro_block_attrs(int which, int* regs, int* local_bytes) {
   static const void* const bodies[] = {
-      reinterpret_cast<const void*>(dm_kernel<float, true>),
-      reinterpret_cast<const void*>(dm_kernel<float, false>),
-      reinterpret_cast<const void*>(dm_kernel<__nv_bfloat16, true>),
-      reinterpret_cast<const void*>(dm_kernel<__nv_bfloat16, false>)};
+      reinterpret_cast<const void*>(dm_kernel<float, true, false>),
+      reinterpret_cast<const void*>(dm_kernel<float, false, false>),
+      reinterpret_cast<const void*>(dm_kernel<__nv_bfloat16, true, false>),
+      reinterpret_cast<const void*>(dm_kernel<__nv_bfloat16, false, false>),
+      reinterpret_cast<const void*>(dm_kernel<float, true, true>),
+      reinterpret_cast<const void*>(dm_kernel<float, false, true>)};
   constexpr int n = sizeof(bodies) / sizeof(bodies[0]);
   if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;

@@ -100,33 +100,91 @@ def test_gather_distances_int8_matches_plain(dev, rng, C, d, Kq, metric):
     assert torch.equal(out == 3.4e38, ref == 3.4e38)
 
 
-@pytest.mark.parametrize("S,Kq,C,d", [(1, 100, 300, 128), (3, 70, 65, 33),
-                                      (2048, 1, 32, 128), (1, 64, 64, 32)])
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("quant", [False, True])
-def test_block_distances_matches_plain(dev, rng, S, Kq, C, d, metric, quant):
-    """Both bodies of the tiled block kernel: Kq, C and d off the 64 / 64 /
-    32 tile, with masks."""
+def _block_case(dev, rng, S, Kq, C, d, metric, quant, offset=False):
+    """One call of the block tile against its plain version: within
+    1e-5 * (qn + vn), exactly 3.4e38 where masked (row S // 2 wholly when
+    S >= 3), one launch on the body's counter.  ``offset``: Q and V start
+    one element past their allocation, so neither is 16-byte aligned and
+    the tile stages element by element."""
     Q, V, mask = _on(dev, rng.normal(size=(S, Kq, d)).astype(np.float32),
                      rng.normal(size=(S * C, d)).astype(np.float32),
                      rng.random((S, C)) > 0.25)
+    if S >= 3:
+        mask[S // 2] = False
     sc = None
     if quant:
         V, sc = quantize_rows(V)
         sc = sc.reshape(S, C)
+    if offset:
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            buf[1:] = t.reshape(-1)
+            return buf[1:].view(t.shape)
+        Q, V = shifted(Q), shifted(V)
+        assert Q.data_ptr() % 16 and V.data_ptr() % 16
     V = V.reshape(S, C, d)
     body = "block_distances_int8" if quant else "block_distances"
-    n0 = K.launch_counts()[body]
+    n0 = K.launch_counts()
     out = block.block_distances(Q, V, mask, sc, metric=metric)
     ref = block.block_distances_plain(Q, V, mask, sc, metric=metric)
     torch.cuda.synchronize()
-    assert K.launch_counts()[body] == n0 + 1
+    n1 = K.launch_counts()
+    assert n1[body] == n0[body] + 1
+    assert sum(n1.values()) == sum(n0.values()) + 1
     Vd = V.double() if sc is None else V.double() * sc.double()[:, :, None]
     norms = (Q.double() ** 2).sum(2)[:, :, None] \
         + (Vd ** 2).sum(2)[:, None, :]
-    assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
-    assert torch.equal(out == 3.4e38, ref == 3.4e38)
-    assert torch.equal(out == 3.4e38, ~mask[:, None, :].expand_as(out))
+    live = mask[:, None, :].expand_as(out)
+    err = (out.double() - ref.double()).abs()
+    assert (err[live] <= 1e-5 * norms[live]).all()
+    assert torch.isfinite(out[live]).all()
+    assert torch.equal(out == 3.4e38, ~live)
+
+
+@pytest.mark.parametrize("Kq", [1, 127, 128, 129])
+@pytest.mark.parametrize("C", [1, 63, 64, 65, 300])
+@pytest.mark.parametrize("d", [9, 20, 33, 128, 130, 960])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_distances_matches_plain(dev, rng, Kq, C, d, metric, quant):
+    """The block on the tensor-core tile, fp32 and int8 codes, over the
+    128 x 64 tile's edges (Kq 127-129, C 63-65 and 300), d in one 32-column
+    chunk or many (960), in 16-byte pieces (d = 20 and 128 for fp32, 128
+    and 960 for int8) or element by element (9, 33, 130), on S = 3 rows of
+    which the middle one is wholly masked."""
+    _block_case(dev, rng, 3, Kq, C, d, metric, quant)
+
+
+@pytest.mark.parametrize("S,Kq,C,d", [(1, 200, 100, 128),
+                                      (2048, 1, 32, 128),
+                                      (65537, 2, 3, 4)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_distances_rows_s(dev, rng, S, Kq, C, d, quant):
+    """The row axis s: one row, the general shape's 2,048 rows, and
+    65,537 rows, past the grid's 65,535 (a CTA loops over rows)."""
+    _block_case(dev, rng, S, Kq, C, d, "l2", quant)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_distances_unaligned_rows(dev, rng, d, metric, quant):
+    """Q and V one element off their allocation: rows whose width would
+    take 16-byte pieces stage element by element instead."""
+    _block_case(dev, rng, 3, 129, 65, d, metric, quant, offset=True)
+
+
+def test_distance_tiles_reject_too_many_tiles(dev):
+    """Past 2^31 - 1 tiles of 128 x 64 (2^17 x 2^14 = 2^31 here; d = 0
+    keeps the operands empty) both wrappers raise before launching."""
+    Q = torch.zeros((1, 1 << 24, 0), device=dev)
+    V = torch.zeros((1, 1 << 20, 0), device=dev)
+    n0 = K.launch_counts()
+    with pytest.raises(ValueError, match="tiles"):
+        block.block_distances(Q, V)
+    with pytest.raises(ValueError, match="tiles"):
+        ops.distance_matrix(Q[0], V[0])
+    assert K.launch_counts() == n0
 
 
 def test_scan_distances_through_the_seam(dev, rng):
@@ -406,8 +464,9 @@ def test_distance_matrix_matches_plain(dev, rng, B, N, d, metric, dtype):
 
 def test_distance_tile_bodies_fit_without_spills(dev):
     """The card's own count for the tensor-core distance tiles (the
-    self-query body of l2dist.cu, the distance matrix of block.cu): no
-    spill to local memory, at most 255 registers."""
+    self-query body of l2dist.cu; block.cu's tile, in its float32, bf16
+    and int8-code bodies): no spill to local memory, at most 255
+    registers."""
     l2 = l2dist.body_attributes()
     attrs = {**{b: l2[b] for b in l2dist.SELFQ_BODIES},
              **block.body_attributes()}

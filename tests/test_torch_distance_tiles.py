@@ -2,17 +2,20 @@
 against the JAX reference.
 
 ``csrc/l2dist.cu``'s self-query body (the diversify tiles, [T, K, K]) and
-``csrc/block.cu``'s distance matrix run their fp32 products on the TF32
-tensor cores in 3xTF32: each operand is split into x = hi + lo (both
-rounded to TF32 as ``cvt.rna`` rounds), and each 8-column step of a dot
-adds lo.hi, hi.lo and hi.hi into a float32 accumulator, one mma each.  The
-tensor cores' adder truncates, so each chunk of d (128 columns in the
-self-query tile, 32 in the matrix) sums into a fresh accumulator that is
-added to the running one in float32, rounded to nearest.  The CUDA bodies
-run only on the card (``tests/test_torch_cuda.py``); here that arithmetic
-is emulated in numpy on make_clustered-like rows and held to the
-reference (``neighbor_distances(backend="xla")`` and
-``ops.distance_matrix(use_pallas=False)``) within the card's contract,
+``csrc/block.cu``'s tile (the distance matrix, and the distance block of
+the delta scan, whose int8 codes it stages as fl(code x scale)) run their
+fp32 products on the TF32 tensor cores in 3xTF32: each operand is split
+into x = hi + lo (both rounded to TF32 as ``cvt.rna`` rounds), and each
+8-column step of a dot adds lo.hi, hi.lo and hi.hi into a float32
+accumulator, one mma each.  The tensor cores' adder truncates, so each
+chunk of d (128 columns in the self-query tile, 32 in block.cu's) sums
+into a fresh accumulator that is added to the running one in float32,
+rounded to nearest.  The CUDA bodies run only on the card
+(``tests/test_torch_cuda.py``); here that arithmetic is emulated in numpy
+on make_clustered-like rows and held to the reference
+(``neighbor_distances(backend="xla")``,
+``ops.distance_matrix(use_pallas=False)`` and
+``scan_distances(backend="xla")``) within the card's contract,
 1e-5 * (qn + vn), while a single TF32 rounding of the operands misses it,
 and so, at GIST's d = 960, does the self-query tile without its flush.
 """
@@ -23,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.ann.quantize import quantize_rows
 from repro.core import hotpath as JHP
 from repro.kernels import ops as jops
 
@@ -36,6 +40,12 @@ def _jself(X, idx, mask, metric):
 @functools.partial(jax.jit, static_argnames=("metric",))
 def _jmatrix(Q, X, metric):
     return jops.distance_matrix(Q, X, metric=metric, use_pallas=False)
+
+
+@functools.partial(jax.jit, static_argnames=("metric",))
+def _jscan(Q, Xd, mask, scales, metric):
+    return JHP.scan_distances(Q, Xd, metric=metric, mask=mask,
+                              backend="xla", scales=scales)
 
 
 def _tf32(x):
@@ -158,3 +168,42 @@ def test_distance_matrix_tile_3xtf32_holds_the_tolerance(K, d):
             three, once = -three, -once
         assert (np.abs(three - want) <= tol).all(), metric
         assert (np.abs(once - want) / tol).max() > 4, metric
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("d", [20, 128])
+def test_block_tile_3xtf32_holds_the_tolerance(quant, d):
+    """The delta scan on block.cu's tile: 64 queries near the rows against
+    a 256-slot shard with a fifth of its slots masked, fp32 rows or int8
+    codes (staged as fl(code x scale), vn over those values), l2 and ip:
+    the 3xTF32 tile within 1e-5 * (qn + vn) of the reference's
+    ``scan_distances`` on every live slot and 3.4e38 on masked ones; one
+    TF32 rounding outside the tolerance."""
+    gen = np.random.default_rng(1800 + 10 * d + quant)
+    rows = _rows(gen, 320, d)
+    Q, X = rows[:64], rows[64:]
+    mask = gen.random(256) > 0.2
+    scales = None
+    if quant:
+        codes, scales = (np.asarray(a) for a in quantize_rows(jnp.asarray(X)))
+        X, V = codes, codes.astype(np.float32) * scales[:, None]
+    else:
+        V = X
+    qn = np.sum(Q * Q, axis=-1, dtype=np.float32)
+    vn = np.sum(V * V, axis=-1, dtype=np.float32)
+    tol = 1e-5 * (qn[:, None] + vn[None, :])
+    q = dict(zip(("hi", "lo"), _split(Q)))
+    v = dict(zip(("hi", "lo"), _split(V)))
+    for metric in ("l2", "ip"):
+        want = np.asarray(_jscan(jnp.asarray(Q), jnp.asarray(X),
+                                 jnp.asarray(mask), None if scales is None
+                                 else jnp.asarray(scales), metric))
+        three, once = (_dots(q, v, terms, 32) for terms in (THREE, ONCE))
+        if metric == "l2":
+            three, once = _l2(qn, vn, three), _l2(qn, vn, once)
+        else:
+            three, once = -three, -once
+        assert (want[:, ~mask] == np.float32(3.4e38)).all(), metric
+        live = np.broadcast_to(mask, want.shape)
+        assert (np.abs(three - want)[live] <= tol[live]).all(), metric
+        assert (np.abs(once - want)[live] / tol[live]).max() > 4, metric
