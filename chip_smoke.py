@@ -56,8 +56,11 @@ Phases, each printing its own lines:
    whole corpus through ``ops.distance_matrix`` + ``ops.bitonic_topk``
    (recall@10 >= 0.999 against the ground truth), wide_deep's bag field
    (10,000,000 x 32, bag 10, B = 512 and 65,536) through
-   ``ops.embedding_bag``, GraphSAGE's first layer on Reddit through
-   ``ops.packed_spmm`` and one OLMo-1B attention layer (4,096 tokens,
+   ``ops.embedding_bag``, GraphSAGE's first layer on Reddit over the
+   whole graph and minibatch_lg's first layer (16,384 targets, 10
+   neighbours) through ``ops.packed_spmm`` (its "transform" and "fused"
+   routes, each also forced at both shapes) and one OLMo-1B attention
+   layer (4,096 tokens,
    16 heads of 128, bf16, the "tile" body) and one decode step over
    32,768 keys (the "split" body) through ``ops.flash_attention``.
    Attention also reports SDPA's own err/tol on the same inputs, both
@@ -65,7 +68,8 @@ Phases, each printing its own lines:
 
 Phases 3-4, 7 and 8 each start with every launch counter at 0 and read
 the counters at their end; each of the six ANN kernel bodies must have
-launched in them.  Phase 9's path must launch each of its five.
+launched in them.  Phase 9's path must launch each of its five, attention
+and SpMM exactly as often as their routes launch kernels.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -112,6 +116,9 @@ BAG_BATCHES = (512, 65536)    # RECSYS_SHAPES serve_p99, train_batch
 GNN_NODES, GNN_FANOUT = 232_965, 15   # GNN_SHAPES minibatch_lg (Reddit)
 GNN_FEAT, GNN_HIDDEN = 602, 128       # d_feat; graphsage_reddit d_hidden
 GNN_SENTINEL_SHARE = 0.1      # neighbour lanes set to the sentinel Nf
+# minibatch_lg's first layer: its 1,024 seeds and their 15,360 sampled
+# neighbours, 10 neighbours each, over the whole table
+GNN_MINIBATCH = (16_384, 10)
 # attention at OLMo-1B's width (16 heads of 128, no GQA) and gemma3-27b's
 # local layers (32 q heads over 16 KV heads of 128, window 1,024), at
 # LM_SHAPES' 4,096-token training length and 32,768-token decode
@@ -144,7 +151,10 @@ def log_kernel(kname: str, r: dict, extra: str = "") -> None:
                   f"layout: {r['way_major_sector_bytes']} B)")
     if r.get("issued_bound_ms") is not None:
         rate = "bf16" if r.get("dtype") == "bfloat16" else "TF32"
-        extra += (f" err/tol={r['err_over_tol']:.3f}; bound at the {rate} "
+        tol = r["err_over_tol"]    # packed_spmm's: one a route, in extra
+        if not isinstance(tol, dict):
+            extra += f" err/tol={tol:.3f};"
+        extra += (f" bound at the {rate} "
                   f"tensor-core rate or bytes; at the fp32 rate "
                   f"{r['fp32_rate_bound_ms']:.4f} ms, the products issued "
                   f"at mma.sync's ceiling {r['issued_bound_ms']:.4f} ms")
@@ -680,60 +690,114 @@ def check_embedding_bag(name, table, ids, combine="mean"):
             torch.isfinite(out).all()):
         raise AssertionError(f"embedding_bag {name}: over 1e-6*sum|rows|")
     ms = cuda_ms(kern, 20)
+    device_ms = cuda_ms(kern, 20, repeats=3, ahead=True)
     plain_ms = cuda_ms(plain, 5)
     lib_ms = cuda_ms(library, 5)
     rows = int(torch.unique(ids).numel())   # the rows this batch needs
     b_ms, b_by = bound(rows * E * 4 + B * bag * 4 + B * E * 4, B * bag * E)
     return dict(shape=name, V=table.shape[0], E=E, B=B, bag=bag,
                 combine=combine, max_abs_err=float(err.max()), ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def check_spmm(name, nbrs, feat, w, combine="mean"):
-    """``ops.packed_spmm`` against its plain version.  No single PyTorch
-    call computes this function (a gather, a masked mean, a product), so
-    library_ms is None."""
+    """``ops.packed_spmm`` (the route ``segment_matmul.path`` picks) and
+    both forced routes against the plain version, each within
+    1e-5 * (|agg| @ |W|); every time but ``ms`` is ``device_ms`` (the
+    calls queued ahead).  No single PyTorch call computes this function
+    (a gather, a masked mean, a product), so library_ms is None; the
+    transform route's projection is timed beside ``torch.matmul`` (TF32
+    off), and its gather alone.  ``bound_ms`` is the function's (its
+    inputs read once, its operations at the rate of the route's product:
+    TF32 tensor cores for "transform", fp32 for "fused").  Each route's
+    floor and HBM-traffic estimate come from ``segment_matmul.route_costs``
+    over the valid lanes: the floor reads each distinct row of feat or Y
+    once, the estimate every valid lane's row from HBM (no L2 hits), which
+    a gather can beat."""
     import torch
 
-    from repro_torch.kernels import ops, segment_matmul
+    from repro_torch.kernels import ops, segment_matmul as sm
 
     N, M = nbrs.shape
     Nf, d = feat.shape
     f = w.shape[1]
+    route = sm.path(N, M, Nf, d, f)
 
     def kern():
         return ops.packed_spmm(nbrs, feat, w, combine=combine)
 
     def plain():
-        return segment_matmul.packed_spmm_plain(nbrs, feat, w,
-                                                combine=combine)
+        return sm.packed_spmm_plain(nbrs, feat, w, combine=combine)
 
-    out = kern()
     ref = plain()
-    torch.cuda.synchronize()
-    agg = segment_matmul.aggregate(nbrs, feat, combine=combine)
+    agg = sm.aggregate(nbrs, feat, combine=combine)
     tol = 1e-5 * (agg.abs() @ w.abs())
     del agg
-    err = (out - ref).abs()
-    if bool((err > tol).any()) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"packed_spmm {name}: over 1e-5*(|agg|@|W|)")
+    err_max, ratio = 0.0, {}
+    for via in sm.ROUTES:
+        out = sm.packed_spmm(nbrs, feat, w, combine=combine, via=via)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        if bool((err > tol).any()) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"packed_spmm {name} via {via}: over "
+                                 "1e-5*(|agg|@|W|)")
+        err_max = max(err_max, float(err.max()))
+        ratio[via] = float((err / tol.clamp_min(1e-30)).max())
+        del out, err
     del ref, tol
     ms = cuda_ms(kern, 5)
+    dev_ms = {via: cuda_ms(lambda: sm.packed_spmm(
+        nbrs, feat, w, combine=combine, via=via), 5, repeats=2, ahead=True)
+        for via in sm.ROUTES}
+    y = sm.project(feat, w)
+    project_ms = cuda_ms(lambda: sm.project(feat, w), 5, repeats=2,
+                         ahead=True)
+    matmul_ms = cuda_ms(lambda: torch.matmul(feat, w), 5, repeats=2,
+                        ahead=True)
+    gather_ms = cuda_ms(lambda: sm.gather_rows(nbrs, y, combine=combine),
+                        5, repeats=2, ahead=True)
+    del y
     plain_ms = cuda_ms(plain, 2)
     valid = nbrs < Nf
     n_valid = int(valid.sum())
     rows = int(torch.unique(nbrs[valid]).numel())
     nbytes = N * M * 4 + rows * d * 4 + d * f * 4 + N * f * 4
     flops = 2 * N * d * f + n_valid * d + (N * d if combine == "mean" else 0)
-    b_ms, b_by = bound(nbytes, flops)
-    gathered = n_valid * d * 4          # the valid lanes' rows
-    return dict(shape=name, N=N, M=M, Nf=Nf, d=d, f=f, combine=combine,
-                valid_lanes=n_valid, max_abs_err=float(err.max()), ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, gathered_bytes=gathered,
-                gathered_ms=gathered / HBM_BYTES_PER_S * 1e3,
-                all_lanes_bytes=N * M * d * 4)
+    if route == "transform":   # the product on tensor cores in 3xTF32
+        bounds = tensor_bounds(nbytes, flops, 2 * Nf * d * f, False)
+    else:
+        bounds = dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops)))
+    floor = sm.route_costs(N, M, Nf, d, f, lanes=n_valid, rows=rows)
+    traffic = sm.route_costs(N, M, Nf, d, f, lanes=n_valid)
+    return dict(shape=name, path=route, N=N, M=M, Nf=Nf, d=d, f=f,
+                combine=combine, valid_lanes=n_valid, max_abs_err=err_max,
+                err_over_tol=ratio, ms=ms, device_ms=dev_ms[route],
+                fused_device_ms=dev_ms["fused"],
+                transform_device_ms=dev_ms["transform"],
+                project_device_ms=project_ms,
+                library_matmul_device_ms=matmul_ms,
+                gather_device_ms=gather_ms, plain_ms=plain_ms,
+                library_ms=None, **bounds,
+                gathered_bytes=n_valid * d * 4,
+                fused_floor_ms=sm.modelled_ms(floor["fused"]),
+                fused_traffic_ms=sm.modelled_ms(traffic["fused"]),
+                project_floor_ms=sm.modelled_ms(floor["transform"][:1]),
+                gather_floor_ms=sm.modelled_ms(floor["transform"][1:]),
+                gather_traffic_ms=sm.modelled_ms(traffic["transform"][1:]),
+                transform_floor_ms=sm.modelled_ms(floor["transform"]))
+
+
+def spmm_case(N, M, dev, gen):
+    """GraphSAGE's neighbour lists: N rows of M ids uniform over the
+    GNN_NODES nodes, GNN_SENTINEL_SHARE of the lanes the sentinel."""
+    import torch
+
+    nbrs = torch.randint(0, GNN_NODES, (N, M), generator=gen, device=dev,
+                         dtype=torch.int32)
+    nbrs[torch.rand(nbrs.shape, generator=gen, device=dev)
+         < GNN_SENTINEL_SHARE] = GNN_NODES
+    return nbrs
 
 
 def visible_pairs(Sq, Skv, window, q_offset) -> int:
@@ -892,39 +956,32 @@ SASS_BODIES = {
               lambda t, vec, i8: "dm_" + ("i8" if i8 == "1" else "f32"
                                           if t == "f" else "bf16")
               + ("" if vec == "1" else "_scalar")),
+    "segment_matmul": (r"project_kernelILi(\d+)ELi(\d+)E",
+                       lambda a, w: f"project_a{a}_w{w}"),
 }
 
 
 def sass_hmma() -> dict:
     """HMMA (tensor-core) instructions in each compiled body of
-    ``csrc/flash_attention.cu``, of ``csrc/l2dist.cu``'s self-query tile
-    and of ``csrc/block.cu``'s tile (float32, bf16, int8 codes), from
-    ``cuobjdump -sass`` where the toolkit has it (else an empty dict):
+    ``csrc/flash_attention.cu``, of ``csrc/l2dist.cu``'s self-query tile,
+    of ``csrc/block.cu``'s tile (float32, bf16, int8 codes) and of
+    ``csrc/segment_matmul.cu``'s projection, from ``cuobjdump -sass``
+    where the toolkit has it (else an empty dict):
     ``{source: {body: count}}``."""
     import re
-    import shutil
 
     from repro_torch.kernels import _build
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.path.dirname(_build.nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        return {}
     out: dict = {}
     for source, (pattern, body) in SASS_BODIES.items():
-        text = subprocess.run([tool, "-sass", str(_build._target(source))],
-                              capture_output=True, text=True,
-                              timeout=120).stdout
+        kernels = _build.hmma_counts(source)
+        if kernels is None:
+            return {}
         counts = out[source] = {}
-        name = None
-        for line in text.splitlines():
-            if "Function : " in line:
-                m = re.search(r"Function : \S*?" + pattern, line)
-                name = body(*m.groups()) if m else None
-                if name:
-                    counts[name] = 0
-            elif name and "HMMA" in line:
-                counts[name] += 1
+        for kernel, n in kernels.items():
+            m = re.search(pattern, kernel)
+            if m:
+                counts[body(*m.groups())] = n
     return out
 
 
@@ -940,14 +997,16 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     full size, then the API's path with every counter reset: the exact
     k-NN of phase 3's first queries through ``ops.distance_matrix`` and
     ``ops.bitonic_topk`` (recall@10 against the ground truth), wide_deep's
-    bag field through ``ops.embedding_bag`` and GraphSAGE's first layer
-    through ``ops.packed_spmm``."""
+    bag field through ``ops.embedding_bag``, GraphSAGE's first layer over
+    the whole graph and minibatch_lg's through ``ops.packed_spmm``, and
+    an attention prefill and decode step through
+    ``ops.flash_attention``."""
     import numpy as np
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.data.synthetic import recall_at_k
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, segment_matmul
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the library yardstick
     shapes = {k: [] for k in API_BODIES}
@@ -984,13 +1043,15 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     feat = torch.randn((GNN_NODES, GNN_FEAT), generator=gen, device=dev)
     w = torch.randn((GNN_FEAT, GNN_HIDDEN), generator=gen,
                     device=dev) * GNN_FEAT ** -0.5
-    nbrs = torch.randint(0, GNN_NODES, (GNN_NODES, GNN_FANOUT),
-                         generator=gen, device=dev, dtype=torch.int32)
-    nbrs[torch.rand(nbrs.shape, generator=gen, device=dev)
-         < GNN_SENTINEL_SHARE] = GNN_NODES
+    nbrs = spmm_case(GNN_NODES, GNN_FANOUT, dev, gen)
+    nbrs_mb = spmm_case(*GNN_MINIBATCH, dev, gen)
     spmm_shape = (f"N={GNN_NODES} M={GNN_FANOUT} [{GNN_NODES}, {GNN_FEAT}] "
                   f"@ [{GNN_FEAT}, {GNN_HIDDEN}] mean")
-    shapes["packed_spmm"].append(check_spmm(spmm_shape, nbrs, feat, w))
+    minibatch_shape = (f"minibatch_lg N={GNN_MINIBATCH[0]} "
+                       f"M={GNN_MINIBATCH[1]} [{GNN_NODES}, {GNN_FEAT}] @ "
+                       f"[{GNN_FEAT}, {GNN_HIDDEN}] mean")
+    for name, lists in ((spmm_shape, nbrs), (minibatch_shape, nbrs_mb)):
+        shapes["packed_spmm"].append(check_spmm(name, lists, feat, w))
     bf16 = torch.bfloat16
     attn_shape = (f"olmo_1b prefill [1, {LM_SEQ}, {OLMO_HEADS}, {HEAD_DIM}]"
                   " causal bf16")
@@ -1025,10 +1086,24 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
         for r in rows:
             extra = ""
             if kname == "packed_spmm":
-                extra = (f" (no single PyTorch call computes it; the "
-                         f"valid lanes gather {r['gathered_bytes'] / 1e9:.2f}"
-                         f" GB = {r['gathered_ms']:.3f} ms at 3.35 TB/s, all "
-                         f"N*M lanes {r['all_lanes_bytes'] / 1e9:.2f} GB)")
+                tol = r["err_over_tol"]
+                extra = (f" err/tol fused={tol['fused']:.3f} transform="
+                         f"{tol['transform']:.3f}; device_ms fused="
+                         f"{r['fused_device_ms']:.4f} transform="
+                         f"{r['transform_device_ms']:.4f} (projection "
+                         f"{r['project_device_ms']:.4f}, torch.matmul TF32 "
+                         f"off {r['library_matmul_device_ms']:.4f}; gather "
+                         f"{r['gather_device_ms']:.4f}); floors (each "
+                         f"distinct row once): fused "
+                         f"{r['fused_floor_ms']:.4f} ms, transform "
+                         f"{r['transform_floor_ms']:.4f} ms (projection "
+                         f"{r['project_floor_ms']:.4f}, gather "
+                         f"{r['gather_floor_ms']:.4f}); HBM traffic with "
+                         f"no L2 hits: fused {r['fused_traffic_ms']:.4f} ms"
+                         f" ({r['gathered_bytes'] / 1e9:.2f} GB of valid "
+                         f"lanes' rows), transform gather "
+                         f"{r['gather_traffic_ms']:.4f} ms; no single "
+                         "PyTorch call computes it")
             elif kname == "flash_attention":
                 rate = "bf16" if r["dtype"] == "bfloat16" else "TF32"
                 extra = (f" err/tol={r['err_over_tol']:.3f} (SDPA's "
@@ -1065,13 +1140,20 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
         out[f"embedding_bag_{B}_ms"] = (time.perf_counter() - t0) * 1e3
         if emb.shape != (B, BAG_DIM) or not bool(torch.isfinite(emb).all()):
             raise AssertionError(f"embedding_bag B={B}: bad output")
-    t0 = time.perf_counter()
-    h = ops.packed_spmm(nbrs, feat, w, combine="mean")
-    torch.cuda.synchronize()
-    out["packed_spmm_ms"] = (time.perf_counter() - t0) * 1e3
-    if h.shape != (GNN_NODES, GNN_HIDDEN) or not bool(
-            torch.isfinite(h).all()):
-        raise AssertionError("packed_spmm: bad output")
+    spmm_launches = 0
+    for label, lists in (("graphsage", nbrs), ("minibatch", nbrs_mb)):
+        t0 = time.perf_counter()
+        h = ops.packed_spmm(lists, feat, w, combine="mean")
+        torch.cuda.synchronize()
+        out[f"packed_spmm_{label}_ms"] = (time.perf_counter() - t0) * 1e3
+        if h.shape != (lists.shape[0], GNN_HIDDEN) or not bool(
+                torch.isfinite(h).all()):
+            raise AssertionError(f"packed_spmm {label}: bad output")
+        route = segment_matmul.path(*lists.shape, GNN_NODES, GNN_FEAT,
+                                    GNN_HIDDEN)
+        out[f"packed_spmm_{label}_path"] = route
+        spmm_launches += 2 if route == "transform" else 1
+        del h
     for label, case, kw in (("prefill", lm, {}),
                             ("decode", decode,
                              dict(q_offset=LM_DECODE_KV - 1))):
@@ -1086,7 +1168,10 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     del lm, decode
     log("[api] embedding_bag B=" + ", B=".join(
         f"{B}: {out[f'embedding_bag_{B}_ms']:.3f} ms" for B in BAG_BATCHES)
-        + f"; packed_spmm: {out['packed_spmm_ms']:.3f} ms; flash_attention "
+        + f"; packed_spmm GraphSAGE ({out['packed_spmm_graphsage_path']}): "
+        f"{out['packed_spmm_graphsage_ms']:.3f} ms, minibatch_lg "
+        f"({out['packed_spmm_minibatch_path']}): "
+        f"{out['packed_spmm_minibatch_ms']:.3f} ms; flash_attention "
         f"olmo_1b prefill (tile): {out['flash_attention_prefill_ms']:.3f} ms,"
         f" decode (split): {out['flash_attention_decode_ms']:.3f} ms (host "
         "clock)")
@@ -1096,6 +1181,10 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     if missing:
         raise AssertionError(f"kernels never launched on the kernel API's "
                              f"path: {missing}")
+    if launches["packed_spmm"] != spmm_launches:
+        raise AssertionError(f"packed_spmm: its routes launch "
+                             f"{spmm_launches} kernels, counted "
+                             f"{launches['packed_spmm']}")
     if launches["flash_attention"] != 3:
         raise AssertionError("flash_attention: a prefill (tile, 1 launch) "
                              "and a decode step (split, 2) launched "
@@ -1420,7 +1509,7 @@ def main() -> int:
     from repro_torch.configs.base import ANNConfig
     from repro_torch.data.synthetic import make_clustered, recall_at_k
     from repro_torch.kernels import (_build, block, flash_attention, l2dist,
-                                     topk, visited)
+                                     segment_matmul, topk, visited)
 
     t_start = time.perf_counter()
     dev = card()
@@ -1452,6 +1541,10 @@ def main() -> int:
     log("[build] block.cu tile kernels, the block's and the matrix's "
         "(registers, spilled bytes) a thread: "
         + json.dumps(record["block_bodies"]))
+    record["spmm_bodies"] = segment_matmul.body_attributes()
+    log("[build] segment_matmul.cu kernels, fused, projection and gather "
+        "(registers, spilled bytes) a thread: "
+        + json.dumps(record["spmm_bodies"]))
     record["sass_hmma"] = sass = sass_hmma()
     for source, counts in sass.items():
         log(f"[sass] HMMA instructions a {source}.cu kernel (cuobjdump "
@@ -1461,7 +1554,8 @@ def main() -> int:
     else:   # every tensor-core body holds HMMA
         want = {"flash_attention": [b for b in flash_attention.BODIES
                                     if b.startswith("tile_")],
-                "l2dist": l2dist.SELFQ_BODIES, "block": block.DM_BODIES}
+                "l2dist": l2dist.SELFQ_BODIES, "block": block.DM_BODIES,
+                "segment_matmul": segment_matmul.PROJECT_BODIES}
         idle = [f"{src}:{b}" for src, bodies in want.items()
                 for b in bodies if sass[src].get(b, 0) == 0]
         if idle:

@@ -121,6 +121,29 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def hmma_counts(name: str) -> dict | None:
+    """HMMA (tensor-core) instructions in each kernel of the built library
+    of ``csrc/<name>.cu``, from ``cuobjdump -sass``: ``{mangled kernel
+    name: count}``, or None where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    library(name)
+    text = subprocess.run([tool, "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts: dict = {}
+    kernel = None
+    for line in text.splitlines():
+        if "Function : " in line:
+            kernel = line.split("Function : ", 1)[1].strip()
+            counts[kernel] = 0
+        elif kernel and "HMMA" in line:
+            counts[kernel] += 1
+    return counts
+
+
 def body_attributes(name: str, entry: str, bodies) -> dict:
     """Registers and spilled (local) bytes a thread of each compiled body
     of ``csrc/<name>.cu``, through its ``entry(which, &regs, &local)``:

@@ -36,6 +36,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes));
 }
+// 8 bytes global -> shared (zeroed for src_bytes = 0), for rows that are
+// 8-byte but not 16-byte aligned
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
 // 4 bytes global -> shared (zeroed for src_bytes = 0), for rows that are
 // not 16-byte aligned
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,

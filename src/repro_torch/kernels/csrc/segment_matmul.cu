@@ -1,5 +1,5 @@
 // Packed SpMM for Hopper (sm_90a): a fixed-degree neighbour gather, its
-// sum or mean, and the product with W, in one kernel.
+// sum or mean, and the product with W.
 //
 // Replaces the reference's TPU kernel kernels/segment_matmul.py
 // packed_spmm_pallas (_spmm_kernel):
@@ -8,36 +8,60 @@
 //   out[i] = agg[i] @ W
 // neighbors [N, M] int32, feat [Nf, d] float32, W [d, f] float32 ->
 // out [N, f] float32.  Ids >= Nf are sentinels and skipped; a negative id
-// reads row 0 and counts, as the reference's plain path clips it.  The sum
-// runs in fp32 in the order t = 0 .. M-1 from zero, a skipped lane adding
-// 0.0, as the reference's body does.  The product with W is this kernel's
-// own work, as the TPU kernel contracts on its MXU in the same body: the
-// [N, d] aggregate never reaches device memory.
+// reads row 0 and counts, as the reference's plain path clips it.  The
+// product with W is inside the TPU kernel's body, so both routes below
+// compute it themselves.
 //
-// Bound: at GraphSAGE's first layer on Reddit (N = Nf = 232,965, M = 15,
-// d = 602, f = 128, mean) the product is 35.9 GFLOP, 0.54 ms at 67 TFLOP/s
-// fp32 outside the tensor cores, while the inputs read once and the output
-// are 0.7 GB, 0.21 ms at 3.35 TB/s: operations.  But the gather reads
-// N * M rows of d floats, 8.4 GB before the sentinels are taken out
-// (2.5 ms), at random, so the row reads set the pace.  Design, in
-// block.cu's idiom:
-//   * one CTA of 256 threads per 64 output rows x 128 output columns; it
-//     stages its rows' neighbour ids (clipped, -1 for a sentinel) and the
-//     mean's divisors in shared memory once;
-//   * per d-chunk of 32, each warp gathers 8 of the 64 rows: lane k reads
-//     element d0 + k of every neighbour row (one 128-byte read per row),
-//     with up to kBatch row reads in flight before the adds; the mean
-//     divides element by element (__fdiv_rn), the same arithmetic as
-//     dividing the whole row; the [64, 32] aggregate is staged k-major in
-//     shared memory beside W[d0 : d0 + 32, f-tile];
-//   * each thread accumulates a 4 x 8 micro-tile of the output in fp32
-//     FFMA; no TF32.
-// A row is gathered once per 128-column tile of the output: once for
-// f <= 128.
+// The product is linear, so (sum_t feat[n_t]) @ W / cnt equals
+// sum_t (feat[n_t] @ W) / cnt: the aggregate can come first (gather rows
+// of d floats) or the product (gather rows of f floats).  Two routes,
+// chosen by kernels/segment_matmul.py path() from the shapes alone; each
+// launch modelled as max(bytes / 3.35 TB/s, products / rate), all N * M
+// lanes counted:
+//   * "fused", spmm_kernel, one launch: the gather, the sum in fp32 in the
+//     order t = 0 .. M-1 from zero (a skipped lane adding 0.0), the mean
+//     by __fdiv_rn, then the product in fp32 FFMA, the [64, 32] aggregate
+//     chunk kept in shared memory.  Bytes N M (4 + 4 d) once per
+//     128-column tile of the output, + 4 d f + 4 N f; products 2 N d f at
+//     67 TFLOP/s.  It wins where Nf >> N (a minibatch over the whole
+//     table) or f >= d.
+//   * "transform", two launches: project_kernel, Y = feat @ W [Nf, f] on
+//     the 3xTF32 tensor-core tile (bytes 4 Nf d + 4 d f + 4 Nf f;
+//     products 3 x 2 Nf d f issued at mma.sync's ~313 TFLOP/s), then
+//     gather_kernel, out[i] = the sum of Y's rows in the order t = 0 ..
+//     M-1 from zero (a skipped lane adding 0.0), divided by max(cnt, 1)
+//     with __fdiv_rn for the mean (bytes N M (4 + 4 f) + 4 N f).
+// At GraphSAGE's first layer on Reddit (N = Nf = 232,965, M = 15, d = 602,
+// f = 128, mean) the fused route reads 8.4 GB of 2,408-byte rows (2.5 ms)
+// and the transform route 0.68 GB for Y (0.34 ms of issued products) and
+// 1.9 GB of 512-byte rows (0.57 ms).
+//
+// project_kernel, block.cu's tile without its norms: one CTA of 8 warps
+// (2 x 4, each 32 x 32 outputs) per 64 rows of feat x all of f <= 128
+// columns, so feat is read once, two CTAs an SM; d streams through a
+// three-stage cp.async ring of 32-column chunks.  feat's rows are staged
+// in the widest cp.async piece their alignment allows (16, 8 or 4 bytes:
+// at d = 602 a row is 2,408 bytes, 8-byte aligned), W's [32, 128] chunk
+// k-major in 16-byte pieces; an operand that cannot take them (W's rows
+// not 16-byte aligned, or feat's not 8) takes the body that stages both
+// in 4-byte pieces: three bodies, each within 128 registers.  x = hi + lo is split as the fragments
+// load, lo.hi + hi.lo + hi.hi into one float32 accumulator; the tensor
+// cores' adder truncates, so each chunk sums into a fresh accumulator that
+// is added to the running one rounded to nearest.  Y is stored with plain
+// stores, so the gather that follows finds part of it in L2.
+//
+// gather_kernel: one warp per output row and 128-column tile, each lane a
+// float4 of the tile (f % 4 == 0 and 16-byte aligned; else 4 columns 32
+// apart); the row's ids are loaded once, one a lane, and shuffled out;
+// up to kBatch row loads are in flight before the adds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
+
+// ---- "fused": the gather, the mean and the FFMA product in one body ------
 
 constexpr int kRows = 64;      // output rows per CTA
 constexpr int kCols = 128;     // output columns per CTA
@@ -132,14 +156,281 @@ spmm_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ feat,
   }
 }
 
+// ---- "transform" (a): Y = feat @ W on the 3xTF32 tile ---------------------
+
+constexpr int kPRows = 64;                 // feat rows a CTA
+constexpr int kPCols = 128;                // output columns a CTA
+constexpr int kPWM = 2, kPWN = 4;          // warps over rows, columns
+constexpr int kPThreads = 32 * kPWM * kPWN;
+constexpr int kPMI = kPRows / kPWM / 16;   // m16 tiles a warp
+constexpr int kPNI = kPCols / kPWN / 8;    // n8 tiles a warp
+constexpr int kPDc = 32;                   // d chunk: 128 bytes of a row
+constexpr int kPStages = 3;                // cp.async ring of d chunks
+// feat rows: 8 mod 32 words (a thread's two neighbours, 8-byte loads);
+// W rows: 4 mod 32, so rows 2t and 2t + 1 of a fragment hit 32 banks
+constexpr int kPLdA = kPDc + 8;
+constexpr int kPLdB = kPCols + 4;
+constexpr int kPStage = kPRows * kPLdA + kPDc * kPLdB;   // feat, then W
+constexpr size_t kPSmem = sizeof(float) * kPStages * kPStage;
+
+// a [ROWS, COLS] tile of a row-major source (row stride `stride`) into
+// shared memory (row stride `ld`) in BYTES-wide cp.async pieces; rows past
+// `valid` and columns past `cvalid` are zeros (no piece straddles cvalid).
+// A thread takes one column piece c of rows r, r + STEP, ...: its source
+// pointer is made once a chunk, behind an empty asm, and stepped by
+// STEP rows a piece.  Without the asm the bodies spilled 44-84 bytes (each
+// piece's 64-bit offset kept across the chunk loop, the likeliest cause);
+// with the loops rolled instead they ran 10-12% slower.
+template <int BYTES, int ROWS, int COLS>
+__device__ __forceinline__ void stage_tile(float* dst, int ld,
+                                           const float* src, int stride,
+                                           int valid, int cvalid) {
+  constexpr int PER = BYTES / 4, PIECES = COLS / PER;
+  constexpr int STEP = kPThreads / PIECES;    // rows a pass
+  static_assert(kPThreads % PIECES == 0 && ROWS % STEP == 0, "pieces");
+  const int r = threadIdx.x / PIECES, c = threadIdx.x % PIECES * PER;
+  const float* s = src + static_cast<long long>(r) * stride + c;
+  asm volatile("" : "+l"(s));
+  const long long step = static_cast<long long>(STEP) * stride;
+  float* p = dst + r * ld + c;
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i, s += step, p += STEP * ld) {
+    const bool ok = r + STEP * i < valid && c < cvalid;
+    if constexpr (BYTES == 16) {
+      cp_async16(p, ok ? s : src, ok ? 16 : 0);
+    } else if constexpr (BYTES == 8) {
+      cp_async8(p, ok ? s : src, ok ? 8 : 0);
+    } else {
+      cp_async4(p, ok ? s : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// acc += the feat tile's rows [32 wm, +32) . W tile's columns [32 wn, +32)
+// over one chunk: 3xTF32 mma.m16n8k8, k-index t of a step column 2t and
+// t + 4 column 2t + 1 (feat: one 8-byte load a pair; W: rows 2t, 2t + 1),
+// hi and lo split as loaded, the small products first
+__device__ __forceinline__ void p_products(float (&acc)[kPMI][kPNI][4],
+                                           const float* as, const float* bs,
+                                           int wm, int wn) {
+  constexpr int MI = kPMI, NI = kPNI;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const float* qa = as + (16 * MI * wm + g) * kPLdA + 2 * t4;
+  const float* wb = bs + 2 * t4 * kPLdB + 8 * NI * wn + g;
+#pragma unroll
+  for (int kk = 0; kk < kPDc / 8; ++kk) {
+    uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const float* r = qa + 16 * mi * kPLdA + kk * 8;
+      const float2 x0 = *reinterpret_cast<const float2*>(r);
+      const float2 x1 = *reinterpret_cast<const float2*>(r + 8 * kPLdA);
+      split_tf32(x0.x, ah[mi][0], al[mi][0]);
+      split_tf32(x1.x, ah[mi][1], al[mi][1]);
+      split_tf32(x0.y, ah[mi][2], al[mi][2]);
+      split_tf32(x1.y, ah[mi][3], al[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const float* p = wb + kk * 8 * kPLdB + 8 * ni;
+      split_tf32(p[0], bh[ni][0], bl[ni][0]);
+      split_tf32(p[kPLdB], bh[ni][1], bl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_tf32(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_tf32(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_tf32(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
+  }
+}
+
+// One CTA per 64 rows of feat x 128 columns of W (blockIdx.y), two CTAs
+// an SM.  AB / WB: the cp.async piece of feat's / W's rows, in bytes.
+template <int AB, int WB>
+__global__ void __launch_bounds__(kPThreads, 2)
+project_kernel(const float* __restrict__ feat, const float* __restrict__ w,
+               float* __restrict__ y, int Nf, int d, int f) {
+  constexpr int MI = kPMI, NI = kPNI;
+  extern __shared__ __align__(16) float p_smem[];   // [stage][feat | W]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp / kPWN, wn = warp % kPWN;
+  const long long r0 = (long long)blockIdx.x * kPRows;
+  const int f0 = blockIdx.y * kPCols;
+  const int rv = static_cast<int>(Nf - r0 < kPRows ? Nf - r0 : kPRows);
+  const int fv = f - f0;
+  const float* fa = feat + r0 * d;
+  const float* wa = w + f0;
+  const int n_chunks = (d + kPDc - 1) / kPDc;
+  auto stage = [&](int c) {
+    float* st = p_smem + (c % kPStages) * kPStage;
+    const int d0 = c * kPDc;
+    stage_tile<AB, kPRows, kPDc>(st, kPLdA, fa + d0, d, rv, d - d0);
+    stage_tile<WB, kPDc, kPCols>(st + kPRows * kPLdA, kPLdB,
+                                 wa + (long long)d0 * f, f, d - d0, fv);
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kPStages - 1; ++c) {
+    if (c < n_chunks) stage(c);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();   // chunk ch is in; every read of the slot refilled
+    if (ch + kPStages - 1 < n_chunks) stage(ch + kPStages - 1);
+    cp_async_commit();
+    const float* as = p_smem + (ch % kPStages) * kPStage;
+    // a fresh accumulator a chunk, added to acc rounded to nearest: the
+    // tensor cores' adder truncates, and its bias would grow with d
+    float part[MI][NI][4] = {};
+    p_products(part, as, as + kPRows * kPLdA, wm, wn);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+  }
+  cp_async_wait<0>();
+
+  const bool pairs = (f & 1) == 0;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = 16 * (MI * wm + mi) + g + 8 * h;
+      if (lr >= rv) continue;
+      float* yrow = y + (r0 + lr) * f + f0;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int lc = 8 * (NI * wn + ni) + 2 * t4;
+        if (lc >= fv) continue;
+        const float a = acc[mi][ni][2 * h], b = acc[mi][ni][2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(yrow + lc) = make_float2(a, b);
+        } else {
+          yrow[lc] = a;
+          if (lc + 1 < fv) yrow[lc + 1] = b;
+        }
+      }
+    }
+}
+
+// ---- "transform" (b): the gather and mean over Y's rows -------------------
+
+constexpr int kGWarps = 8;     // output rows a CTA, one a warp
+constexpr int kGCols = 128;    // columns a warp: 4 a lane
+
+// VEC: lane l holds columns 4l .. 4l + 3 of the tile (one float4 load a
+// row); else columns l + 32 j, j < 4.
+template <bool VEC>
+__global__ void __launch_bounds__(kGWarps * 32)
+gather_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ y,
+              float* __restrict__ out, int N, int M, int Nf, int f,
+              int mean) {
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kGWarps + (threadIdx.x >> 5);
+  if (i >= N) return;
+  const int f0 = blockIdx.y * kGCols;
+  const int c0 = f0 + (VEC ? 4 * lane : lane);
+  bool col[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) col[j] = (VEC ? c0 : c0 + 32 * j) < f;
+  const int32_t* rid = nbrs + i * M;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  int cnt = 0;
+  for (int t0 = 0; t0 < M; t0 += 32) {
+    // the lane's id: the row read (a negative id reads row 0), -1 skipped
+    int32_t id = -1;
+    if (t0 + lane < M) {
+      const int32_t raw = __ldg(rid + t0 + lane);
+      if (raw < Nf) id = raw < 0 ? 0 : raw;
+    }
+    cnt += __popc(__ballot_sync(0xffffffffu, id >= 0));
+    const int m = M - t0 < 32 ? M - t0 : 32;
+    for (int u0 = 0; u0 < m; u0 += kBatch) {
+      float v[kBatch][4];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int32_t src = __shfl_sync(0xffffffffu, id, u0 + u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[u][j] = 0.f;
+        if (u0 + u >= m || src < 0) continue;
+        const float* row = y + (long long)src * f;
+        if constexpr (VEC) {
+          if (col[0]) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(row + c0));
+            v[u][0] = x.x;
+            v[u][1] = x.y;
+            v[u][2] = x.z;
+            v[u][3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (col[j]) v[u][j] = __ldg(row + c0 + 32 * j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (u0 + u < m) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[j] += v[u][j];
+        }
+      }
+    }
+  }
+  if (mean) {
+    const float div = static_cast<float>(cnt > 1 ? cnt : 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = __fdiv_rn(s[j], div);
+  }
+  float* orow = out + i * f;
+  if constexpr (VEC) {
+    if (col[0])
+      *reinterpret_cast<float4*>(orow + c0) = make_float4(s[0], s[1], s[2],
+                                                          s[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col[j]) orow[c0 + 32 * j] = s[j];
+  }
+}
+
+// the projection's bodies by the cp.async pieces of feat's rows and W's
+// (bytes), in kernels/segment_matmul.py BODIES' order
+using ProjectFn = void (*)(const float*, const float*, float*, int, int,
+                           int);
+constexpr ProjectFn kProjectBodies[] = {
+    project_kernel<16, 16>, project_kernel<8, 16>, project_kernel<4, 4>};
+
 }  // namespace
 
-// neighbors [N, M] int32, feat [Nf, d] float32, w [d, f] float32 ->
-// out [N, f] float32; mean != 0 divides each aggregate by its valid count.
-extern "C" int repro_packed_spmm(const void* nbrs, const void* feat,
-                                 const void* w, void* out, int N, int M,
-                                 int Nf, int d, int f, int mean,
-                                 void* stream) {
+// "fused": neighbors [N, M] int32, feat [Nf, d] float32, w [d, f] float32
+// -> out [N, f] float32; mean != 0 divides each aggregate by its valid
+// count.
+extern "C" int repro_spmm_fused(const void* nbrs, const void* feat,
+                                const void* w, void* out, int N, int M,
+                                int Nf, int d, int f, int mean,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N == 0 || f == 0) return static_cast<int>(cudaGetLastError());
   const int f_tiles = (f + kCols - 1) / kCols;
@@ -158,4 +449,71 @@ extern "C" int repro_packed_spmm(const void* nbrs, const void* feat,
       static_cast<const float*>(w), static_cast<float*>(out), N, M, Nf, d, f,
       mean);
   return static_cast<int>(cudaGetLastError());
+}
+
+// "transform" (a): feat [Nf, d] float32 x w [d, f] float32 -> y [Nf, f]
+// float32 (y 8-byte aligned).
+extern "C" int repro_spmm_project(const void* feat, const void* w, void* y,
+                                  int Nf, int d, int f, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Nf == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+  const int f_tiles = (f + kPCols - 1) / kPCols;
+  if (f_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t fp = reinterpret_cast<uintptr_t>(feat);
+  const uintptr_t wp = reinterpret_cast<uintptr_t>(w);
+  const bool w16 = f % 4 == 0 && wp % 16 == 0;
+  const int body = w16 && d % 4 == 0 && fp % 16 == 0 ? 0
+                   : w16 && d % 2 == 0 && fp % 8 == 0 ? 1 : 2;
+  const auto kern = kProjectBodies[body];
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((Nf + (long long)kPRows - 1) /
+                                        kPRows), f_tiles);
+  kern<<<grid, kPThreads, kPSmem, st>>>(
+      static_cast<const float*>(feat), static_cast<const float*>(w),
+      static_cast<float*>(y), Nf, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// "transform" (b): neighbors [N, M] int32 over y [Nf, f] float32 -> out
+// [N, f] float32, the lane-order sum (mean != 0: divided by the count).
+extern "C" int repro_spmm_gather(const void* nbrs, const void* y, void* out,
+                                 int N, int M, int Nf, int f, int mean,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+  const int f_tiles = (f + kGCols - 1) / kGCols;
+  if (f_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid(static_cast<unsigned>((N + (long long)kGWarps - 1) /
+                                        kGWarps), f_tiles);
+  auto kern = vec ? gather_kernel<true> : gather_kernel<false>;
+  kern<<<grid, kGWarps * 32, 0, st>>>(
+      static_cast<const int32_t*>(nbrs), static_cast<const float*>(y),
+      static_cast<float*>(out), N, M, Nf, f, mean);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local (spilled) bytes a thread of body `which`, in the
+// order of kernels/segment_matmul.py BODIES: fused, the three projections
+// (kProjectBodies), gather with float4 rows, gather element-wise.
+extern "C" int repro_spmm_attrs(int which, int* regs, int* local_bytes) {
+  static const void* const bodies[] = {
+      reinterpret_cast<const void*>(spmm_kernel),
+      reinterpret_cast<const void*>(kProjectBodies[0]),
+      reinterpret_cast<const void*>(kProjectBodies[1]),
+      reinterpret_cast<const void*>(kProjectBodies[2]),
+      reinterpret_cast<const void*>(gather_kernel<true>),
+      reinterpret_cast<const void*>(gather_kernel<false>)};
+  constexpr int n = sizeof(bodies) / sizeof(bodies[0]);
+  if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, bodies[which]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return 0;
 }

@@ -1,20 +1,44 @@
 """Packed SpMM (fixed-degree neighbour aggregation, then a product with
-W): CUDA kernel wrapper + its plain version.
+W): CUDA kernel wrappers + their plain versions.
 
 Replaces the reference's ``kernels/segment_matmul.py::packed_spmm_pallas``.
-The kernel is ``csrc/segment_matmul.cu`` (the gather, the sum or mean and
-the product with W in one body, the aggregate kept in shared memory); its
-header note gives the bound and the design.
+The kernels are ``csrc/segment_matmul.cu``, two routes chosen by
+:func:`path` from the shapes alone; its header note gives both designs:
+
+* ``"fused"``: one kernel gathers feat's rows, sums (or averages) them
+  and multiplies the aggregate by W in fp32 FFMA.  One launch.
+* ``"transform"``: ``Y = feat @ W`` on a 3xTF32 tensor-core tile
+  (:func:`project`), then the gather and mean over Y's rows
+  (:func:`gather_rows`).  Two launches.
+
+The product is linear, so both compute the same function.  :func:`path`
+models each launch as max(bytes / 3.35 TB/s, products / rate) and takes
+the route with the smaller sum, counting all N * M lanes (the sentinels
+are not known without reading ``neighbors``):
+
+* fused: N M (4 + 4 d) bytes of ids and rows once per 128-column tile of
+  the output, + 4 d f + 4 N f; 2 N d f products at 67 TFLOP/s (fp32);
+* transform: 4 Nf d (per 128-column tile) + 4 d f + 4 Nf f bytes and
+  3 x 2 Nf d f products issued at mma.sync's ~313 TFLOP/s, then
+  N M (4 + 4 f) + 4 N f bytes.
+
+Projecting first reads fewer bytes a lane only when f < d, so f >= d is
+always "fused"; below it the model prefers "transform" while Nf is not
+much larger than N (GraphSAGE over the whole graph) and "fused" for a
+minibatch over a large table.
 
 ``out[i] = agg[i] @ W`` with ``agg[i]`` the float32 sum of
 ``feat[nbrs[i, t]]`` over the lanes whose id is below ``Nf``
 (``feat.shape[0]``), in the order t = 0 .. M-1, divided by
 ``max(cnt_i, 1)`` for ``combine="mean"``.  A negative id reads row 0 and
-counts, as the reference's plain path clips it.
+counts, as the reference's plain path clips it.  Both routes sum in that
+lane order in float32: "fused" feat's rows, then the product; "transform"
+the rows of Y = feat @ W.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,8 +46,54 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.block import check
 
 COMBINES = ("mean", "sum")
-# the kernel stages a tile's neighbour ids in shared memory: 64 x M ints
+ROUTES = ("fused", "transform")
+# the fused kernel stages a tile's neighbour ids in shared memory: 64 x M
 MAX_DEGREE = 512
+# the compiled bodies, in csrc/segment_matmul.cu repro_spmm_attrs' order:
+# the projection's by the cp.async pieces (bytes) of feat's and W's rows
+PROJECT_BODIES = ["project_a16_w16", "project_a8_w16", "project_a4_w4"]
+BODIES = ["fused", *PROJECT_BODIES, "gather_vec", "gather_scalar"]
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM
+FP32_OPS_PER_S = 67e12          # fp32 FFMA, outside the tensor cores
+MMA_TF32_OPS_PER_S = 313e12     # mma.sync's TF32 ceiling (PERF.md)
+TILE_COLS = 128                 # output columns a CTA of every kernel
+
+
+def route_costs(N: int, M: int, Nf: int, d: int, f: int, *,
+                lanes: int | None = None, rows: int | None = None) -> dict:
+    """Each route's launches under the module note's model, as
+    ``{route: [(bytes, products, products a second), ...]}``.  ``lanes``
+    counts the lanes gathered (all N * M by default: :func:`path` does not
+    read ``neighbors``) and ``rows`` the rows of feat or Y a gather reads
+    from HBM (by default one a lane, none found in L2)."""
+    lanes = N * M if lanes is None else lanes
+    rows = lanes if rows is None else rows
+    tiles = -(-f // TILE_COLS)
+    ids = tiles * N * M * 4
+    return {
+        "fused": [(ids + tiles * rows * 4 * d + 4 * d * f + 4 * N * f,
+                   2 * N * d * f, FP32_OPS_PER_S)],
+        "transform": [(tiles * 4 * Nf * d + 4 * d * f + 4 * Nf * f,
+                       6 * Nf * d * f, MMA_TF32_OPS_PER_S),
+                      (ids + rows * 4 * f + 4 * N * f, lanes * f,
+                       FP32_OPS_PER_S)]}
+
+
+def modelled_ms(launches) -> float:
+    """The modelled device time of launches from :func:`route_costs`: the
+    sum of max(bytes / 3.35 TB/s, products / rate), in ms."""
+    return sum(max(b / HBM_BYTES_PER_S, p / rate)
+               for b, p, rate in launches) * 1e3
+
+
+def path(N: int, M: int, Nf: int, d: int, f: int) -> str:
+    """The route of a call (see the module note): ``"fused"`` for f >= d,
+    else the route with the smaller modelled device time."""
+    if f >= d:
+        return "fused"
+    cost = route_costs(N, M, Nf, d, f)
+    return ("transform" if modelled_ms(cost["transform"])
+            < modelled_ms(cost["fused"]) else "fused")
 
 
 def aggregate(neighbors, feat, *, combine: str = "sum"):
@@ -52,11 +122,91 @@ def packed_spmm_plain(neighbors, feat, w, *, combine: str = "sum"):
             @ w.to(torch.float32)).to(feat.dtype)
 
 
-def packed_spmm(neighbors, feat, w, *, combine: str = "sum"):
+def transform_plain(neighbors, feat, w, *, combine: str = "sum"):
+    """The transform route's arithmetic in plain PyTorch (any device):
+    ``feat @ w`` in float32, then the lane-order gather and mean of its
+    rows -> [N, f] float32."""
+    return aggregate(neighbors, feat.to(torch.float32) @ w.to(torch.float32),
+                     combine=combine)
+
+
+@functools.cache
+def _lib():
+    """The built library, its C entry points typed once."""
+    lib = _build.library("segment_matmul")
+    lib.repro_spmm_fused.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.repro_spmm_project.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.repro_spmm_gather.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for fn in (lib.repro_spmm_fused, lib.repro_spmm_project,
+               lib.repro_spmm_gather):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def body_attributes() -> dict:
+    """Registers and spilled (local) bytes a thread of each compiled body
+    of :data:`BODIES`, as the card reports them."""
+    return _build.body_attributes("segment_matmul", "repro_spmm_attrs",
+                                  BODIES)
+
+
+def project(feat, w):
+    """feat [Nf, d] float32 x w [d, f] float32 -> [Nf, f] float32, the
+    transform route's first kernel.  CPU tensors take ``feat @ w``; CUDA
+    tensors launch the 3xTF32 tile (counted on ``packed_spmm``)."""
+    if feat.device.type == "cpu":
+        return feat.to(torch.float32) @ w.to(torch.float32)
+    dev = feat.device
+    check(feat, "feat", torch.float32, (None, None), dev)
+    Nf, d = feat.shape
+    check(w, "w", torch.float32, (d, None), dev)
+    f = w.shape[1]
+    y = torch.empty((Nf, f), dtype=torch.float32, device=dev)
+    err = _lib().repro_spmm_project(_build.ptr(feat), _build.ptr(w),
+                                    _build.ptr(y), Nf, d, f,
+                                    _build.stream_of(feat))
+    _build.check(err, "packed_spmm project")
+    _build.LAUNCHES["packed_spmm"] += 1
+    return y
+
+
+def gather_rows(neighbors, y, *, combine: str = "sum"):
+    """neighbors [N, M] int32 over y [Nf, f] float32 -> [N, f] float32,
+    :func:`aggregate` of y's rows, the transform route's second kernel.
+    CPU tensors take :func:`aggregate`; CUDA tensors launch the gather
+    (counted on ``packed_spmm``)."""
+    if y.device.type == "cpu":
+        return aggregate(neighbors, y, combine=combine)
+    if combine not in COMBINES:
+        raise ValueError(f"combine={combine!r}")
+    dev = y.device
+    check(y, "y", torch.float32, (None, None), dev)
+    check(neighbors, "neighbors", torch.int32, (None, None), dev)
+    (N, M), (Nf, f) = neighbors.shape, y.shape
+    if Nf == 0 and N * M > 0:
+        raise ValueError("y has no rows to gather")
+    out = torch.empty((N, f), dtype=torch.float32, device=dev)
+    err = _lib().repro_spmm_gather(_build.ptr(neighbors), _build.ptr(y),
+                                   _build.ptr(out), N, M, Nf, f,
+                                   int(combine == "mean"),
+                                   _build.stream_of(y))
+    _build.check(err, "packed_spmm gather")
+    _build.LAUNCHES["packed_spmm"] += 1
+    return out
+
+
+def packed_spmm(neighbors, feat, w, *, combine: str = "sum",
+                via: str | None = None):
     """neighbors [N, M] int32 x feat [Nf, d] float32 x w [d, f] float32 ->
     [N, f] float32.  CPU tensors take :func:`packed_spmm_plain`; CUDA
-    tensors launch the kernel (counted on ``packed_spmm``), which does the
-    product with W itself."""
+    tensors launch the route :func:`path` picks ("fused": one launch,
+    "transform": two, each counted on ``packed_spmm``).  ``via`` forces a
+    route, to hold it to shapes it would not take."""
+    if via not in (None, *ROUTES):
+        raise ValueError(f"via: 'fused' or 'transform', got {via!r}")
     if feat.device.type == "cpu":
         return packed_spmm_plain(neighbors, feat, w, combine=combine)
     if combine not in COMBINES:
@@ -67,18 +217,19 @@ def packed_spmm(neighbors, feat, w, *, combine: str = "sum"):
     check(neighbors, "neighbors", torch.int32, (None, None), dev)
     check(w, "w", torch.float32, (d, None), dev)
     (N, M), f = neighbors.shape, w.shape[1]
-    if M > MAX_DEGREE:
-        raise ValueError(f"degree M={M} exceeds the kernel's {MAX_DEGREE}")
     if Nf == 0 and N * M > 0:
         raise ValueError("feat has no rows to gather")
+    route = via or path(N, M, Nf, d, f)
+    if route == "transform":
+        return gather_rows(neighbors, project(feat, w), combine=combine)
+    if M > MAX_DEGREE:
+        raise ValueError(f"degree M={M} exceeds the fused kernel's "
+                         f"{MAX_DEGREE}")
     out = torch.empty((N, f), dtype=torch.float32, device=dev)
-    fn = _build.library("segment_matmul").repro_packed_spmm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_build.ptr(neighbors), _build.ptr(feat), _build.ptr(w),
-             _build.ptr(out), N, M, Nf, d, f, int(combine == "mean"),
-             _build.stream_of(feat))
+    err = _lib().repro_spmm_fused(_build.ptr(neighbors), _build.ptr(feat),
+                                  _build.ptr(w), _build.ptr(out), N, M, Nf,
+                                  d, f, int(combine == "mean"),
+                                  _build.stream_of(feat))
     _build.check(err, "packed_spmm")
     _build.LAUNCHES["packed_spmm"] += 1
     return out

@@ -24,9 +24,9 @@ from repro_torch.configs.tsdg_paper import reduced
 from repro_torch.core import hotpath as HP
 from repro_torch.data.synthetic import make_clustered, recall_at_k
 from repro_torch.ann.quantize import quantize_rows
-from repro_torch.kernels import (block, embedding_bag, flash_attention,
-                                  l2dist, ops, ref, segment_matmul, topk,
-                                  visited)
+from repro_torch.kernels import (_build, block, embedding_bag,
+                                  flash_attention, l2dist, ops, ref,
+                                  segment_matmul, topk, visited)
 
 pytestmark = pytest.mark.cuda
 
@@ -547,25 +547,101 @@ def test_embedding_bag_matches_plain(dev, rng, V, E, B, bag, combine):
     assert ((out - ref).abs() <= 1e-6 * scale).all()
 
 
-@pytest.mark.parametrize("N,M,d,f", [(300, 15, 70, 200), (129, 20, 32, 16)])
-@pytest.mark.parametrize("combine", ["sum", "mean"])
-def test_packed_spmm_matches_plain(dev, rng, N, M, d, f, combine):
-    """Sentinels skipped, negative ids read row 0, an all-sentinel row
-    gives zeros; d and f off the kernel's 32 x 128 tiles, M past its 16
-    row loads at once."""
-    nbrs = rng.integers(-2, N + N // 9, size=(N, M)).astype(np.int32)
-    nbrs[5] = N
-    nbrs, feat, w = _on(dev, nbrs, rng.normal(size=(N, d)).astype(np.float32),
-                        rng.normal(size=(d, f)).astype(np.float32))
+def _spmm_case(dev, rng, N, M, Nf, d, f, offset=0):
+    """Ids in [-2, Nf + Nf / 9): sentinels, negative ids and (N > 5) an
+    all-sentinel row 5; with ``offset``, every operand starts that many
+    elements into its allocation."""
+    nbrs = rng.integers(-2, Nf + Nf // 9, size=(N, M)).astype(np.int32)
+    if N > 5:
+        nbrs[5] = Nf
+    out = []
+    for a in (nbrs, rng.normal(size=(Nf, d)).astype(np.float32),
+              rng.normal(size=(d, f)).astype(np.float32)):
+        t = torch.from_numpy(np.concatenate([np.zeros(offset, a.dtype),
+                                             a.ravel()])).to(dev)
+        out.append(t[offset:].view(a.shape))
+    return out
+
+
+def _assert_spmm(dev, nbrs, feat, w, combine, via):
+    """One call along ``via`` within 1e-5 * (|agg| @ |W|) of the plain
+    version, with the route's launches counted (fused 1, transform 2)."""
     n0 = K.launch_counts()["packed_spmm"]
-    out = ops.packed_spmm(nbrs, feat, w, combine=combine)
+    out = segment_matmul.packed_spmm(nbrs, feat, w, combine=combine, via=via)
     ref = segment_matmul.packed_spmm_plain(nbrs, feat, w, combine=combine)
     torch.cuda.synchronize()
-    assert K.launch_counts()["packed_spmm"] == n0 + 1
+    assert K.launch_counts()["packed_spmm"] - n0 == (1 if via == "fused"
+                                                     else 2)
     agg = segment_matmul.aggregate(nbrs, feat, combine=combine)
     tol = 1e-5 * (agg.abs() @ w.abs())
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
     assert ((out - ref).abs() <= tol).all()
-    assert (out[5] == 0).all()
+    if nbrs.shape[0] > 5:
+        assert (out[5] == 0).all()
+
+
+@pytest.mark.parametrize("N,M,Nf", [(1, 15, 50), (129, 1, 40),
+                                    (129, 20, 1000), (300, 15, 90),
+                                    (300, 20, 2000)])
+@pytest.mark.parametrize("d", [8, 70, 602, 960])
+@pytest.mark.parametrize("f", [8, 16, 128, 200])
+@pytest.mark.parametrize("via", ["fused", "transform"])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_packed_spmm_matches_plain(dev, N, M, Nf, d, f, via, combine):
+    """Both routes over their tiles' edges: sentinels skipped, negative ids
+    read row 0, an all-sentinel row gives zeros; Nf below and above N; d
+    in one 32-column chunk or many, its rows 16-byte (d = 8, 960) or only
+    8-byte aligned (70, 602: the projection's 8-byte pieces); f within
+    one 128-column tile or past it (200); M past the 16 row loads in
+    flight."""
+    rng = np.random.default_rng([N, M, Nf, d, f])
+    _assert_spmm(dev, *_spmm_case(dev, rng, N, M, Nf, d, f), combine, via)
+
+
+@pytest.mark.parametrize("N,Nf,via", [(3000, 3000, "transform"),
+                                      (300, 20000, "fused")])
+def test_packed_spmm_api_takes_path(dev, N, Nf, via):
+    """``ops.packed_spmm`` launches the route ``path`` picks: GraphSAGE's
+    widths (M = 15, 602 -> 128) over the whole table project first, a
+    minibatch over a table 67 times its size does not."""
+    assert segment_matmul.path(N, 15, Nf, 602, 128) == via
+    rng = np.random.default_rng([N, Nf])
+    nbrs, feat, w = _spmm_case(dev, rng, N, 15, Nf, 602, 128)
+    n0 = K.launch_counts()["packed_spmm"]
+    out = ops.packed_spmm(nbrs, feat, w, combine="mean")
+    torch.cuda.synchronize()
+    assert K.launch_counts()["packed_spmm"] - n0 == (1 if via == "fused"
+                                                     else 2)
+    ref = segment_matmul.packed_spmm_plain(nbrs, feat, w, combine="mean")
+    agg = segment_matmul.aggregate(nbrs, feat, combine="mean")
+    assert ((out - ref).abs() <= 1e-5 * (agg.abs() @ w.abs())).all()
+
+
+@pytest.mark.parametrize("d,f", [(602, 128), (33, 31), (70, 30)])
+@pytest.mark.parametrize("via", ["fused", "transform"])
+def test_packed_spmm_unaligned_rows(dev, d, f, via):
+    """Operands one element off their allocation: the projection stages
+    feat and W in 4-byte pieces; odd f stores Y one float at a time and
+    f % 4 != 0 takes the gather's element-wise body."""
+    rng = np.random.default_rng([d, f])
+    _assert_spmm(dev, *_spmm_case(dev, rng, 300, 15, 400, d, f, offset=1),
+                 "mean", via)
+
+
+def test_spmm_bodies_fit_without_spills(dev):
+    """The card's own count for segment_matmul.cu's bodies: no spill to
+    local memory, at most 255 registers, and tensor-core (HMMA)
+    instructions in each of the projection's bodies."""
+    attrs = segment_matmul.body_attributes()
+    assert list(attrs) == segment_matmul.BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0, (name, local)
+        assert regs <= 255, (name, regs)
+    hmma = _build.hmma_counts("segment_matmul")
+    assert hmma is not None, "cuobjdump not found beside nvcc"
+    project = [n for k, n in hmma.items() if "project_kernel" in k]
+    assert len(project) == len(segment_matmul.PROJECT_BODIES), hmma
+    assert min(project) > 0, hmma
 
 
 def _attention_case(dev, rng, B, Sq, Skv, H, KV, hd, dtype):

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro_torch.kernels import ops, ref, topk
+from repro_torch.kernels import ops, ref, segment_matmul, topk
 
 # small inputs: one thread, so the test workers beside this file keep
 # their cores
@@ -208,6 +208,17 @@ def _spmm_case(rng, N, M, d, f):
     return feat, nbrs, w
 
 
+def _spmm_weight(feat, nbrs, w, combine):
+    """|agg| @ |W| in float64, the scale of the SpMM tolerance."""
+    Nf = feat.shape[0]
+    ok = nbrs < Nf
+    agg = np.where(ok[..., None], feat[np.clip(nbrs, 0, Nf - 1)], 0.0) \
+        .astype(np.float64).sum(1)
+    if combine == "mean":
+        agg /= np.maximum(ok.sum(1, keepdims=True), 1)
+    return np.abs(agg) @ np.abs(w.astype(np.float64))
+
+
 @pytest.mark.parametrize("N,M,d,f", [(50, 6, 24, 8), (100, 16, 32, 16)])
 @pytest.mark.parametrize("combine", ["sum", "mean"])
 def test_packed_spmm_matches_reference(rng, N, M, d, f, combine):
@@ -216,18 +227,32 @@ def test_packed_spmm_matches_reference(rng, N, M, d, f, combine):
     feat, nbrs, w = _spmm_case(rng, N, M, d, f)
     want = np.asarray(_jspmm(jnp.asarray(nbrs), jnp.asarray(feat),
                              jnp.asarray(w), combine))
-    ok = nbrs < N
-    agg = np.where(ok[..., None], feat[np.clip(nbrs, 0, N - 1)], 0.0) \
-        .astype(np.float64).sum(1)
-    if combine == "mean":
-        agg /= np.maximum(ok.sum(1, keepdims=True), 1)
-    tol = 1e-5 * (np.abs(agg) @ np.abs(w.astype(np.float64)))
+    tol = 1e-5 * _spmm_weight(feat, nbrs, w, combine)
     for got in _both(ops.packed_spmm, torch.from_numpy(nbrs),
                      torch.from_numpy(feat), torch.from_numpy(w),
                      combine=combine):
         assert got.dtype == torch.float32 and got.shape == (N, f)
         assert (np.abs(got.numpy() - want) <= tol).all()
         assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("N,M,d,f", [(50, 6, 24, 8), (100, 16, 32, 16)])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_transform_plain_matches_reference(N, M, d, f, combine):
+    """The transform route's arithmetic (``feat @ w`` first, then the
+    lane-order gather and mean of its rows) within 1e-5 * (|agg| @ |W|)
+    of the reference, which aggregates first."""
+    feat, nbrs, w = _spmm_case(np.random.default_rng(1900 + N + M), N, M,
+                               d, f)
+    want = np.asarray(_jspmm(jnp.asarray(nbrs), jnp.asarray(feat),
+                             jnp.asarray(w), combine))
+    tol = 1e-5 * _spmm_weight(feat, nbrs, w, combine)
+    got = segment_matmul.transform_plain(*map(torch.from_numpy,
+                                              (nbrs, feat, w)),
+                                         combine=combine)
+    assert got.dtype == torch.float32 and got.shape == (N, f)
+    assert (np.abs(got.numpy() - want) <= tol).all()
+    assert (got[3] == 0).all()
 
 
 def test_segment_matmul_ref_matches_reference(rng):
