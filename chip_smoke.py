@@ -64,11 +64,26 @@ Phases, each printing its own lines:
    16 heads of 128, bf16, the "tile" body) and one decode step over
    32,768 keys (the "split" body) through ``ops.flash_attention``.
    Attention also reports SDPA's own err/tol on the same inputs, both
-   bodies at 1-64 query rows a KV head (``[threshold]`` lines).
+   bodies at 1-64 query rows a KV head (``[threshold]`` lines);
+10. serving, on phase 3's graph: for fp32 and int8, both visited modes,
+   B = 10 and 10240, and the stream search with phase 8's live delta, the
+   engine's replayed CUDA graph against an eager call of the same search
+   on the card (bit for bit), the median untraced latency of 20 eager
+   calls and of 20 replays, the busy share of one traced replay, and the
+   bytes of the engine's graph pool; a same-shape compaction that must
+   capture nothing (its first replays equal an eager search of the new
+   generation) and a shape-changing one that must recapture;
+   ``Index.warmup`` and ``Index.serve()`` answering 256 single submits
+   from 8 threads (dispatches, coalescing, recall@10 against the same rows
+   as one batch); ``regime_calibration="probe"``'s fitted split, and B =
+   10 with phase 8's live delta in both regimes.
 
-Phases 3-4, 7 and 8 each start with every launch counter at 0 and read
-the counters at their end; each of the six ANN kernel bodies must have
-launched in them.  Phase 9's path must launch each of its five, attention
+``Index.search`` replays the engine's CUDA graphs (the first call of a
+shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
+search through replays.  Each of them starts with every launch counter at
+0 and reads the counters at its end: an eager warm-up counts its
+launches, a capture none, and a replay those its capture recorded.  Each
+of the six ANN kernel bodies must have launched in them.  Phase 9's path must launch each of its five, attention
 and SpMM exactly as often as their routes launch kernels.
 
 The line before the last is the JSON list of kernels; the last line is the
@@ -107,6 +122,7 @@ ANN_BODIES = ("gather_distances", "gather_distances_int8", "rank_merge",
 API_BODIES = ("distance_matrix", "bitonic_sort", "embedding_bag",
               "packed_spmm", "flash_attention")
 KNN_QUERIES = 1024            # exact k-NN: phase 3's first 1,024 queries
+SERVE_REPEATS = 20            # phase 10: untraced calls a latency median
 TOPK_KERNELS = ("warp_topk_kernel", "select_kernel", "cta_sort_kernel")
 # the search hop's kernels (csrc/l2dist.cu's row bodies, csrc/visited.cu)
 HOP_KERNELS = ("gather_rowq_kernel", "gather_row8_kernel",
@@ -1201,6 +1217,27 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
 # phase 8: streaming mutability
 # --------------------------------------------------------------------------
 
+def stream_mutations(n: int, d: int):
+    """Phase 8's mutations: (centres, the added rows V, the deleted base
+    ids, the deleted added ids, the dead mask over n + adds, the old id of
+    each effective-corpus row)."""
+    import numpy as np
+
+    n_add, n_del_add = STREAM_ADDS, STREAM_DELETED_ADDS
+    # make_clustered's rows: its 64 centres (seed 0), fresh noise
+    centers = np.random.default_rng(0).normal(size=(64, d)) \
+        .astype(np.float32)
+    rng = np.random.default_rng(12345)
+    V = (centers[rng.integers(0, 64, n_add)] + 0.15 * rng.normal(
+        size=(n_add, d)).astype(np.float32)).astype(np.float32)
+    rng = np.random.default_rng(54321)
+    del_base = rng.choice(n, round(0.01 * n), replace=False)
+    del_add = n + rng.choice(n_add, n_del_add, replace=False)
+    dead = np.zeros(n + n_add, bool)
+    dead[del_base] = dead[del_add] = True
+    return centers, V, del_base, del_add, dead, np.flatnonzero(~dead)
+
+
 def stream_phase(ds, cfg, graph, n, d, n_queries, dev, counted,
                  check_ids) -> dict:
     """Adds, deletes, searches and a compaction on the fp32 index (plus one
@@ -1213,19 +1250,8 @@ def stream_phase(ds, cfg, graph, n, d, n_queries, dev, counted,
     from repro_torch.data.synthetic import brute_force_gt, recall_at_k
 
     n_add, n_del_add = STREAM_ADDS, STREAM_DELETED_ADDS
-    n_del_base = round(0.01 * n)
-    # make_clustered's rows: its 64 centres (seed 0), fresh noise
-    centers = np.random.default_rng(0).normal(size=(64, d)) \
-        .astype(np.float32)
-    rng = np.random.default_rng(12345)
-    V = (centers[rng.integers(0, 64, n_add)] + 0.15 * rng.normal(
-        size=(n_add, d)).astype(np.float32)).astype(np.float32)
-    rng = np.random.default_rng(54321)
-    del_base = rng.choice(n, n_del_base, replace=False)
-    del_add = n + rng.choice(n_add, n_del_add, replace=False)
-    dead = np.zeros(n + n_add, bool)
-    dead[del_base] = dead[del_add] = True
-    old_ids = np.flatnonzero(~dead)           # effective corpus -> old id
+    centers, V, del_base, del_add, dead, old_ids = stream_mutations(n, d)
+    n_del_base = len(del_base)
     X_eff = np.concatenate([ds.X, V])[old_ids]
     t0 = time.perf_counter()
     gt_eff = brute_force_gt(X_eff, ds.Q, 10, cfg.metric, device=dev)
@@ -1372,7 +1398,259 @@ def stream_phase(ds, cfg, graph, n, d, n_queries, dev, counted,
         out[f"compacted_search_{B}"] = dict(
             regime=index.regime(B), latency_ms=dt * 1e3, recall_at_10=rec)
         log(f"[stream] compacted B={B} regime={index.regime(B)}: latency="
-            f"{dt * 1e3:.2f} ms recall@10={rec:.4f}")
+            f"{dt * 1e3:.2f} ms (new shapes: the call captures its graph) "
+            f"recall@10={rec:.4f}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 10: serving — the engine's CUDA graphs, compaction, the queue and
+# the calibrated regime split
+# --------------------------------------------------------------------------
+
+def median_ms(fn, n: int = SERVE_REPEATS) -> float:
+    """Median host-clock milliseconds of ``n`` calls of ``fn``, each of
+    which ends by reading its answer back (so the card is synchronised)."""
+    import statistics
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def replay_vs_eager(index, Qh, label: str, *, stream: bool = False) -> dict:
+    """One batch through the engine (a replay of its captured graph) and
+    through an eager call of the same search on the card, as the port
+    searched before the engine captured: bit for bit equal, and the
+    median untraced latency of each, a trace of one replay."""
+    import numpy as np
+    import torch
+
+    plane, eng = index.plane, index.engine
+    B = Qh.shape[0]
+    kind, bucket = index.regime(B), eng.bucket_for(B)
+    search = plane.search_stream if stream else plane.search
+
+    def eager():
+        Qp = np.pad(Qh, ((0, bucket - B), (0, 0)), mode="edge")
+        ids, dists = search(kind, torch.from_numpy(Qp).to(plane.device), 10)
+        return ids[:B].cpu().numpy(), dists[:B].cpu().numpy()
+
+    before = eng.stats.compiles
+    t0 = time.perf_counter()
+    index.search(Qh)                        # eager warm-up + capture
+    capture_s = time.perf_counter() - t0
+    if eng.stats.compiles != before + 1:
+        raise AssertionError(f"{label}: no graph captured")
+    ids_r, d_r = index.search(Qh)
+    ids_e, d_e = eager()
+    if not (np.array_equal(ids_r, ids_e) and np.array_equal(d_r, d_e)):
+        raise AssertionError(f"{label}: replay and eager call differ")
+    eager_ms = median_ms(eager)
+    replay_ms = median_ms(lambda: index.search(Qh))
+    prof = traced(f"{label} replay", lambda: index.search(Qh))
+    out = dict(regime=kind, bucket=bucket, capture_s=capture_s,
+               eager_ms=eager_ms, replay_ms=replay_ms,
+               busy_share=prof["busy_share"],
+               device_busy_ms=prof["device_busy_ms"],
+               wall_ms_traced=prof["wall_ms"], bitwise_equal=True)
+    log(f"[serve] {label} regime={kind} bucket={bucket}: replay == eager "
+        f"bit for bit; median of {SERVE_REPEATS} untraced: eager "
+        f"{eager_ms:.3f} ms, replay {replay_ms:.3f} ms "
+        f"({eager_ms / replay_ms:.2f}x); capture {capture_s:.3f} s; traced "
+        f"replay busy {prof['device_busy_ms']:.2f} ms "
+        f"({prof['busy_share']:.1%})")
+    return out
+
+
+def serve_phase(ds, cfg, graph, n, d, n_queries, dev) -> dict:
+    """Phase 10 on phase 3's graph: replays against eager calls, graph
+    reuse across compactions, the micro-batching queue and the probe
+    calibration with phase 8's live delta."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ann import Index, regime_for
+    from repro_torch.data.synthetic import brute_force_gt, recall_at_k
+
+    out: dict = {}
+    # ---- replay against eager: fp32 / int8, none / hash, B = 10 / 10240
+    for quant in ("none", "int8"):
+        for visited in ("none", "hash"):
+            index = Index(ds.X, dataclasses.replace(
+                cfg, visited_filter=visited, quantization=quant),
+                graph=graph, device=dev)
+            for B in (10, n_queries):
+                label = f"{quant} {visited} B={B}"
+                out[label] = replay_vs_eager(index, ds.Q[:B], label)
+            out[f"{quant} {visited} pool_bytes"] = pool = \
+                index.plane.graph_pool_bytes()
+            log(f"[serve] {quant} {visited}: graph pool "
+                f"{pool / 2**20:.1f} MiB for "
+                f"{len(index.engine._compiled)} graphs")
+            del index
+    _, V, del_base, del_add, dead, old_ids = stream_mutations(n, d)
+
+    def mutate(index):
+        index.add(V)
+        index.delete(del_base)
+        index.delete(del_add)
+
+    index = Index(ds.X, cfg, graph=graph, device=dev)
+    mutate(index)
+    for B in (10, n_queries):
+        label = f"stream none B={B}"
+        out[label] = replay_vs_eager(index, ds.Q[:B], label, stream=True)
+    out["stream pool_bytes"] = pool = index.plane.graph_pool_bytes()
+    log(f"[serve] stream: graph pool {pool / 2**20:.1f} MiB")
+    del index
+    torch.cuda.empty_cache()
+
+    # ---- compaction: same shapes keep the graphs; new shapes recapture
+    index = Index(ds.X, cfg, graph=graph, device=dev)
+    Qs = {B: ds.Q[:B] for B in (10, n_queries)}
+    for Q in Qs.values():
+        index.search(Q)                       # frozen graphs
+    m = min(1024, len(del_base))
+    index.add(V[:m])
+    index.delete(del_base[:m])                # same shapes after compact
+    for Q in Qs.values():
+        index.search(Q)                       # stream graphs
+    entries, compiles = len(index.engine._compiled), index.stats.compiles
+    t0 = time.perf_counter()
+    index.compact()
+    compact_s = time.perf_counter() - t0
+    first = {B: index.search(Q) for B, Q in Qs.items()}
+    if index.stats.compiles != compiles \
+            or len(index.engine._compiled) != entries:
+        raise AssertionError("a same-shape compaction captured anew")
+    fresh = Index(index.X, cfg, graph=index.graph, device=dev).plane
+    for B, Q in Qs.items():
+        kind, bucket = index.regime(B), index.engine.bucket_for(B)
+        Qp = np.pad(Q, ((0, bucket - B), (0, 0)), mode="edge")
+        want = [t[:B].cpu().numpy() for t in fresh.search(
+            kind, torch.from_numpy(Qp).to(dev), 10)]
+        if not (np.array_equal(first[B][0], want[0])
+                and np.array_equal(first[B][1], want[1])):
+            raise AssertionError(f"B={B}: the first replay after a "
+                                 "compaction differs from an eager search")
+    del fresh
+    index.add(V[m:m + 1])                     # n + 1 rows: new shapes
+    t0 = time.perf_counter()
+    index.compact()
+    compact2_s = time.perf_counter() - t0
+    pruned = len(index.engine._compiled)
+    for Q in Qs.values():
+        index.search(Q)
+    recaptured = index.stats.compiles - compiles
+    if pruned != 0 or recaptured != 2:
+        raise AssertionError(f"shape-changing compaction: {pruned} entries "
+                             f"kept, {recaptured} graphs captured")
+    out["compaction"] = dict(same_shape_s=compact_s, graphs_kept=entries,
+                             new_shape_s=compact2_s, recaptured=recaptured)
+    log(f"[serve] same-shape compaction ({m} adds, {m} base deletes): "
+        f"{compact_s:.2f} s, {entries} graphs kept, 0 captured, first "
+        f"replays == eager search of the new generation; a shape-changing "
+        f"one ({compact2_s:.2f} s): entries pruned, {recaptured} captured")
+    del index
+    torch.cuda.empty_cache()
+
+    # ---- the queue: 256 single submits from 8 threads
+    index = Index(ds.X, cfg, graph=graph, device=dev)
+    t0 = time.perf_counter()
+    warmed = index.warmup()
+    warm_s = time.perf_counter() - t0
+    n_q, n_threads = 256, 8
+    results: dict = {}
+
+    def worker(t, mb):
+        rows = range(t, n_q, n_threads)
+        futs = [(r, mb.submit(ds.Q[r])) for r in rows]
+        for r, f in futs:
+            results[r] = f.result(timeout=300)[0]
+
+    t0 = time.perf_counter()
+    with index.serve() as mb:
+        threads = [threading.Thread(target=worker, args=(t, mb))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    queue_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or len(results) != n_q:
+        raise AssertionError("the queue left submits unanswered")
+    q_ids = np.stack([results[r] for r in range(n_q)])
+    batch_ids, _ = index.search(ds.Q[:n_q])
+    snap = mb.stats.snapshot()
+    rec_vs_batch = recall_at_k(q_ids, batch_ids, 10)
+    out["queue"] = dict(
+        warmup_graphs=warmed, warmup_s=warm_s, seconds=queue_s,
+        n_dispatches=snap["n_dispatches"],
+        mean_coalesced=snap["mean_coalesced"],
+        recall_vs_batch=rec_vs_batch,
+        recall_at_10=recall_at_k(q_ids, ds.gt[:n_q], 10),
+        batch_recall_at_10=recall_at_k(batch_ids, ds.gt[:n_q], 10),
+        compiles_after_warmup=index.stats.compiles - warmed)
+    log(f"[serve] warmup captured {warmed} graphs in {warm_s:.2f} s; queue: "
+        f"{n_q} single submits from {n_threads} threads in {queue_s:.3f} s, "
+        f"n_dispatches={snap['n_dispatches']} mean_coalesced="
+        f"{snap['mean_coalesced']:.2f}; recall@10 against the same rows "
+        f"searched as one batch {rec_vs_batch:.4f} (queue "
+        f"{out['queue']['recall_at_10']:.4f}, batch "
+        f"{out['queue']['batch_recall_at_10']:.4f} against the ground truth)")
+    if out["queue"]["compiles_after_warmup"] != 0:
+        raise AssertionError("the queue captured a graph warmup did not")
+    del index
+    torch.cuda.empty_cache()
+
+    # ---- calibration, and B = 10 with phase 8's live delta
+    t0 = time.perf_counter()
+    index = Index(ds.X, dataclasses.replace(cfg, regime_calibration="probe"),
+                  graph=graph, device=dev)
+    cal = index.calibration
+    out["calibration"] = dict(cal.to_manifest(),
+                              seconds=time.perf_counter() - t0)
+    log(f"[calibrate] threshold={cal.threshold:.2f} crossover_batch="
+        f"{cal.crossover_batch:.2f} degenerate={cal.degenerate} "
+        f"cores={cal.cores} a={cal.a:.3f} probes (batch, s): "
+        + json.dumps(cal.to_manifest()["probes"])
+        + f" ({out['calibration']['seconds']:.2f} s)")
+    mutate(index)
+    B, Q = 10, ds.Q[:10]
+    X_eff = np.concatenate([ds.X, V])[old_ids]
+    gt = old_ids[brute_force_gt(X_eff, Q, 10, cfg.metric, device=dev)]
+    bucket = index.engine.bucket_for(B)
+    Qd = torch.from_numpy(np.pad(Q, ((0, bucket - B), (0, 0)),
+                                 mode="edge")).to(dev)
+    regimes = {}
+    for kind in ("small", "large"):
+        exe = index.plane.compile_stream(kind, bucket, 10)
+
+        def call():
+            ids, dists = exe(Qd)
+            return ids[:B].cpu().numpy(), dists[:B].cpu().numpy()
+
+        ids, _ = call()
+        regimes[kind] = dict(ms=median_ms(call),
+                             recall_at_10=recall_at_k(ids, gt, 10))
+    n_delta = index.engine._n_delta()
+    out["live_delta_B10"] = dict(
+        n_delta=n_delta, regime=index.regime(B),
+        static_regime=regime_for(cfg, B, n_delta=n_delta), **regimes)
+    log(f"[calibrate] B=10 with a {n_delta}-row live delta takes the "
+        f"{index.regime(B)} regime under the fitted threshold (the static "
+        f"one: {out['live_delta_B10']['static_regime']}); median of "
+        f"{SERVE_REPEATS} replays: "
+        + ", ".join(f"{k} {v['ms']:.3f} ms (recall@10 {v['recall_at_10']:.4f})"
+                    for k, v in regimes.items()))
+    del index
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1654,7 +1932,10 @@ def main() -> int:
     launch = topk._launch
 
     def tallied(L, dists, *args):
-        if step[0] is not None:
+        # a capture records launches, it runs none: the step's eager
+        # warm-up is its search's tally
+        if step[0] is not None \
+                and not torch.cuda.is_current_stream_capturing():
             key = f"{L.body} [{dists.shape[0]}, {L.W}] -> {L.keep}"
             tally = topk_shapes.setdefault(step[0], {})
             tally[key] = tally.get(key, 0) + 1
@@ -1715,9 +1996,9 @@ def main() -> int:
     phase_launches["3-4"] = K.launch_counts()
     log("[launches] phases 3-4 " + json.dumps(phase_launches["3-4"])
         + " by step " + json.dumps(steps))
-    for label in ("build", "search none B=10", "search hash B=10",
-                  f"search none B={args.queries}",
-                  f"search hash B={args.queries}"):
+    for label in ("build", "warm none B=10", "warm hash B=10",
+                  f"warm none B={args.queries}",
+                  f"warm hash B={args.queries}"):
         log(f"[topk] {label}: launches by kernel and shape "
             + json.dumps(topk_shapes.get(label, {})))
 
@@ -1780,7 +2061,7 @@ def main() -> int:
                                     counted, check_ids)
     phase_launches["8"] = K.launch_counts()
     log("[launches] phase 8 " + json.dumps(phase_launches["8"]))
-    for label in ("stream int8 search", "stream int8 search, wide delta"):
+    for label in ("stream int8 warm", "stream int8 warm, wide delta"):
         log(f"[topk] {label}: launches by kernel and shape "
             + json.dumps(topk_shapes.get(label, {})))
     launches = {k: sum(p[k] for p in phase_launches.values())
@@ -1793,7 +2074,12 @@ def main() -> int:
 
     # ---- phase 6: where the device time goes ------------------------------
     record["profile"] = profile_run(ds, index, cfg, args.queries, dev)
-    del index, graph, idx_v, results, ref
+    del index, idx_v, results, ref
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: serving ------------------------------------------------
+    record["serve"] = serve_phase(ds, cfg, graph, n, d, args.queries, dev)
+    del graph
     torch.cuda.empty_cache()
 
     # ---- phase 9: the kernel API ------------------------------------------

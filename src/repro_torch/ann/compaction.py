@@ -5,7 +5,10 @@ reference's ``ann/compaction.py``, single-device plane).
 live base rows, then live delta rows — and swaps the new generation into
 the plane.  The build is the one a fresh ``Index.build`` runs, on the same
 array shapes, so searches after a compaction answer as a cold build over
-the same vectors does.  Compaction densifies ids: the returned ``id_map``
+the same vectors does.  A new generation of the same shapes is copied into
+the plane's buffers, so every captured CUDA graph keeps serving; one of
+new shapes gets new buffers, and the engine drops the entries bound to the
+old ones.  Compaction densifies ids: the returned ``id_map``
 (int64 [n_base + n_delta_slots], old global id -> new id, -1 for deleted
 rows) is the caller's bridge for external id bookkeeping.
 """
@@ -59,6 +62,7 @@ def compact(engine, *, tile: int = 2048) -> np.ndarray:
         graph = build_graph(X_eff, engine.cfg, tile=tile, device=plane.device)
         plane.rebind(X_eff, graph)
         engine.stream = None
+        engine._prune_stale_entries()
         engine.stats.compactions += 1
         engine.stats.generation += 1
         return id_map

@@ -8,16 +8,20 @@
     new_ids = index.add(V)                   # into the brute-force delta
     index.delete(ids_to_drop)                # tombstones
     id_map = index.compact()                 # rebuild, next generation
+    index.warmup()                           # capture every reachable graph
+    with index.serve(max_wait_ms=2.0) as mb: # micro-batching queue + QoS
+        fut = mb.submit(q, deadline_ms=15.0)
 
 ``cfg.quantization="int8"`` scores per-row int8 codes in-kernel and
-re-ranks exactly against the fp32 rows.
+re-ranks exactly against the fp32 rows.  ``cfg.regime_calibration="probe"``
+fits the regime split from timed probe batches (:attr:`Index.calibration`).
 
 Everything runs on the CUDA device unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
 from repro_torch.ann.pipeline import build_graph
-from repro_torch.configs.base import ANNConfig
+from repro_torch.configs.base import ANNConfig, _later
 from repro_torch.device import resolve_device
 from repro_torch.serve.engine import ANNEngine
 
@@ -27,11 +31,17 @@ class Index:
 
     ``graph=`` takes a prebuilt :class:`~repro_torch.core.diversify.
     PackedGraph` (on the index's device) and skips the pipeline.  After a
-    build, ``build_seconds`` holds each stage's wall seconds."""
+    build, ``build_seconds`` holds each stage's wall seconds.
+    ``threshold=`` overrides the §4 regime split."""
 
     def __init__(self, X, cfg: ANNConfig | None = None, *, k: int = 10,
                  graph=None, stages=None, tile: int = 2048, quant=None,
-                 device=None):
+                 device=None, threshold: float | None = None, mesh=None,
+                 plane=None, packed: bool = False):
+        if mesh is not None or plane is not None:
+            raise _later("mesh= and plane=", "queue A item 13")
+        if packed:
+            raise _later("packed=True", "queue A item 11")
         cfg = cfg or ANNConfig()
         device = resolve_device(device)
         self.build_seconds: dict = {}
@@ -42,14 +52,16 @@ class Index:
             raise ValueError("stages= only applies when the pipeline runs "
                              "(not with graph=)")
         self.engine = ANNEngine(X, cfg, k=k, graph=graph, quant=quant,
-                                device=device)
+                                device=device, threshold=threshold)
 
     @classmethod
     def build(cls, X, cfg: ANNConfig | None = None, *, k: int = 10,
-              stages=None, tile: int = 2048, device=None) -> "Index":
+              stages=None, tile: int = 2048, device=None,
+              threshold: float | None = None, mesh=None) -> "Index":
         """Run the staged build pipeline (``cfg.build_pipeline``) on
         ``device`` and wrap the result in an `Index`."""
-        return cls(X, cfg, k=k, stages=stages, tile=tile, device=device)
+        return cls(X, cfg, k=k, stages=stages, tile=tile, device=device,
+                   threshold=threshold, mesh=mesh)
 
     @classmethod
     def from_numpy(cls, X, graph_arrays, cfg: ANNConfig | None = None, *,
@@ -78,6 +90,23 @@ class Index:
         """Which procedure a batch of this size takes ("small"/"large");
         a live delta shard's brute-force population counts."""
         return self.engine.regime(batch)
+
+    def warmup(self, k: int | None = None) -> int:
+        """Make every reachable (regime, bucket) entry of the engine's
+        cache (on the card: capture its CUDA graph); returns the number of
+        fresh entries."""
+        return self.engine.warmup(k=k)
+
+    def serve(self, *, router=None, **qos):
+        """A running :class:`~repro_torch.serve.queue.MicroBatcher` over
+        this index.  QoS knobs pass through: ``max_wait_ms`` (coalescing
+        window), ``max_batch`` (dispatch cap; submits at or above it take
+        the bypass lane); per request ``submit(..., deadline_ms=)``."""
+        if router is not None:
+            raise _later("Index.serve(router=)", "queue A item 13")
+        from repro_torch.serve.queue import MicroBatcher
+
+        return MicroBatcher(self.engine, **qos)
 
     # -- streaming mutability -----------------------------------------------
 
@@ -137,6 +166,15 @@ class Index:
     @property
     def device(self):
         return self.engine.device
+
+    @property
+    def plane(self):
+        return self.engine.plane
+
+    @property
+    def calibration(self):
+        """The fitted regime split, when ``regime_calibration="probe"``."""
+        return self.engine.calibration
 
     def __repr__(self) -> str:
         g = self.graph

@@ -130,6 +130,3 @@ class ANNConfig:
             raise _later("db_bf16=True", "queue A item 13")
         if "layout" in self.build_pipeline:
             raise _later("the 'layout' build stage", "queue A item 11")
-        if self.regime_calibration == "probe":
-            raise _later("regime_calibration='probe'",
-                         "queue A item 7 (calibrate)")

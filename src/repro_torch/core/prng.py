@@ -16,6 +16,7 @@ replacement, uniform) — exactly the calls the reference makes.
 from __future__ import annotations
 
 import math
+import numbers
 
 import numpy as np
 import torch
@@ -44,16 +45,23 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def key(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.key(seed)`` for a seed that fits int32: [2] int64."""
+    """``jax.random.key(seed)`` for a seed that fits int32: [2] int64.
+    Made on the device by a fill, not copied from the host, so a search
+    can be captured into a CUDA graph (capture refuses a pageable copy)."""
     seed = int(seed)
-    return torch.tensor([(seed >> 32) & _MASK if seed > _MASK else 0,
-                         seed & _MASK], dtype=torch.int64, device=device)
+    hi = (seed >> 32) & _MASK if seed > _MASK else 0
+    return torch.where(torch.arange(2, device=device) == 0, hi, seed & _MASK)
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: keys [..., 2] x data (int or tensor
-    broadcastable to the key's batch shape) -> keys."""
-    data = torch.as_tensor(data, device=k.device).to(torch.int64) & _MASK
+    broadcastable to the key's batch shape) -> keys.  An int is filled in
+    on the key's device (no host copy: capturable)."""
+    if isinstance(data, numbers.Integral):
+        data = torch.full((), int(data) & _MASK, dtype=torch.int64,
+                          device=k.device)
+    else:
+        data = torch.as_tensor(data, device=k.device).to(torch.int64) & _MASK
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 

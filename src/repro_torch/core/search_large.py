@@ -124,8 +124,8 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         # exact per-query byte table; marks are monotone, so a masked set
         # of 1s equals the reference's scatter-max
         V = torch.zeros((B, N), dtype=torch.uint8, device=dev)
-        r2 = rows[:, None].expand_as(init_ids)
-        V[r2[init_ok], init_ids[init_ok].long()] = 1
+        V.scatter_reduce_(1, init_ids.long().clamp(0, N - 1),
+                          init_ok.to(torch.uint8), reduce="amax")
     else:
         V = full((B, mv_seg, segv), N, torch.int32)
         V_ptr = torch.zeros((B, mv_seg), dtype=torch.int32, device=dev)
@@ -142,10 +142,10 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         u_d = flat_d[rows, pidx]
         u = flat_i[rows, pidx]
         empty = u_d >= INF
-        C_d2 = flat_d.clone()
-        C_ids2 = flat_i.clone()
-        C_d2[rows, pidx] = INF
-        C_ids2[rows, pidx] = N
+        # scatter_ takes its fill as a launch argument; an index_put of a
+        # Python number copies it from the host, which capture refuses
+        C_d2 = flat_d.clone().scatter_(1, pidx[:, None], INF)
+        C_ids2 = flat_i.clone().scatter_(1, pidx[:, None], N)
         C_d2 = C_d2.reshape(B, m_seg, seg)
         C_ids2 = C_ids2.reshape(B, m_seg, seg)
 
@@ -171,14 +171,17 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         elif exact_visited:
             in_any = V.gather(1, el) == 1
             new = ok & ~in_any & ~dup_here
-            V[rows[:, None].expand_as(el)[new], el[new]] = 1
+            V.scatter_reduce_(1, el, new.to(torch.uint8), reduce="amax")
         else:
             # ---- V.add(u) (circular segment insert) -------------------
             vs = u_safe % mv_seg
             slot = V_ptr[rows, vs].long() % segv
             live = ~now_done  # updated in place: the old V is not reused
-            V[rows[live], vs[live], slot[live]] = u_safe[live].to(torch.int32)
-            V_ptr[rows[live], vs[live]] += 1
+            # one slot a row, rewritten with itself where the row is done:
+            # no boolean indexing, so no host sync (capturable)
+            V[rows, vs, slot] = torch.where(live, u_safe.to(torch.int32),
+                                            V[rows, vs, slot])
+            V_ptr[rows, vs] += live.to(torch.int32)
             # membership tests: e not in V, C, R (paper line 15)
             in_V = (V[rows[:, None], el % mv_seg] == e_safe[:, :, None]) \
                 .any(dim=2)

@@ -93,7 +93,7 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
     flat = torch.arange(S, device=dev)
     row_ids = (flat // t0) * t0_total + t0_offset + flat % t0
     row_keys = prng.fold_in(key, row_ids)                     # [S, 2]
-    Qs = torch.repeat_interleave(Q, t0, dim=0)                # [S, d]
+    Qs = Q[:, None, :].expand(B, t0, d).reshape(S, d)        # [S, d]
 
     # --- seeds: best of n_seeds randoms, half from the hubs when bridged --
     seeds = prng.randint(row_keys, (n_seeds,), 0, N)          # [S, n_seeds]

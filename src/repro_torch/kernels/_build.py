@@ -11,9 +11,14 @@ takes as long as the slowest file.
 Each C entry point takes raw pointers (``c_void_p``) and the CUDA stream,
 launches on that stream without synchronising, and returns
 ``cudaGetLastError()``; :func:`check` raises when it is not 0.
+
+Each wrapper counts its launches in :data:`LAUNCHES`, in Python.  A CUDA
+graph's replay runs no Python, so the graph's owner captures inside
+:func:`recording` and calls :func:`replayed` after each replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,6 +44,29 @@ LAUNCHES = dict.fromkeys(("gather_distances", "gather_distances_int8",
 
 _libs: dict = {}
 _lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def recording():
+    """Launches made inside are recorded, not counted: a CUDA graph's
+    capture records kernels without running them.  Yields a dict that
+    holds, on exit, the launches of each body made inside; the counters
+    are as they were before.  :func:`replayed` counts them once per replay
+    of the captured graph."""
+    before = dict(LAUNCHES)
+    recorded: dict = {}
+    try:
+        yield recorded
+    finally:
+        recorded.update((name, n - before[name]) for name, n in
+                        LAUNCHES.items() if n != before[name])
+        LAUNCHES.update(before)
+
+
+def replayed(recorded: dict) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    for name, n in recorded.items():
+        LAUNCHES[name] += n
 
 
 def nvcc() -> str:

@@ -48,7 +48,9 @@ def hash_bucket(ids: torch.Tensor, shift: int) -> torch.Tensor:
 
 def visited_filter_plain(table, ids, valid):
     """Plain PyTorch version (any device): one lane at a time, each a
-    vectorized probe of the row batch's buckets."""
+    vectorized probe of the row batch's buckets.  Each row writes one way a
+    lane (itself where the lane is not fresh), so no step indexes by a mask
+    and none waits for the host: a CUDA graph can capture it."""
     B, S, W = table.shape
     shift = shift_for(S)
     rows = torch.arange(B, device=table.device)
@@ -62,7 +64,8 @@ def visited_filter_plain(table, ids, valid):
         slot = torch.where(tab == VF_EMPTY, ways, W).amin(dim=1)
         f = valid[:, m] & ~hit & (slot < W)
         fresh[:, m] = f
-        table[rows[f], bk[f], slot[f]] = lid[f]
+        way = slot.clamp(max=W - 1)
+        table[rows, bk, way] = torch.where(f, lid, table[rows, bk, way])
     return table, fresh
 
 

@@ -1,16 +1,45 @@
 """The single-device execution plane: the database and the packed graph
 resident on one device, and the search procedure + arguments for each
-regime (the reference's ``serve/plane.py::SingleDevicePlane``).  PyTorch
-runs eagerly: there is no compile cache and no staging yet.
+regime (the reference's ``serve/plane.py::SingleDevicePlane``).
+
+The engine above it asks for one callable per (regime, bucket, k):
+:meth:`~SingleDevicePlane.compile` and
+:meth:`~SingleDevicePlane.compile_stream` take the bucket-padded query
+batch and return ``(ids, dists)``.  On a CUDA plane the callable is a
+:class:`CapturedSearch`, the search's kernel launches captured into a CUDA
+graph once and replayed at every call; on a CPU plane it is the eager
+search (nothing is captured on the CPU), so the engine is the same code on
+both.
+
+**A captured graph binds addresses, not arguments.**  A JAX executable
+takes its operands at each call; a CUDA graph replays against the
+buffers it was captured with.  So the plane keeps its operands in buffers
+it owns, and:
+
+* a generation swap that keeps every operand's shape (:meth:`rebind`,
+  compaction) copies the new corpus, graph and codes INTO those buffers:
+  every captured graph stays valid and answers for the new generation;
+* a swap that changes a shape allocates new buffers and moves the shape
+  token, whose first field counts the allocations (so a later swap back to
+  old shapes never matches a graph bound to freed buffers); a callable
+  whose token no longer matches raises :class:`StaleGeneration` and never
+  replays, and the engine re-dispatches and prunes;
+* the stream operands (:meth:`set_stream`: the tombstone mask, the delta
+  shard and, on an int8 plane, its codes and scales) are written into
+  buffers kept while the delta's capacity holds; only a capacity change
+  moves the stream token.
 
 A quantized plane (``cfg.quantization="int8"``) holds per-row int8 codes
 and scales beside the fp32 rows, made at install (or carried in with
 ``quant=``); searches score the codes and re-rank exactly against the fp32
-rows.  A mutable index attaches stream operands with :meth:`set_stream`
-(the tombstone mask and the delta shard, quantized too on a quantized
-plane) and searches through :meth:`search_stream`.
+rows.
+
+Host queries reach the device through :meth:`stage_query`: one pinned
+host buffer per (shape, dtype), copied with ``non_blocking=True``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -23,10 +52,56 @@ from repro_torch.core.distributed import PAD_ID, merge_topk
 from repro_torch.core.search_large import _large_batch_search
 from repro_torch.core.search_small import _small_batch_search
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 
 # small_batch_search's ranking width: the per-query candidate pool is
 # t0 * width entries
 SMALL_WIDTH = 32
+
+
+class StaleGeneration(RuntimeError):
+    """A callable's operand buffers are no longer the plane's (a compaction
+    swapped in a different-shaped corpus, or the delta shard grew); the
+    engine re-dispatches against the new token."""
+
+
+def _shapes_of(ops) -> tuple:
+    return tuple((tuple(a.shape), a.dtype) for a in ops)
+
+
+class CapturedSearch:
+    """One search captured into a CUDA graph, replayed at each call.
+
+    ``fn`` maps a query batch to ``(ids, dists)``.  It runs once eagerly on
+    a side stream (the warm-up PyTorch's CUDA-graph notes prescribe; its
+    launches count), then once under capture into ``pool`` with a static
+    query buffer (its launches are recorded, not counted: capture runs
+    nothing).  A call checks ``current()`` (which raises
+    :class:`StaleGeneration`), copies the batch into the static buffer,
+    replays, counts the recorded launches and returns the static
+    ``(ids, dists)``: read them before the next replay of any graph of
+    the same pool."""
+
+    def __init__(self, fn, shape, device, pool, current):
+        self._current = current
+        self.q = torch.zeros(shape, dtype=torch.float32, device=device)
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            fn(self.q)
+        main.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with _build.recording() as self.launches:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.out = fn(self.q)
+
+    def __call__(self, Qb):
+        self._current()
+        self.q.copy_(Qb)
+        self.graph.replay()
+        _build.replayed(self.launches)
+        return self.out
 
 
 class SingleDevicePlane:
@@ -38,6 +113,14 @@ class SingleDevicePlane:
         self.device = resolve_device(device)
         self.backend = hotpath.resolve_backend(
             getattr(cfg, "kernel_backend", "auto"), self.device)
+        self._allocs = 0            # operand buffer sets allocated so far
+        self._stream_allocs = 0     # stream buffer sets allocated so far
+        self._ops = ()
+        self._stream_bufs = None    # kept across clear_stream()
+        self.stream = None          # the attached stream operands
+        self._pool = None           # the CUDA graphs' shared memory pool
+        self._stage_bufs: dict = {}
+        self.stage_reuses = 0
         X = self._put(X, torch.float32)
         if graph is None:
             graph = build_graph(X, cfg, device=self.device)
@@ -47,51 +130,96 @@ class SingleDevicePlane:
     def quantized(self) -> bool:
         return getattr(self.cfg, "quantization", "none") == "int8"
 
-    def _put(self, A, dtype):
+    def _put(self, A, dtype, *, own: bool = False):
+        """``A`` on the plane's device as a contiguous ``dtype`` tensor;
+        with ``own``, never storage the caller still holds."""
         if isinstance(A, np.ndarray) and not A.flags.writeable:
             A = A.copy()  # np.asarray of a JAX array: torch wants it writable
-        return torch.as_tensor(A).to(device=self.device,
-                                     dtype=dtype).contiguous()
+        src = torch.as_tensor(A)
+        out = src.to(device=self.device, dtype=dtype).contiguous()
+        if own and out.untyped_storage().data_ptr() \
+                == src.untyped_storage().data_ptr():
+            out = out.clone()
+        return out
 
     def _install(self, X, graph, *, quant=None) -> None:
-        """Swap in a generation (clears the stream operands)."""
+        """Swap in a generation (clears the stream operands).  Operands of
+        the current shapes are copied into the current buffers; otherwise
+        the plane takes fresh buffers of its own."""
         if graph.device != self.device:
             raise ValueError(f"graph on {graph.device}, plane on "
                              f"{self.device}")
-        self.X = X
-        self.graph = graph
-        self.codes = self.scales = None
+        ops = (X, graph.neighbors, graph.lambdas, graph.degrees)
+        if graph.hubs is not None:
+            ops = ops + (graph.hubs,)
         if self.quantized:
             if quant is None:  # build / compaction; a loaded index passes it
                 quant = quantize_rows(X)
-            self.codes = self._put(quant[0], torch.int8)
-            self.scales = self._put(quant[1], torch.float32)
-            if self.codes.shape != X.shape \
-                    or self.scales.shape != X.shape[:1]:
+            codes = self._put(quant[0], torch.int8)
+            scales = self._put(quant[1], torch.float32)
+            if codes.shape != X.shape or scales.shape != X.shape[:1]:
                 raise ValueError(
-                    f"quant= codes {tuple(self.codes.shape)} / scales "
-                    f"{tuple(self.scales.shape)} do not match X "
+                    f"quant= codes {tuple(codes.shape)} / scales "
+                    f"{tuple(scales.shape)} do not match X "
                     f"{tuple(X.shape)}")
+            ops = ops + (codes, scales)
+        if _shapes_of(ops) == _shapes_of(self._ops):
+            for dst, src in zip(self._ops, ops):
+                dst.copy_(src)
+        else:
+            self._ops = tuple(self._put(a, a.dtype, own=True) for a in ops)
+            self._allocs += 1
+            self._stream_bufs = None
+            self.X = self._ops[0]
+            self.graph = dataclasses.replace(
+                graph, neighbors=self._ops[1], lambdas=self._ops[2],
+                degrees=self._ops[3],
+                hubs=None if graph.hubs is None else self._ops[4])
+            self.codes, self.scales = (self._ops[-2:] if self.quantized
+                                       else (None, None))
         self.stream = None
 
     # -- generations & streaming -------------------------------------------
 
+    def shape_token(self) -> tuple:
+        """The operand buffers' identity: (allocations, shapes).  Moves only
+        when a swap allocates new buffers."""
+        return (self._allocs, _shapes_of(self._ops))
+
+    def stream_token(self):
+        """The stream buffers' identity, (allocations, delta capacity);
+        None while no stream state is attached."""
+        if self.stream is None:
+            return None
+        return (self._stream_allocs, int(self.stream[1].shape[0]))
+
     def rebind(self, X, graph) -> None:
         """Swap to a new generation's corpus + graph (compaction); clears
-        the stream operands and re-quantizes on a quantized plane."""
+        the stream operands and re-quantizes on a quantized plane.  Same
+        shapes: copied into the current buffers, every captured graph stays
+        valid; else new buffers and a new shape token."""
         self._install(self._put(X, torch.float32), graph)
 
     def set_stream(self, alive, delta_X, delta_alive) -> None:
         """Attach / refresh the stream operands: ``alive`` [N] bool (the
         base tombstone mask), ``delta_X`` [cap, d] float32, ``delta_alive``
         [cap] bool.  A quantized plane adds the delta's int8 codes and
-        scales (delta_X stays fp32 for the exact re-rank)."""
+        scales (delta_X stays fp32 for the exact re-rank).  Written into
+        the kept buffers while their shapes (the capacity) hold."""
         stream = (self._put(alive, torch.bool),
                   self._put(delta_X, torch.float32),
                   self._put(delta_alive, torch.bool))
         if self.quantized:
             stream = stream + quantize_rows(stream[1])
-        self.stream = stream
+        bufs = self._stream_bufs
+        if bufs is not None and _shapes_of(bufs) == _shapes_of(stream):
+            for dst, src in zip(bufs, stream):
+                dst.copy_(src)
+        else:
+            bufs = self._stream_bufs = tuple(
+                self._put(a, a.dtype, own=True) for a in stream)
+            self._stream_allocs += 1
+        self.stream = bufs
 
     def clear_stream(self) -> None:
         self.stream = None
@@ -99,6 +227,33 @@ class SingleDevicePlane:
     @property
     def stream_active(self) -> bool:
         return self.stream is not None
+
+    # -- engine-facing geometry --------------------------------------------
+
+    def batch_multiple(self) -> int:
+        return 1
+
+    # -- H2D staging --------------------------------------------------------
+
+    def stage_query(self, Qh: np.ndarray) -> torch.Tensor:
+        """A host query batch on the device: through one pinned host
+        buffer per (shape, dtype), copied with ``non_blocking=True`` (the
+        engine reads each answer back before the next batch is staged, so
+        the buffer is free again by then).  A CPU plane needs no copy.
+        ``stage_reuses`` counts the batches that found their buffer."""
+        key = (tuple(Qh.shape), str(Qh.dtype))
+        host = torch.from_numpy(Qh)
+        if key in self._stage_bufs:
+            self.stage_reuses += 1
+        else:
+            self._stage_bufs[key] = (
+                torch.empty(Qh.shape, dtype=host.dtype, pin_memory=True)
+                if self.device.type == "cuda" else None)
+        if self.device.type != "cuda":
+            return host
+        buf = self._stage_bufs[key]
+        buf.copy_(host)
+        return buf.to(self.device, non_blocking=True)
 
     # -- searches -----------------------------------------------------------
 
@@ -126,15 +281,15 @@ class SingleDevicePlane:
         return fn, kwargs
 
     def search(self, kind: str, Q: torch.Tensor, k: int):
-        """Run one regime's procedure on a (padded) query batch on the
-        plane's device -> (ids [B, k] int32, dists [B, k])."""
+        """Run one regime's procedure eagerly on a (padded) query batch on
+        the plane's device -> (ids [B, k] int32, dists [B, k])."""
         fn, kwargs = self._search_args(kind, k)
         return fn(self.X, self.graph, Q, **kwargs)
 
     def search_stream(self, kind: str, Q: torch.Tensor, k: int):
-        """The mutable index's search: the base graph search with the
-        tombstone mask in its keep-masks, a brute-force scan of the delta
-        shard, and one ``merge_topk``.  Delta rows answer at ids
+        """The mutable index's search, eagerly: the base graph search with
+        the tombstone mask in its keep-masks, a brute-force scan of the
+        delta shard, and one ``merge_topk``.  Delta rows answer at ids
         ``N + slot``; rows with fewer than k live candidates pad with
         (-1, INF).  On a quantized plane the delta scan scores the int8
         codes, keeps the best ``rerank_mult * k`` slots and re-scores them
@@ -173,3 +328,53 @@ class SingleDevicePlane:
                 .expand_as(ed)
         return merge_topk(torch.cat([pool_i, d_ids], dim=1),
                           torch.cat([pool_d, ed], dim=1), k)
+
+    # -- the engine's callables ---------------------------------------------
+
+    def compile(self, kind: str, bucket: int, k: int):
+        """The frozen index's search for one (regime, bucket, k): a
+        callable taking the padded [bucket, d] float32 batch on the device
+        and returning (ids, dists) — a :class:`CapturedSearch` on the card,
+        the eager search on the CPU."""
+        return self._bind(lambda Q: self.search(kind, Q, k), bucket,
+                          streaming=False)
+
+    def compile_stream(self, kind: str, bucket: int, k: int):
+        """The same for the mutable index (:meth:`search_stream`); bound
+        to the current stream buffers too."""
+        if self.stream is None:
+            raise RuntimeError(
+                "no stream state attached (set_stream() installs the "
+                "tombstone mask + delta shard before compile_stream)")
+        return self._bind(lambda Q: self.search_stream(kind, Q, k), bucket,
+                          streaming=True)
+
+    def _bind(self, fn, bucket: int, *, streaming: bool):
+        token = self.shape_token()
+        stream_tok = self.stream_token() if streaming else None
+
+        def current():
+            if self.shape_token() != token or (
+                    streaming and self.stream_token() != stream_tok):
+                raise StaleGeneration(
+                    "callable bound to a previous generation's operand "
+                    "buffers; re-dispatch against the new token")
+
+        if self.device.type != "cuda":
+            def call(Qb):
+                current()
+                return fn(Qb)
+            return call
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return CapturedSearch(fn, (bucket, self.X.shape[1]), self.device,
+                              self._pool, current)
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes of device memory the plane's CUDA graphs hold (the
+        segments of their shared pool); 0 before the first capture."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)

@@ -747,3 +747,148 @@ def test_flash_attention_rejects_mixed_types(dev):
         ops.flash_attention(q, q.bfloat16(), q.bfloat16())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention(q.half(), q.half(), q.half())
+
+
+# ----------------------------------------------------------------------
+# serving: the engine's CUDA graphs
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served():
+    """One small graph built on the card, and mutations for a live
+    delta (500 adds, a base row in 31 and an add in 7 deleted)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ds = make_clustered(n=3000, d=32, n_queries=300, seed=4)
+    cfg = dataclasses.replace(reduced(), bridge_hubs=64)
+    rng = np.random.default_rng(3)
+    V = (ds.X[rng.integers(0, 3000, 500)]
+         + 0.05 * rng.normal(size=(500, 32))).astype(np.float32)
+    graph = Index.build(ds.X, cfg, device="cuda").graph
+    return dict(ds=ds, cfg=cfg, V=V, graph=graph)
+
+
+def _served_index(served, **knobs):
+    cfg = dataclasses.replace(served["cfg"], **knobs)
+    return Index(served["ds"].X, cfg, graph=served["graph"], device="cuda")
+
+
+def _mutate(index, V):
+    new = index.add(V)
+    index.delete(np.arange(0, 3000, 31))
+    index.delete(new[::7])
+
+
+def _padded(Q, bucket):
+    Q = torch.from_numpy(Q).cuda()
+    return torch.cat([Q, Q[-1:].expand(bucket - Q.shape[0], -1)])
+
+
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("visited_mode", ["none", "hash"])
+def test_replay_equals_eager(served, visited_mode, quant, stream):
+    """Index.search replays the engine's captured graph: its ids and
+    dists equal an eager call of the same search bit for bit, in both
+    regimes, at the first replay and the next."""
+    index = _served_index(served, visited_filter=visited_mode,
+                          quantization=quant)
+    if stream:
+        _mutate(index, served["V"])
+    plane = index.plane
+    for B in (10, 300):
+        kind, bucket = index.regime(B), index.engine.bucket_for(B)
+        search = plane.search_stream if stream else plane.search
+        want = [t[:B].cpu().numpy() for t in search(
+            kind, _padded(served["ds"].Q[:B], bucket), 10)]
+        for _ in range(2):
+            ids, dists = index.search(served["ds"].Q[:B])
+            np.testing.assert_array_equal(ids, want[0])
+            np.testing.assert_array_equal(dists, want[1])
+    assert index.stats.compiles == 2 and index.stats.bucket_hits == 2
+    assert plane.graph_pool_bytes() > 0
+
+
+def test_replays_count_the_launches_recorded_at_capture(served):
+    """The eager warm-up counts (its kernels ran), the capture does not,
+    and each replay adds what the capture recorded."""
+    plane = _served_index(served, visited_filter="hash").plane
+    K.reset_launch_counts()
+    exe = plane.compile("large", 32, 10)
+    torch.cuda.synchronize()
+    warm = K.launch_counts()
+    assert {k: v for k, v in warm.items() if v} == exe.launches
+    assert all(exe.launches[k] > 0 for k in
+               ("gather_distances", "rank_merge", "visited_filter"))
+    Q = torch.zeros((32, 32), device="cuda")
+    exe(Q)
+    exe(Q)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {
+        k: v + 2 * exe.launches.get(k, 0) for k, v in warm.items()}
+
+
+def test_same_shape_rebind_keeps_the_graphs(served):
+    """A generation of the same shapes is copied into the captured
+    buffers: the old graphs answer as a fresh eager search of it."""
+    from repro_torch.ann import build_graph
+
+    ds, cfg = served["ds"], served["cfg"]
+    index = _served_index(served)
+    plane = index.plane
+    exes = {kind: plane.compile(kind, 32, 10) for kind in ("small", "large")}
+    X2 = ds.X[::-1].copy()
+    g2 = build_graph(X2, cfg, device="cuda")
+    token = plane.shape_token()
+    plane.rebind(X2, g2)
+    assert plane.shape_token() == token
+    fresh = Index(X2, cfg, graph=g2, device="cuda").plane
+    Q = _padded(ds.Q[:32], 32)
+    for kind, exe in exes.items():
+        got = [t.cpu() for t in exe(Q)]
+        want = [t.cpu() for t in fresh.search(kind, Q, 10)]
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_replay_after_a_shape_change_raises_stale_generation(served):
+    """A graph bound to freed buffers never replays: StaleGeneration; the
+    engine prunes it after a compaction and captures anew."""
+    from repro_torch.ann import build_graph
+    from repro_torch.serve.plane import StaleGeneration
+
+    ds, cfg = served["ds"], served["cfg"]
+    index = _served_index(served)
+    plane = index.plane
+    exe = plane.compile("small", 32, 10)
+    X3 = ds.X[:2000]
+    plane.rebind(X3, build_graph(X3, cfg, device="cuda"))
+    with pytest.raises(StaleGeneration):
+        exe(_padded(ds.Q[:32], 32))
+    index = _served_index(served)
+    index.search(ds.Q[:10])
+    index.add(served["V"][:4])
+    index.delete([5, 6])
+    index.search(ds.Q[:10])
+    assert len(index.engine._compiled) == 2
+    id_map = index.compact()
+    assert index.engine._compiled == {}
+    assert int((id_map >= 0).sum()) == index.X.shape[0] == 3002
+    ids, dists = index.search(ds.Q[:10])
+    assert index.stats.compiles == 3
+    kind, bucket = index.regime(10), index.engine.bucket_for(10)
+    want = [t[:10].cpu().numpy() for t in index.plane.search(
+        kind, _padded(ds.Q[:10], bucket), 10)]
+    np.testing.assert_array_equal(ids, want[0])
+    np.testing.assert_array_equal(dists, want[1])
+
+
+def test_staging_reuses_its_pinned_buffer(served):
+    plane = _served_index(served).plane
+    Qh = served["ds"].Q[:8]
+    a = plane.stage_query(Qh)
+    buf = plane._stage_bufs[((8, 32), "float32")]
+    b = plane.stage_query(Qh[::-1].copy())
+    assert buf.is_pinned() and plane._stage_bufs[((8, 32), "float32")] is buf
+    assert plane.stage_reuses == 1
+    assert a.is_cuda and torch.equal(a.cpu(), torch.from_numpy(Qh))
+    assert torch.equal(b.cpu(), torch.from_numpy(Qh[::-1].copy()))

@@ -37,7 +37,6 @@ def test_config_fields_and_defaults_match_reference():
 @pytest.mark.parametrize("kw,match", [
     (dict(db_bf16=True), "queue A item 13"),
     (dict(build_pipeline=("knn", "diversify", "layout")), "queue A item 11"),
-    (dict(regime_calibration="probe"), "queue A item 7"),
 ])
 def test_later_slice_knobs_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
