@@ -77,13 +77,29 @@ Phases, each printing its own lines:
    from 8 threads (dispatches, coalescing, recall@10 against the same rows
    as one batch); ``regime_calibration="probe"``'s fitted split, and B =
    10 with phase 8's live delta in both regimes.
+11. the locality-packed layout, on phase 3's graph: the port's
+   ``locality_order`` and ``apply_layout`` (seconds, ``span_stats`` of
+   both orders), the large hop's ``gather_distances`` and
+   ``gather_distances_int8`` on the same neighbour rows in either order
+   (device ms, each distance the same bits); then, with every counter at
+   0, the packed index served for fp32 and int8, both visited modes, B =
+   10 and 10240 (replay against eager as in phase 10, and ids and dists
+   bit for bit against phase 10's unpacked replays, or >= 99.9% of ids
+   equal and a finding), a stream (phase 8's mutations: no deleted id
+   returned, bit for bit against phase 10's unpacked stream replays, every
+   live added row at rank 1), a same-shape packed ``compact()`` at 2**17
+   rows (graphs kept, perm copied in, first replays equal an eager search
+   of the new generation), and ``Index.save`` / ``Index.load`` of the
+   packed int8 index with a live stream (seconds, bytes, the loaded
+   index's replays bit for bit); every ANN kernel body must launch.
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
 search through replays.  Each of them starts with every launch counter at
 0 and reads the counters at its end: an eager warm-up counts its
 launches, a capture none, and a replay those its capture recorded.  Each
-of the six ANN kernel bodies must have launched in them.  Phase 9's path must launch each of its five, attention
+of the six ANN kernel bodies must have launched in them, and again in
+phase 11's packed path.  Phase 9's path must launch each of its five, attention
 and SpMM exactly as often as their routes launch kernels.
 
 The line before the last is the JSON list of kernels; the last line is the
@@ -1421,11 +1437,13 @@ def median_ms(fn, n: int = SERVE_REPEATS) -> float:
     return statistics.median(times)
 
 
-def replay_vs_eager(index, Qh, label: str, *, stream: bool = False) -> dict:
+def replay_vs_eager(index, Qh, label: str, *, stream: bool = False,
+                    answers: dict | None = None) -> dict:
     """One batch through the engine (a replay of its captured graph) and
     through an eager call of the same search on the card, as the port
     searched before the engine captured: bit for bit equal, and the
-    median untraced latency of each, a trace of one replay."""
+    median untraced latency of each, a trace of one replay.  ``answers``
+    keeps the replay's (ids, dists) under ``label``."""
     import numpy as np
     import torch
 
@@ -1449,13 +1467,15 @@ def replay_vs_eager(index, Qh, label: str, *, stream: bool = False) -> dict:
     ids_e, d_e = eager()
     if not (np.array_equal(ids_r, ids_e) and np.array_equal(d_r, d_e)):
         raise AssertionError(f"{label}: replay and eager call differ")
+    if answers is not None:
+        answers[label] = (ids_r, d_r)
     eager_ms = median_ms(eager)
     replay_ms = median_ms(lambda: index.search(Qh))
     prof = traced(f"{label} replay", lambda: index.search(Qh))
     out = dict(regime=kind, bucket=bucket, capture_s=capture_s,
                eager_ms=eager_ms, replay_ms=replay_ms,
                busy_share=prof["busy_share"],
-               device_busy_ms=prof["device_busy_ms"],
+               device_busy_ms=prof["device_busy_ms"], hop_ms=prof["hop_ms"],
                wall_ms_traced=prof["wall_ms"], bitwise_equal=True)
     log(f"[serve] {label} regime={kind} bucket={bucket}: replay == eager "
         f"bit for bit; median of {SERVE_REPEATS} untraced: eager "
@@ -1466,10 +1486,12 @@ def replay_vs_eager(index, Qh, label: str, *, stream: bool = False) -> dict:
     return out
 
 
-def serve_phase(ds, cfg, graph, n, d, n_queries, dev) -> dict:
+def serve_phase(ds, cfg, graph, n, d, n_queries, dev,
+                answers: dict | None = None) -> dict:
     """Phase 10 on phase 3's graph: replays against eager calls, graph
     reuse across compactions, the micro-batching queue and the probe
-    calibration with phase 8's live delta."""
+    calibration with phase 8's live delta.  ``answers`` keeps each
+    replay's (ids, dists) for phase 11."""
     import threading
 
     import numpy as np
@@ -1487,7 +1509,8 @@ def serve_phase(ds, cfg, graph, n, d, n_queries, dev) -> dict:
                 graph=graph, device=dev)
             for B in (10, n_queries):
                 label = f"{quant} {visited} B={B}"
-                out[label] = replay_vs_eager(index, ds.Q[:B], label)
+                out[label] = replay_vs_eager(index, ds.Q[:B], label,
+                                             answers=answers)
             out[f"{quant} {visited} pool_bytes"] = pool = \
                 index.plane.graph_pool_bytes()
             log(f"[serve] {quant} {visited}: graph pool "
@@ -1505,7 +1528,8 @@ def serve_phase(ds, cfg, graph, n, d, n_queries, dev) -> dict:
     mutate(index)
     for B in (10, n_queries):
         label = f"stream none B={B}"
-        out[label] = replay_vs_eager(index, ds.Q[:B], label, stream=True)
+        out[label] = replay_vs_eager(index, ds.Q[:B], label, stream=True,
+                                     answers=answers)
     out["stream pool_bytes"] = pool = index.plane.graph_pool_bytes()
     log(f"[serve] stream: graph pool {pool / 2**20:.1f} MiB")
     del index
@@ -1652,6 +1676,336 @@ def serve_phase(ds, cfg, graph, n, d, n_queries, dev) -> dict:
     del index
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 11: the locality-packed layout and the versioned artifact
+# --------------------------------------------------------------------------
+
+def hop_layout_bench(X, Xp, quant, quant_p, graph, packed, perm, inv, Q,
+                     gen) -> dict:
+    """The large hop's gathers on the same neighbour rows in either order:
+    node ``u``'s row of the unpacked graph against node ``inv[u]``'s row
+    of the packed one (the same neighbours, packed ids), ``u`` drawn at
+    random a query.  Each distance must be the same bits in either order;
+    the device ms of each, timed unpacked, packed, packed, unpacked."""
+    import torch
+
+    from repro_torch.kernels import l2dist
+
+    N = X.shape[0]
+    B = Q.shape[0]
+    u = torch.randint(0, N, (B,), generator=gen, device=X.device)
+    idx_u = graph.neighbors[u].contiguous()
+    idx_p = packed.neighbors[inv[u].long()].contiguous()
+    ext_p = torch.where(idx_p < N, perm[idx_p.long().clamp(max=N - 1)],
+                        idx_p)
+    o_u = torch.argsort(idx_u, dim=1, stable=True)
+    o_p = torch.argsort(ext_p, dim=1, stable=True)
+    if not torch.equal(idx_u.gather(1, o_u), ext_p.gather(1, o_p)):
+        raise AssertionError("the packed rows hold other neighbours")
+    Q3 = Q[:, None, :].contiguous()
+    out = {}
+    for name, (Xu, Xq, sc_u, sc_p) in (
+            ("gather_distances", (X, Xp, None, None)),
+            ("gather_distances_int8", (quant[0], quant_p[0], quant[1],
+                                       quant_p[1]))):
+        def call_u():
+            return l2dist.gather_distances(Q3, Xu, idx_u, idx_u < N,
+                                           scales=sc_u)
+
+        def call_p():
+            return l2dist.gather_distances(Q3, Xq, idx_p, idx_p < N,
+                                           scales=sc_p)
+
+        du = call_u()[:, 0].gather(1, o_u)
+        dp = call_p()[:, 0].gather(1, o_p)
+        same = bool(torch.equal(du.view(torch.int32), dp.view(torch.int32)))
+        times = {"u": [], "p": []}
+        for tag in ("u", "p", "p", "u"):
+            times[tag].append(cuda_ms(call_u if tag == "u" else call_p, 20,
+                                      repeats=3, ahead=True))
+        out[name] = dict(device_ms_unpacked=min(times["u"]),
+                         device_ms_packed=min(times["p"]),
+                         bitwise_equal=same)
+        log(f"[layout] {name} hop large [{B}, 1, {idx_u.shape[1]}]: "
+            f"device_ms unpacked {min(times['u']):.4f}, packed "
+            f"{min(times['p']):.4f} (least of 2 each, timed u p p u); each "
+            f"(query, row) distance the same bits in either order: {same}")
+    out["hop_groups_coalesced"] = {
+        "unpacked": span_share(idx_u, N), "packed": span_share(idx_p, N)}
+    return out
+
+
+def span_share(idx, n: int, G: int = 8) -> float:
+    """The share of a gather's aligned G-lane groups that are one run of
+    consecutive rows below ``n`` (``span_stats``' rule, for rows drawn
+    from an n-row graph)."""
+    import torch
+
+    g3 = idx.long().reshape(idx.shape[0], -1, G)
+    run = g3 == g3[:, :, :1] + torch.arange(G, device=idx.device)
+    return float((run.all(2) & (g3 < n).all(2)).float().mean())
+
+
+def equal_share(a, b, label: str, what: str, finding: str) -> dict:
+    """Two (ids, dists) answers: bit for bit, or at least 99.9% of ids
+    equal (then a finding that names ``finding``, or, where every
+    distance is the same bits, the tie order)."""
+    import numpy as np
+
+    ids_eq = float((a[0] == b[0]).mean())
+    d_eq = float((a[1].view(np.uint32) == b[1].view(np.uint32)).mean())
+    if ids_eq == 1.0 and d_eq == 1.0:
+        log(f"[layout] {label}: == {what} bit for bit")
+    else:
+        why = finding if d_eq < 1.0 else (
+            "every distance the same bits: only ids at equal distances "
+            "differ, which R (and the base top-k a stream merges) orders "
+            "by internal id through rank_merge; the fp32 large search "
+            "returns R's prefix with no merge on external ids")
+        log(f"[layout] FINDING {label}: not bit for bit against {what}: "
+            f"ids equal {ids_eq:.6%}, dists {d_eq:.6%} ({why})")
+        if ids_eq < 0.999:
+            raise AssertionError(f"{label}: ids equal {ids_eq:.4%} of "
+                                 f"{what}'s, under 99.9%")
+    return dict(ids_equal=ids_eq, dists_equal=d_eq)
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def layout_phase(ds, cfg, graph, n, d, n_queries, dev, answers,
+                 serve) -> tuple:
+    """Phase 11 on phase 3's graph: the port's locality_order and
+    apply_layout, the hop's gathers in either order, the packed index
+    served (bit for bit against phase 10's unpacked replays), streamed,
+    compacted (at 2**17) and saved and loaded.  Returns (record, the
+    launches of the packed path's run)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.ann import Index
+    from repro_torch.ann import layout as L
+    from repro_torch.ann.convert import graph_from_numpy
+    from repro_torch.ann.quantize import quantize_rows
+    from repro_torch.data.synthetic import recall_at_k
+
+    out: dict = {}
+    cfg_p = dataclasses.replace(
+        cfg, build_pipeline=tuple(cfg.build_pipeline) + ("layout",))
+    # ---- the layout of phase 3's graph, on the host
+    t0 = time.perf_counter()
+    nb, lam, deg, hubs = (t.cpu().numpy() for t in (
+        graph.neighbors, graph.lambdas, graph.degrees, graph.hubs))
+    fetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perm = L.locality_order(nb, starts=hubs)
+    order_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, nb2, lam2, deg2, hubs2 = L.apply_layout(perm, ds.X, nb, lam, deg,
+                                               hubs)
+    apply_s = time.perf_counter() - t0
+    packed = graph_from_numpy(nb2, lam2, deg2, hubs2, perm, device=dev)
+    stats = {"unpacked": L.span_stats(nb), "packed": L.span_stats(nb2)}
+    out.update(fetch_s=fetch_s, locality_order_s=order_s,
+               apply_layout_s=apply_s, span_stats=stats)
+    log(f"[layout] n={n}: locality_order {order_s:.2f} s, apply_layout "
+        f"{apply_s:.2f} s (the graph to the host {fetch_s:.2f} s)")
+    for tag, st in stats.items():
+        log(f"[layout] span_stats {tag}: group {st['group']}, rows a copy "
+            f"{st['rows_per_copy']:.4f}, groups coalesced "
+            f"{st['frac_coalesced']:.4%} ({st['n_coalesced']} of "
+            f"{st['n_groups']})")
+    del nb, lam, deg, nb2, lam2, deg2
+
+    # ---- the large hop's gathers, packed against unpacked
+    X = torch.as_tensor(ds.X, device=dev)
+    p_dev = packed.perm.long()
+    inv = torch.empty_like(p_dev).scatter_(
+        0, p_dev, torch.arange(n, device=dev))
+    Xp = X[p_dev]
+    quant = quantize_rows(X)
+    quant_p = (quant[0][p_dev], quant[1][p_dev])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    out["hop"] = hop = hop_layout_bench(
+        X, Xp, quant, quant_p, graph, packed, packed.perm, inv,
+        torch.as_tensor(ds.Q[:n_queries], device=dev), gen)
+    log("[layout] the hop's rows, aligned groups of 8 lanes that are one "
+        "run of rows: " + ", ".join(
+            f"{tag} {v:.4%}" for tag, v in hop["hop_groups_coalesced"]
+            .items()))
+    lane_kernels = [k for k in ("gather_distances", "gather_distances_int8")
+                    if not hop[k]["bitwise_equal"]]
+    finding = ("per-pair distances differ by lane position in "
+               + ", ".join(lane_kernels) if lane_kernels else
+               "no kernel's per-pair distance moved: the hops' rank_merge "
+               "orders equal distances by internal id")
+    del X, Xp, quant, quant_p, inv
+    torch.cuda.empty_cache()
+
+    # ---- the packed path, with every counter at 0
+    K.reset_launch_counts()
+    served: dict = {}
+    for quant_mode in ("none", "int8"):
+        for visited in ("none", "hash"):
+            index = Index(ds.X, dataclasses.replace(
+                cfg_p, visited_filter=visited, quantization=quant_mode),
+                graph=packed, device=dev)
+            for B in (10, n_queries):
+                label = f"{quant_mode} {visited} B={B}"
+                served[label] = r = replay_vs_eager(
+                    index, ds.Q[:B], "packed " + label, answers=answers)
+                r.update(equal_share(answers["packed " + label],
+                                     answers[label], "packed " + label,
+                                     "phase 10's unpacked replay", finding))
+                if B == n_queries:
+                    hop = "gather_row8_kernel" if quant_mode == "int8" \
+                        else "gather_rowq_kernel"
+                    log(f"[layout] {label}: traced replay busy "
+                        f"{r['device_busy_ms']:.2f} ms packed, "
+                        f"{serve[label]['device_busy_ms']:.2f} ms unpacked"
+                        f" (phase 10), {hop} {r['hop_ms'][hop]:.2f} / "
+                        f"{serve[label]['hop_ms'][hop]:.2f} ms; median "
+                        f"replay {r['replay_ms']:.3f} ms packed, "
+                        f"{serve[label]['replay_ms']:.3f} ms unpacked")
+            del index
+            torch.cuda.empty_cache()
+    out["serve"] = served
+
+    # ---- a stream on the packed fp32 index (phase 8's mutations)
+    _, V, del_base, del_add, dead, _ = stream_mutations(n, d)
+    index = Index(ds.X, cfg_p, graph=packed, device=dev)
+    new = index.add(V)
+    index.delete(del_base)
+    index.delete(del_add)
+    stream = {}
+    for B in (10, n_queries):
+        label = f"stream none B={B}"
+        stream[label] = r = replay_vs_eager(
+            index, ds.Q[:B], "packed " + label, stream=True,
+            answers=answers)
+        r.update(equal_share(answers["packed " + label], answers[label],
+                             "packed " + label,
+                             "phase 10's unpacked replay", finding))
+        ids = answers["packed " + label][0]
+        if dead[ids[(ids >= 0) & (ids < dead.size)]].any():
+            raise AssertionError(f"packed {label}: a deleted id returned")
+    live = np.flatnonzero(~dead[n:])
+    first = []
+    for lo in range(0, len(live), n_queries):   # one captured bucket
+        rows = live[lo:lo + n_queries]
+        Qv = V[np.pad(rows, (0, n_queries - len(rows)), mode="edge")]
+        first.append(index.search(Qv)[0][:len(rows), 0])
+    found = float((np.concatenate(first) == new[live]).mean())
+    stream["live_adds_at_rank_1"] = found
+    log(f"[layout] packed stream: {len(new)} adds, {len(del_base)} base "
+        f"and {len(del_add)} added ids deleted; no deleted id returned; "
+        f"live added rows found at rank 1: {found:.4%}")
+    if found != 1.0:
+        raise AssertionError("a live added row missed rank 1 on the "
+                             "packed index")
+    out["stream"] = stream
+    del index
+    torch.cuda.empty_cache()
+
+    # ---- a packed compaction, at 2**17 rows (same shapes: graphs kept)
+    n_c = min(n, 1 << 17)
+    Xc = ds.X[:n_c]
+    t0 = time.perf_counter()
+    index = Index.build(Xc, cfg_p, device=dev)
+    build_c_s = time.perf_counter() - t0
+    Qc = {B: ds.Q[:B] for B in (10, n_queries)}
+    for Q in Qc.values():
+        index.search(Q)
+    m = 1024
+    gone = np.arange(0, n_c, n_c // m)[:m]
+    index.delete(gone)
+    added = index.add(V[:m])
+    for Q in Qc.values():
+        index.search(Q)
+    entries, compiles = len(index.engine._compiled), index.stats.compiles
+    perm_buf = index.graph.perm
+    t0 = time.perf_counter()
+    id_map = index.compact()
+    compact_s = time.perf_counter() - t0
+    if index.stats.compiles != compiles or index.graph.perm is not perm_buf \
+            or len(index.engine._compiled) != entries:
+        raise AssertionError("a same-shape packed compaction captured anew")
+    if (id_map[gone] != -1).any() or index.graph.perm is None:
+        raise AssertionError("packed compaction: id_map or perm wrong")
+    fresh = Index(index.X, cfg_p, graph=index.graph, device=dev,
+                  packed=True).plane
+    for B, Q in Qc.items():
+        got = index.search(Q)
+        kind, bucket = index.regime(B), index.engine.bucket_for(B)
+        Qp = np.pad(Q, ((0, bucket - B), (0, 0)), mode="edge")
+        want = [t[:B].cpu().numpy() for t in fresh.search(
+            kind, torch.from_numpy(Qp).to(dev), 10)]
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"packed compaction B={B}: the first "
+                                 "replay differs from an eager search")
+    if not (id_map[added] == n_c - m + np.arange(m)).all():
+        raise AssertionError("packed compaction: added rows renumbered "
+                             "out of order")
+    out["compaction"] = dict(n=n_c, build_s=build_c_s,
+                             build_stage_s=dict(index.build_seconds),
+                             compact_s=compact_s, graphs_kept=entries)
+    log(f"[layout] packed compaction at n={n_c}: build {build_c_s:.2f} s ("
+        + " ".join(f"{k}={v:.2f}s" for k, v in index.build_seconds.items())
+        + f"); {m} deletes + {m} adds compacted in {compact_s:.2f} s "
+        f"(rebuild and layout), {entries} graphs kept, perm copied into "
+        "its buffer; first replays == eager search of the new generation; "
+        "id_map external")
+    del index, fresh
+    torch.cuda.empty_cache()
+
+    # ---- save and load the packed int8 index with a live stream
+    index = Index(ds.X, dataclasses.replace(cfg_p, quantization="int8"),
+                  graph=packed, device=dev)
+    index.add(V)
+    index.delete(del_base)
+    index.delete(del_add)
+    for B in (10, n_queries):
+        index.search(ds.Q[:B])                # capture
+    before = {B: index.search(ds.Q[:B]) for B in (10, n_queries)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(path)
+        del index
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = Index.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for B, (ids, dists) in before.items():
+        for _ in range(2):                    # capture, then a replay
+            got = loaded.search(ds.Q[:B])
+        if not (np.array_equal(got[0], ids)
+                and np.array_equal(got[1], dists)):
+            raise AssertionError(f"loaded index B={B}: replays differ from "
+                                 "the saved index's")
+    rec = recall_at_k(before[10][0], ds.gt[:10], 10)
+    out["artifact"] = dict(save_s=save_s, load_s=load_s, bytes=nbytes,
+                           stream_count=loaded.engine.stream.delta.count)
+    log(f"[layout] artifact (packed int8, live stream of "
+        f"{loaded.engine.stream.delta.count} adds): save {save_s:.2f} s, "
+        f"load {load_s:.2f} s, {nbytes} bytes ({nbytes / 2**20:.1f} MiB); "
+        f"the loaded index's replays == the saved index's bit for bit "
+        f"(B=10 recall@10 {rec:.4f})")
+    del loaded
+    torch.cuda.empty_cache()
+    return out, K.launch_counts()
 
 
 # --------------------------------------------------------------------------
@@ -2078,8 +2432,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 10: serving ------------------------------------------------
-    record["serve"] = serve_phase(ds, cfg, graph, n, d, args.queries, dev)
-    del graph
+    answers: dict = {}
+    record["serve"] = serve_phase(ds, cfg, graph, n, d, args.queries, dev,
+                                  answers=answers)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the locality-packed layout and the artifact ------------
+    record["layout"], phase_launches["11"] = layout_phase(
+        ds, cfg, graph, n, d, args.queries, dev, answers, record["serve"])
+    log("[launches] phase 11 " + json.dumps(phase_launches["11"]))
+    missing = [k for k in ANN_BODIES if phase_launches["11"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the packed path: "
+                             f"{missing}")
+    for k in ANN_BODIES:
+        launches[k] += phase_launches["11"][k]
+    del graph, answers
     torch.cuda.empty_cache()
 
     # ---- phase 9: the kernel API ------------------------------------------

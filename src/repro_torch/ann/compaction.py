@@ -10,12 +10,16 @@ the plane's buffers, so every captured CUDA graph keeps serving; one of
 new shapes gets new buffers, and the engine drops the entries bound to the
 old ones.  Compaction densifies ids: the returned ``id_map``
 (int64 [n_base + n_delta_slots], old global id -> new id, -1 for deleted
-rows) is the caller's bridge for external id bookkeeping.
+rows) is the caller's bridge for external id bookkeeping.  On a packed
+index the rows are un-permuted to external order first, and the rebuild
+runs the config's pipeline, ``"layout"`` included, so the new generation
+is packed again.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.ann.layout import unpack_rows
 from repro_torch.ann.pipeline import build_graph
 
 
@@ -57,7 +61,13 @@ def compact(engine, *, tile: int = 2048) -> np.ndarray:
             raise ValueError(
                 "cannot compact to an empty index: every row is "
                 "tombstoned; add vectors or rebuild")
-        X_eff, id_map = effective_corpus(stream, engine.X.cpu().numpy())
+        base_X = engine.X.cpu().numpy()
+        perm = engine.graph.perm
+        if perm is not None:
+            # a packed plane's rows are in packed order, but the mutation
+            # log and id_map speak external ids: un-permute first
+            base_X = unpack_rows(base_X, perm.cpu().numpy())
+        X_eff, id_map = effective_corpus(stream, base_X)
         plane = engine.plane
         graph = build_graph(X_eff, engine.cfg, tile=tile, device=plane.device)
         plane.rebind(X_eff, graph)

@@ -1,6 +1,7 @@
 """Carry state built by the JAX package into the port, from numpy.
 
-* the graph: the fields of the reference's ``PackedGraph``;
+* the graph: the fields of the reference's ``PackedGraph`` (``perm``
+  included);
 * the streaming state: ``(base_alive, delta_X, delta_alive)`` as the
   reference's ``StreamState.device_view()`` gives it, with the number of
   assigned delta slots (its ``stream.delta.count``).
@@ -20,10 +21,11 @@ from repro_torch.core.diversify import PackedGraph
 from repro_torch.device import resolve_device
 
 
-def graph_from_numpy(neighbors, lambdas, degrees, hubs=None, *,
+def graph_from_numpy(neighbors, lambdas, degrees, hubs=None, perm=None, *,
                      device) -> PackedGraph:
     """numpy (or array-like) packed-graph fields -> a PackedGraph of int32
-    tensors on ``device``."""
+    tensors on ``device``; ``perm`` is a packed graph's locality
+    permutation (new->old)."""
     device = resolve_device(device)
 
     def conv(a):
@@ -31,7 +33,8 @@ def graph_from_numpy(neighbors, lambdas, degrees, hubs=None, *,
 
     return PackedGraph(neighbors=conv(neighbors), lambdas=conv(lambdas),
                        degrees=conv(degrees),
-                       hubs=None if hubs is None else conv(hubs))
+                       hubs=None if hubs is None else conv(hubs),
+                       perm=None if perm is None else conv(perm))
 
 
 

@@ -130,3 +130,20 @@ class StreamState:
         later host-side mutation."""
         return (self.base_alive.copy(), self.delta.X.copy(),
                 self.delta.alive.copy())
+
+    @classmethod
+    def restore(cls, base_alive, delta_X, delta_alive, *,
+                min_cap: int = MIN_CAP) -> "StreamState":
+        """Rebuild from persisted arrays (artifact format v3 and later):
+        the delta arrays hold only the assigned slots, whose count is
+        their length; the capacity re-pads here."""
+        base_alive = np.asarray(base_alive, bool)
+        delta_X = np.asarray(delta_X, np.float32)
+        delta_alive = np.asarray(delta_alive, bool)
+        st = cls(base_alive.shape[0], delta_X.shape[1], min_cap=min_cap)
+        st.base_alive[:] = base_alive
+        count = delta_X.shape[0]
+        if count:
+            st.delta.append(delta_X)
+            st.delta.alive[:count] = delta_alive
+        return st

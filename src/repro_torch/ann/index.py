@@ -8,6 +8,8 @@
     new_ids = index.add(V)                   # into the brute-force delta
     index.delete(ids_to_drop)                # tombstones
     id_map = index.compact()                 # rebuild, next generation
+    index.save("/models/tsdg-1m")            # the versioned artifact
+    index = Index.load("/models/tsdg-1m")    # restart: no rebuild
     index.warmup()                           # capture every reachable graph
     with index.serve(max_wait_ms=2.0) as mb: # micro-batching queue + QoS
         fut = mb.submit(q, deadline_ms=15.0)
@@ -15,6 +17,9 @@
 ``cfg.quantization="int8"`` scores per-row int8 codes in-kernel and
 re-ranks exactly against the fp32 rows.  ``cfg.regime_calibration="probe"``
 fits the regime split from timed probe batches (:attr:`Index.calibration`).
+A ``"layout"`` stage in ``cfg.build_pipeline`` stores the rows in the
+locality-packed order (:mod:`repro_torch.ann.layout`); ids in and out stay
+external, and the answers are those of the unpacked graph.
 
 Everything runs on the CUDA device unless ``device="cpu"`` is passed.
 """
@@ -29,9 +34,12 @@ from repro_torch.serve.engine import ANNEngine
 class Index:
     """A built TSDG index plus its serving engine.
 
-    ``graph=`` takes a prebuilt :class:`~repro_torch.core.diversify.
-    PackedGraph` (on the index's device) and skips the pipeline.  After a
-    build, ``build_seconds`` holds each stage's wall seconds.
+    Construct with :meth:`build` or :meth:`load`.  ``graph=`` takes a
+    prebuilt :class:`~repro_torch.core.diversify.PackedGraph` (on the
+    index's device) and skips the pipeline; a graph with ``perm`` gathers
+    ``X`` (and ``quant``'s rows) into packed order, unless ``packed=True``
+    says they already are (how :meth:`load` restores a packed artifact).
+    After a build, ``build_seconds`` holds each stage's wall seconds.
     ``threshold=`` overrides the §4 regime split."""
 
     def __init__(self, X, cfg: ANNConfig | None = None, *, k: int = 10,
@@ -40,8 +48,6 @@ class Index:
                  plane=None, packed: bool = False):
         if mesh is not None or plane is not None:
             raise _later("mesh= and plane=", "queue A item 13")
-        if packed:
-            raise _later("packed=True", "queue A item 11")
         cfg = cfg or ANNConfig()
         device = resolve_device(device)
         self.build_seconds: dict = {}
@@ -52,7 +58,8 @@ class Index:
             raise ValueError("stages= only applies when the pipeline runs "
                              "(not with graph=)")
         self.engine = ANNEngine(X, cfg, k=k, graph=graph, quant=quant,
-                                device=device, threshold=threshold)
+                                device=device, threshold=threshold,
+                                packed=packed)
 
     @classmethod
     def build(cls, X, cfg: ANNConfig | None = None, *, k: int = 10,
@@ -69,8 +76,8 @@ class Index:
                    device=None) -> "Index":
         """An index over state built elsewhere, e.g. by the JAX package:
         ``graph_arrays`` maps the fields of a ``PackedGraph``
-        (``neighbors``, ``lambdas``, ``degrees``, optional ``hubs``) to
-        numpy arrays; ``quant`` is the plane's ``(codes, scales)``;
+        (``neighbors``, ``lambdas``, ``degrees``, optional ``hubs`` and
+        ``perm``) to numpy arrays, with ``X`` in external order; ``quant`` is the plane's ``(codes, scales)``;
         ``stream`` the mutation state ``(base_alive, delta_X,
         delta_alive, count)`` (see :mod:`repro_torch.ann.convert`)."""
         from repro_torch.ann.convert import graph_from_numpy
@@ -108,6 +115,26 @@ class Index:
 
         return MicroBatcher(self.engine, **qos)
 
+    # -- persistence --------------------------------------------------------
+
+    def save(self, path, *, aot: bool = True, extra_ks=()):
+        """Write the versioned artifact (format v5, the reference's layout:
+        graph, database, config, fingerprint, the stream's mutations);
+        :mod:`repro_torch.ann.artifact` has the format.  ``aot`` and
+        ``extra_ks`` are accepted for the reference's signature; no
+        executable is stored (the port's are CUDA graphs)."""
+        from repro_torch.ann.artifact import save_index
+
+        return save_index(self, path, aot=aot, extra_ks=extra_ks)
+
+    @classmethod
+    def load(cls, path, *, device=None) -> "Index":
+        """Restore an index saved by either package (formats v1-v5, single
+        plane) without rebuilding, on the card unless ``device="cpu"``."""
+        from repro_torch.ann.artifact import load_index
+
+        return load_index(cls, path, device=device)
+
     # -- streaming mutability -----------------------------------------------
 
     def add(self, V):
@@ -141,6 +168,8 @@ class Index:
 
     @property
     def X(self):
+        """The database on the device; on a packed index its rows are in
+        packed order (row ``i`` is external id ``graph.perm[i]``)."""
         return self.engine.X
 
     @property

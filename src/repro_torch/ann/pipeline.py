@@ -8,7 +8,10 @@ shared :class:`BuildState` and returns the
     supplies ``knn_ids``/``knn_dists``);
   * ``"diversify"`` — relaxed GD -> symmetrize -> soft GD, λ-sorted and
     truncated to ``max_degree``;
-  * ``"bridges"``   — hub cross-links (no-op when ``cfg.bridge_hubs == 0``).
+  * ``"bridges"``   — hub cross-links (no-op when ``cfg.bridge_hubs == 0``);
+  * ``"layout"``    — the locality-packed order (:mod:`repro_torch.ann.
+    layout`): relabel the graph so neighbours sit in adjacent rows, and
+    return the permutation as ``PackedGraph.perm``.
 
 A stage is ``fn(state) -> None`` mutating the state; :func:`register_stage`
 adds more by name.
@@ -44,6 +47,7 @@ class BuildState:
     lambdas: torch.Tensor | None = None
     degrees: torch.Tensor | None = None
     hubs: torch.Tensor | None = None
+    perm: torch.Tensor | None = None
 
 
 _STAGES: dict = {}
@@ -110,6 +114,35 @@ def _stage_bridges(s: BuildState) -> None:
     s.degrees = (s.neighbors < N).sum(dim=1, dtype=torch.int32)
 
 
+@register_stage("layout")
+def _stage_layout(s: BuildState) -> None:
+    """Locality-packed layout: re-number the nodes so a node's neighbours
+    hold adjacent ids.  Host-side numpy — the traversal is sequential and
+    runs once per build."""
+    import numpy as np
+
+    from repro_torch.ann import layout as L
+
+    if s.neighbors is None:
+        raise ValueError("'layout' must come after a graph-producing stage "
+                         "(e.g. 'diversify')")
+    dev = s.neighbors.device
+    nbrs = s.neighbors.cpu().numpy()
+    hubs = None if s.hubs is None else s.hubs.cpu().numpy()
+    perm = L.locality_order(nbrs, starts=hubs)
+    X2, nb2, lam2, deg2, hubs2 = L.apply_layout(
+        perm, s.X.cpu().numpy(), nbrs, s.lambdas.cpu().numpy(),
+        s.degrees.cpu().numpy(), hubs)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    s.X, s.neighbors, s.lambdas, s.degrees = (put(X2), put(nb2), put(lam2),
+                                              put(deg2))
+    s.hubs = None if hubs2 is None else put(hubs2)
+    s.perm = put(perm)
+
+
 def build_graph(X, cfg, *, stages=None, tile: int = 2048, knn_ids=None,
                 knn_dists=None, device=None,
                 timings: dict | None = None) -> PackedGraph:
@@ -142,4 +175,5 @@ def build_graph(X, cfg, *, stages=None, tile: int = 2048, knn_ids=None,
             "stage that sets state.neighbors/lambdas/degrees "
             "(e.g. 'diversify')")
     return PackedGraph(neighbors=state.neighbors, lambdas=state.lambdas,
-                       degrees=state.degrees, hubs=state.hubs)
+                       degrees=state.degrees, hubs=state.hubs,
+                       perm=state.perm)

@@ -129,4 +129,15 @@ class ANNConfig:
         if self.db_bf16:  # the reference reads it on the mesh path only
             raise _later("db_bf16=True", "queue A item 13")
         if "layout" in self.build_pipeline:
-            raise _later("the 'layout' build stage", "queue A item 11")
+            if self.gather_limit:
+                raise ValueError(
+                    "the 'layout' build stage re-sorts each neighbor row "
+                    "by packed id, destroying the λ-ascending prefix that "
+                    f"gather_limit={self.gather_limit} relies on; use "
+                    "gather_limit=0 with packed layouts")
+            if self.hop_width < self.max_degree:
+                raise ValueError(
+                    "packed layouts require hop_width >= max_degree "
+                    f"(got {self.hop_width} < {self.max_degree}): the "
+                    "small-batch chunked hop pairs lanes positionally, "
+                    "which is only permutation-equivariant in one chunk")

@@ -140,8 +140,10 @@ def soft_gd(X, adj_ids, adj_dists, *, lambda0: int, max_degree: int,
 class PackedGraph:
     """λ-sorted fixed-width adjacency (sentinel id = N), tensors on one
     device.  ``hubs`` — the bridge hub sample, also offered to the searches
-    as seed candidates.  ``perm`` (locality layout) is not in the port yet:
-    the searches raise when it is set."""
+    as seed candidates.  ``perm`` — the locality layout's new->old
+    permutation (:mod:`repro_torch.ann.layout`): rows, neighbour ids and
+    hubs are then in packed order, and the searches map ids back to the
+    external order (``None`` for an unpacked graph)."""
 
     neighbors: torch.Tensor  # [N, M] int32
     lambdas: torch.Tensor    # [N, M] int32 (ascending per row)

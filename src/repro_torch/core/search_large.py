@@ -9,8 +9,8 @@ reference's ``lax.scan`` over hops is a Python loop here with the same
 ``done`` masking; its seeds are the reference's ``jax.random`` draws.
 
 Ported options: ``visited="hash"``, ``exact_visited``, ``gather_limit``,
-``push_all_seeds``, ``alive`` and ``codes``/``scales`` with
-``rerank_mult``.  ``graph.perm`` raises ``NotImplementedError``.
+``push_all_seeds``, ``alive``, ``codes``/``scales`` with ``rerank_mult``
+and ``graph.perm`` (the locality-packed layout).
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.core import hotpath as HP
 from repro_torch.core import prng
-from repro_torch.core.search_small import _later_options, exact_rerank
+from repro_torch.core.search_small import (exact_rerank, packed_maps,
+                                           to_external)
 
 INF = HP.INF
 
@@ -48,7 +49,14 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
     every expansion's admission, so they never enter R or C.
     ``codes``/``scales``: seeds and expansions score the int8 codes; the
     top ``max(rerank_mult, 1) * k`` of the final R are re-scored exactly
-    against the fp32 X before the returned top-k."""
+    against the fp32 X before the returned top-k.
+
+    ``graph.perm`` (the locality layout): X, codes and the graph's ids are
+    in packed (internal) order; the seeds are drawn as external ids and
+    mapped in, every hash placement (C's segments, V's circular segments,
+    the visited filter) keys on the external id while C, R and V store
+    internal ids, ``alive`` is external, and R's ids leave as external ids
+    — so a packed graph answers as the unpacked one does."""
     N, d = X.shape
     B = Q.shape[0]
     dev = X.device
@@ -60,8 +68,16 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
     if visited == "hash" and exact_visited:
         raise ValueError("visited='hash' replaces the visited structures; "
                          "it cannot combine with exact_visited=True")
-    _later_options(graph)
     backend = HP.resolve_backend(backend, dev)
+    perm = graph.perm
+    if perm is not None and gather_limit:
+        raise ValueError(
+            "packed layouts re-sort neighbor rows by id, destroying the "
+            f"λ-ascending prefix gather_limit={gather_limit} relies on")
+    inv, alive_int = packed_maps(perm, N, alive)
+
+    def ext_hash(ids):  # the hash key of clamped (long) ids: external
+        return ids if perm is None else perm[ids].long()
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -70,6 +86,8 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
     row_keys = prng.fold_in(prng.key(seed, dev),
                             torch.arange(B, device=dev) + seed_offset)
     seeds = prng.randint(row_keys, (n_seeds,), 0, N)          # [B, n_seeds]
+    if perm is not None:  # the draws are external ids: map them in
+        seeds = inv[seeds.long()]
     if graph.hubs is not None:
         nh = graph.hubs.shape[0]
         hub_pick = prng.randint(prng.fold_in(row_keys, 1),
@@ -88,7 +106,7 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
     ss_ids = torch.sort(seeds, dim=1, stable=True).values
     dupm = torch.zeros_like(ss_ids, dtype=torch.bool)
     dupm[:, 1:] = ss_ids[:, 1:] == ss_ids[:, :-1]
-    seed_keep = ~dupm if alive is None else ~dupm & alive[ss_ids.long()]
+    seed_keep = ~dupm if alive is None else ~dupm & alive_int[ss_ids.long()]
     X_score = X if codes is None else codes  # int8 codes when quantized
     init_d, sids = HP.seed_select(Q, X_score, ss_ids, metric=metric,
                                   k=n_seeds, mask=seed_keep, backend=backend,
@@ -104,8 +122,9 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
     n_init = min(ef, n_seeds)
     R_ids[:, :n_init] = init_ids[:, :n_init]
     R_d[:, :n_init] = init_d[:, :n_init]
-    # C: hashed-segment batch insert of the seeds
-    seg_of = init_ids.clamp(0, N - 1) % m_seg
+    # C: hashed-segment batch insert of the seeds (keyed on external ids,
+    # so packed and unpacked graphs fill the same segments)
+    seg_of = ext_hash(init_ids.long().clamp(0, N - 1)) % m_seg
     smask = init_ok[:, None, :] & (seg_of[:, None, :] == segs[None, :, None])
     C_d, C_ids = _seg_merge(
         torch.cat([full((B, m_seg, seg), INF, torch.float32),
@@ -119,7 +138,7 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         # seeds go in up front (they are already in R and C)
         V, _ = HP.visited_filter(
             HP.visited_table(B, n_seeds + hops * Mdeg, device=dev),
-            init_ids, valid=init_ok, backend=backend)
+            to_external(perm, init_ids, N), valid=init_ok, backend=backend)
     elif exact_visited:
         # exact per-query byte table; marks are monotone, so a masked set
         # of 1s equals the reference's scatter-max
@@ -160,21 +179,23 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         ok = (lams_all[u_safe] < lambda_limit) & (e < N) & ~now_done[:, None]
         e_safe = e.clamp(0, N - 1)
         el = e_safe.long()
+        eh = ext_hash(el)
         if alive is not None:  # tombstoned neighbours never enter R or C
-            ok = ok & alive[el]
+            ok = ok & alive_int[el]
         # repeats within this neighbor list keep their first occurrence
         dup_here = ((e_safe[:, :, None] == e_safe[:, None, :])
                     & tril[None]).any(dim=2)
 
         if visited == "hash":
-            V, new = HP.visited_filter(V, e, valid=ok, backend=backend)
+            V, new = HP.visited_filter(V, to_external(perm, e, N), valid=ok,
+                                       backend=backend)
         elif exact_visited:
             in_any = V.gather(1, el) == 1
             new = ok & ~in_any & ~dup_here
             V.scatter_reduce_(1, el, new.to(torch.uint8), reduce="amax")
         else:
             # ---- V.add(u) (circular segment insert) -------------------
-            vs = u_safe % mv_seg
+            vs = ext_hash(u_safe) % mv_seg
             slot = V_ptr[rows, vs].long() % segv
             live = ~now_done  # updated in place: the old V is not reused
             # one slot a row, rewritten with itself where the row is done:
@@ -183,9 +204,9 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
                                             V[rows, vs, slot])
             V_ptr[rows, vs] += live.to(torch.int32)
             # membership tests: e not in V, C, R (paper line 15)
-            in_V = (V[rows[:, None], el % mv_seg] == e_safe[:, :, None]) \
+            in_V = (V[rows[:, None], eh % mv_seg] == e_safe[:, :, None]) \
                 .any(dim=2)
-            c_seg = el % m_seg
+            c_seg = eh % m_seg
             in_C = ((C_ids2[rows[:, None], c_seg] == e_safe[:, :, None])
                     & (C_d2[rows[:, None], c_seg] < INF)).any(dim=2)
             in_R = ((R_ids[:, None, :] == e_safe[:, :, None])
@@ -207,7 +228,7 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
 
         # ---- push into C: per-segment insert, evict most distant --------
         cand_mask = e_in[:, None, :] \
-            & ((el % m_seg)[:, None, :] == segs[None, :, None])
+            & ((eh % m_seg)[:, None, :] == segs[None, :, None])
         C_d3, C_ids3 = _seg_merge(
             torch.cat([C_d2, torch.where(cand_mask, ed[:, None, :], INF)],
                       dim=2),
@@ -221,9 +242,13 @@ def _large_batch_search(X, graph, Q, *, k: int = 10, ef: int = 64,
         done = now_done
 
     if codes is None:
-        return R_ids[:, :k].to(torch.int32), R_d[:, :k]
-    # R is (dist, id)-sorted and id-deduped: a prefix is the top pool
+        return to_external(perm, R_ids[:, :k], N).to(torch.int32), R_d[:, :k]
+    # R is (dist, id)-sorted and id-deduped: a prefix is the top pool.  Its
+    # internal ids index the packed fp32 rows; the last merge ranks the
+    # external ids, so its ties fall as on an unpacked graph
     rerank = min(max(rerank_mult, 1) * k, ef)
-    out_d, out_ids = exact_rerank(Q, X, R_d[:, :rerank], R_ids[:, :rerank],
-                                  k=k, metric=metric, backend=backend)
+    rr_ids = R_ids[:, :rerank]
+    out_d, out_ids = exact_rerank(Q, X, R_d[:, :rerank], rr_ids, k=k,
+                                  metric=metric, backend=backend,
+                                  out_ids=to_external(perm, rr_ids, N))
     return out_ids.to(torch.int32), out_d

@@ -10,9 +10,9 @@ random seeds are the same ``jax.random`` draws (:mod:`repro_torch.core.prng`),
 so the two packages run the same searches.
 
 Ported options: ``exact_merge``, ``visited="hash"``, the ``t0_offset``/
-``t0_total`` population placement, ``alive`` (the streaming tombstone mask)
-and ``codes``/``scales`` with ``rerank_mult`` (int8 residency with an exact
-fp32 re-rank).  ``graph.perm`` (layout) raises ``NotImplementedError``.
+``t0_total`` population placement, ``alive`` (the streaming tombstone mask),
+``codes``/``scales`` with ``rerank_mult`` (int8 residency with an exact
+fp32 re-rank) and ``graph.perm`` (the locality-packed layout).
 """
 from __future__ import annotations
 
@@ -24,20 +24,37 @@ from repro_torch.core import prng
 INF = HP.INF
 
 
-def _later_options(graph) -> None:
-    if graph.perm is not None:
-        raise NotImplementedError(
-            "graph.perm (layout) is not in the PyTorch port yet "
-            "(ROADMAP.md queue A item 11)")
+def packed_maps(perm, N: int, alive):
+    """(inv, alive_int) of a packed graph: ``inv`` [N] int32 old->new,
+    scattered on the device at each call, and the tombstone mask in packed
+    order.  ``(None, alive)`` for an unpacked graph."""
+    if perm is None:
+        return None, alive
+    p = perm.long()
+    inv = torch.zeros((N,), dtype=torch.int32, device=perm.device) \
+        .scatter_(0, p, torch.arange(N, dtype=torch.int32,
+                                      device=perm.device))
+    return inv, None if alive is None else alive[p]
 
 
-def exact_rerank(Q, X, d, ids, *, k: int, metric: str, backend: str):
+def to_external(perm, ids, N: int):
+    """Packed (internal) ids -> external ids; sentinels (>= N) stay."""
+    if perm is None:
+        return ids
+    return torch.where(ids < N, perm[ids.long().clamp(0, N - 1)], ids)
+
+
+def exact_rerank(Q, X, d, ids, *, k: int, metric: str, backend: str,
+                 out_ids=None):
     """Re-score the approximate survivors ``ids`` [B, r] exactly against
     the fp32 rows and keep the best k.  Lanes whose approximate distance
-    ``d`` is INF (masked by the merge) stay masked through the re-score."""
+    ``d`` is INF (masked by the merge) stay masked through the re-score.
+    ``out_ids`` (default ``ids``) are the ids the merge ranks and returns:
+    a packed graph's external ids for its internal rows."""
     ed = HP.neighbor_distances(Q, X, ids, metric=metric, mask=d < INF,
                                backend=backend)
-    return HP.rank_merge(ed, ids, keep=k, backend=backend)
+    return HP.rank_merge(ed, ids if out_ids is None else out_ids, keep=k,
+                         backend=backend)
 
 
 def _pad_cols(t, width: int, value):
@@ -74,7 +91,15 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
     final merge.  ``codes`` [N, d] int8 + ``scales`` [N] (int8 residency):
     seeds and hops score the codes; the final merge keeps the best
     ``max(rerank_mult, 1) * k`` distinct survivors and re-scores them
-    exactly against the fp32 X before the top-k."""
+    exactly against the fp32 X before the top-k.
+
+    ``graph.perm`` (the locality layout): X, codes and the graph's ids are
+    in packed (internal) order, but everything seen from outside stays in
+    the ORIGINAL ids — the random seeds are drawn externally and mapped in,
+    ``alive`` is external, the visited filter hashes external ids, and the
+    candidates are mapped back before the final (id, dist) dedup — so a
+    packed graph answers as the unpacked one does.  The hops' merges order
+    ties by internal id; the final merges by external id."""
     N, d = X.shape
     B = Q.shape[0]
     S = B * t0
@@ -85,8 +110,9 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
             "raise t0/width or lower k")
     if visited not in ("none", "hash"):
         raise ValueError(f"visited={visited!r} must be 'none' or 'hash'")
-    _later_options(graph)
     backend = HP.resolve_backend(backend, dev)
+    perm = graph.perm
+    inv, alive_int = packed_maps(perm, N, alive)
     half = width // 2
     key = prng.fold_in(prng.key(seed, dev), seed_offset)
     t0_total = t0 if t0_total is None else t0_total
@@ -97,12 +123,15 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
 
     # --- seeds: best of n_seeds randoms, half from the hubs when bridged --
     seeds = prng.randint(row_keys, (n_seeds,), 0, N)          # [S, n_seeds]
+    if perm is not None:  # the draws are external ids: map them in
+        seeds = inv[seeds.long()]
     if graph.hubs is not None:
         nh = graph.hubs.shape[0]
         hub_pick = prng.randint(prng.fold_in(row_keys, 1),
                                 (n_seeds // 2,), 0, nh)
+        # hubs hold internal ids at the same positions packed or not
         seeds[:, :n_seeds // 2] = graph.hubs[hub_pick.long()]
-    seed_mask = None if alive is None else alive[seeds.long()]
+    seed_mask = None if alive is None else alive_int[seeds.long()]
     X_score = X if codes is None else codes  # int8 codes when quantized
     sd1, si1 = HP.seed_select(Qs, X_score, seeds, metric=metric, k=1,
                               mask=seed_mask, backend=backend, scales=scales)
@@ -116,13 +145,19 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
     nbrs_all, lams_all = graph.neighbors, graph.lambdas
     M_deg = nbrs_all.shape[1]
     n_chunks = max(1, -(-M_deg // hop_width))
+    if perm is not None and n_chunks > 1:
+        raise ValueError(
+            f"packed layout requires hop_width >= max_degree (got "
+            f"{hop_width} < {M_deg}): the chunked R_temp argmin pairs "
+            "lanes positionally, which is only permutation-equivariant "
+            "when a hop is a single chunk")
     tril_w = torch.tril(torch.ones((width, width), dtype=torch.bool,
                                    device=dev), diagonal=-1)
     if visited == "hash":
         # <= M_deg fresh inserts per hop + the start node, per search row
         vtab = HP.visited_table(S, hops * M_deg + 1, device=dev)
-        vtab, _ = HP.visited_filter(vtab, u[:, None], valid=(u < N)[:, None],
-                                    backend=backend)
+        vtab, _ = HP.visited_filter(vtab, to_external(perm, u, N)[:, None],
+                                    valid=(u < N)[:, None], backend=backend)
     active = torch.ones((S,), dtype=torch.bool, device=dev)
 
     for _ in range(hops):
@@ -130,12 +165,13 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
         nbrs = nbrs_all[ui]                                   # [S, M]
         visit = lams_all[ui] < lambda_limit  # idx >= N masked by the primitive
         if alive is not None:  # tombstoned neighbours never enter a ranking
-            visit = visit & alive[nbrs.long().clamp(0, N - 1)]
+            visit = visit & alive_int[nbrs.long().clamp(0, N - 1)]
         if visited == "hash":
-            # already-seen ids drop to (INF, N) before scoring
+            # already-seen ids drop to (INF, N) before scoring; keyed on
+            # external ids, so the drops do not depend on the layout
             vtab, fresh = HP.visited_filter(
-                vtab, nbrs, valid=visit & (nbrs < N) & active[:, None],
-                backend=backend)
+                vtab, to_external(perm, nbrs, N),
+                valid=visit & (nbrs < N) & active[:, None], backend=backend)
             visit = fresh
             nbrs = torch.where(fresh, nbrs, torch.full_like(nbrs, N))
         dists = HP.neighbor_distances(Qs, X_score, nbrs, metric=metric,
@@ -204,7 +240,9 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
         active = active & improved
 
     # --- merge the t0 searches of each query (dedup keeps each id's best) -
-    cand_ids = rij_ids.reshape(B, t0 * width)
+    # external ids before the (id, dist) sort, so the copy that survives
+    # the dedup is the one an unpacked graph keeps
+    cand_ids = to_external(perm, rij_ids.reshape(B, t0 * width), N)
     cand_d = rij_d.reshape(B, t0 * width)
     o = lexsort_id_dist(cand_ids, cand_d)
     sid = cand_ids.gather(1, o)
@@ -221,6 +259,9 @@ def _small_batch_search(X, graph, Q, *, k: int = 10, t0: int = 32,
     rerank = min(max(rerank_mult, 1) * k, sd2.shape[1])
     rr_d, rr_ids = HP.rank_merge(sd2, sid, keep=rerank, mask=keep_lane,
                                  backend=backend)
-    out_d, out_ids = exact_rerank(Q, X, rr_d, rr_ids, k=k, metric=metric,
-                                  backend=backend)
+    # rr_ids are external; the packed fp32 rows take internal ids
+    gi = rr_ids if perm is None else torch.where(
+        rr_ids < N, inv[rr_ids.long().clamp(0, N - 1)], rr_ids)
+    out_d, out_ids = exact_rerank(Q, X, rr_d, gi, k=k, metric=metric,
+                                  backend=backend, out_ids=rr_ids)
     return out_ids.to(torch.int32), out_d

@@ -145,14 +145,12 @@ class ANNEngine:
                  packed: bool = False):
         if mesh is not None or plane is not None or cache_from is not None:
             raise _later("mesh=, plane= and cache_from=", "queue A item 13")
-        if packed:
-            raise _later("packed=True", "queue A item 11")
         self.cfg = cfg or ANNConfig()
         self.k = k
         self.stats = ServeStats()
         self.buckets = tuple(sorted(self.cfg.serve_buckets))
         self.plane = SingleDevicePlane(X, self.cfg, graph=graph, quant=quant,
-                                       device=device)
+                                       device=device, packed=packed)
         self.stream: StreamState | None = None  # the host mutation log
         self.lock = threading.RLock()
         # (regime, bucket, k, backend, quantization, shape token,
@@ -360,16 +358,24 @@ class ANNEngine:
             self.query(np.zeros((probe, d), np.float32), k=k)
         return self.stats.compiles - before
 
-    # -- not in the port yet ----------------------------------------------------
+    # -- the reference's AOT cache: no CUDA-graph form ------------------------
+
+    @staticmethod
+    def _no_aot(what: str):
+        return NotImplementedError(
+            f"{what}: the port's cache entries are CUDA graphs, which bind "
+            "device addresses and have no serialized form, so an artifact "
+            "carries no executables; a loaded index captures its graphs at "
+            "warmup() or on first use")
 
     def export_executable(self, kind: str, bucket: int, k: int | None = None):
-        raise _later("export_executable", "queue A item 12")
+        raise self._no_aot("export_executable")
 
     def aot_operands(self):
-        raise _later("aot_operands", "queue A item 12")
+        raise self._no_aot("aot_operands")
 
     def prime_executable(self, kind: str, bucket: int, k: int, call):
-        raise _later("prime_executable", "queue A item 12")
+        raise self._no_aot("prime_executable")
 
     # -- streaming mutability ----------------------------------------------
 
@@ -429,12 +435,22 @@ class ANNEngine:
         self.plane.set_stream(*self.stream.device_view())
 
     def restore_stream(self, base_alive, delta_X, delta_alive,
-                       count) -> None:
-        """Attach mutation state carried in from numpy
-        (:func:`repro_torch.ann.convert.stream_from_numpy`)."""
+                       count: int | None = None) -> None:
+        """Attach mutation state carried in from numpy.  With ``count``,
+        the delta arrays are capacity-padded, as the reference's
+        ``device_view()`` gives them
+        (:func:`repro_torch.ann.convert.stream_from_numpy`); without, they
+        hold only the assigned slots, as an artifact stores them
+        (:meth:`repro_torch.ann.delta.StreamState.restore`)."""
         from repro_torch.ann.convert import stream_from_numpy
 
-        stream = stream_from_numpy(base_alive, delta_X, delta_alive, count)
+        if count is None:
+            stream = StreamState.restore(
+                base_alive, delta_X, delta_alive,
+                min_cap=getattr(self.cfg, "delta_min_cap", 256))
+        else:
+            stream = stream_from_numpy(base_alive, delta_X, delta_alive,
+                                       count)
         if stream.n_base != self.X.shape[0] \
                 or stream.delta.d != self.X.shape[1]:
             raise ValueError(

@@ -34,6 +34,12 @@ and scales beside the fp32 rows, made at install (or carried in with
 ``quant=``); searches score the codes and re-rank exactly against the fp32
 rows.
 
+A packed graph (``graph.perm``, the locality layout) keeps its rows in
+packed order: ``X`` and ``quant`` arrive in external order and are
+gathered by ``perm`` at install, unless ``packed=True`` says they already
+are (an artifact load).  ``perm`` rides last among the owned operands, so a
+same-shape packed generation copies its new permutation in too.
+
 Host queries reach the device through :meth:`stage_query`: one pinned
 host buffer per (shape, dtype), copied with ``non_blocking=True``.
 """
@@ -107,12 +113,16 @@ class CapturedSearch:
 class SingleDevicePlane:
     """Database + graph (+ int8 codes, + stream operands) on one device."""
 
+    name = "single"
+
     def __init__(self, X, cfg, *, graph: PackedGraph | None = None,
-                 quant: tuple | None = None, device=None):
+                 quant: tuple | None = None, device=None,
+                 packed: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = hotpath.resolve_backend(
             getattr(cfg, "kernel_backend", "auto"), self.device)
+        self.gather_fused = getattr(cfg, "gather_fused", "auto")
         self._allocs = 0            # operand buffer sets allocated so far
         self._stream_allocs = 0     # stream buffer sets allocated so far
         self._ops = ()
@@ -124,7 +134,7 @@ class SingleDevicePlane:
         X = self._put(X, torch.float32)
         if graph is None:
             graph = build_graph(X, cfg, device=self.device)
-        self._install(X, graph, quant=quant)
+        self._install(X, graph, quant=quant, packed=packed)
 
     @property
     def quantized(self) -> bool:
@@ -142,19 +152,26 @@ class SingleDevicePlane:
             out = out.clone()
         return out
 
-    def _install(self, X, graph, *, quant=None) -> None:
-        """Swap in a generation (clears the stream operands).  Operands of
-        the current shapes are copied into the current buffers; otherwise
-        the plane takes fresh buffers of its own."""
+    def _install(self, X, graph, *, quant=None,
+                 packed: bool = False) -> None:
+        """Swap in a generation (clears the stream operands).  ``X`` (and
+        ``quant``'s rows) arrive in external order and are gathered into
+        packed order when the graph carries ``perm``, unless ``packed``.
+        Operands of the current shapes are copied into the current
+        buffers; otherwise the plane takes fresh buffers of its own."""
         if graph.device != self.device:
             raise ValueError(f"graph on {graph.device}, plane on "
                              f"{self.device}")
+        perm = graph.perm
+        gather = perm is not None and not packed
+        if gather:
+            X = X[perm.long()]
         ops = (X, graph.neighbors, graph.lambdas, graph.degrees)
         if graph.hubs is not None:
             ops = ops + (graph.hubs,)
         if self.quantized:
             if quant is None:  # build / compaction; a loaded index passes it
-                quant = quantize_rows(X)
+                quant, gather = quantize_rows(X), False  # rows packed already
             codes = self._put(quant[0], torch.int8)
             scales = self._put(quant[1], torch.float32)
             if codes.shape != X.shape or scales.shape != X.shape[:1]:
@@ -162,7 +179,11 @@ class SingleDevicePlane:
                     f"quant= codes {tuple(codes.shape)} / scales "
                     f"{tuple(scales.shape)} do not match X "
                     f"{tuple(X.shape)}")
+            if gather:
+                codes, scales = codes[perm.long()], scales[perm.long()]
             ops = ops + (codes, scales)
+        if perm is not None:
+            ops = ops + (perm,)  # rides last; counted in the shape token
         if _shapes_of(ops) == _shapes_of(self._ops):
             for dst, src in zip(self._ops, ops):
                 dst.copy_(src)
@@ -174,8 +195,10 @@ class SingleDevicePlane:
             self.graph = dataclasses.replace(
                 graph, neighbors=self._ops[1], lambdas=self._ops[2],
                 degrees=self._ops[3],
-                hubs=None if graph.hubs is None else self._ops[4])
-            self.codes, self.scales = (self._ops[-2:] if self.quantized
+                hubs=None if graph.hubs is None else self._ops[4],
+                perm=None if perm is None else self._ops[-1])
+            at = 4 + (graph.hubs is not None)
+            self.codes, self.scales = (self._ops[at:at + 2] if self.quantized
                                        else (None, None))
         self.stream = None
 
@@ -194,11 +217,31 @@ class SingleDevicePlane:
         return (self._stream_allocs, int(self.stream[1].shape[0]))
 
     def rebind(self, X, graph) -> None:
-        """Swap to a new generation's corpus + graph (compaction); clears
-        the stream operands and re-quantizes on a quantized plane.  Same
-        shapes: copied into the current buffers, every captured graph stays
-        valid; else new buffers and a new shape token."""
+        """Swap to a new generation's corpus (external order) + graph
+        (compaction); clears the stream operands and re-quantizes on a
+        quantized plane.  Same shapes: copied into the current buffers
+        (a packed graph's ``perm`` too), every captured graph stays valid;
+        else new buffers and a new shape token."""
         self._install(self._put(X, torch.float32), graph)
+
+    def fingerprint(self) -> dict:
+        """What the plane's searches depend on, under the reference's
+        fingerprint names (``torch`` in place of ``jax``)."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        return {
+            "torch": torch.__version__,
+            "platform": "gpu" if cuda else "cpu",
+            "device_kind": torch.cuda.get_device_name(dev) if cuda
+            else "cpu",
+            "n_devices": torch.cuda.device_count() if cuda else 1,
+            "kernel_backend": self.backend,
+            "gather_fused": self.gather_fused,
+            "plane": self.name,
+            "quantization": getattr(self.cfg, "quantization", "none"),
+            "layout": self.graph.perm is not None,
+            "visited_filter": getattr(self.cfg, "visited_filter", "none"),
+        }
 
     def set_stream(self, alive, delta_X, delta_alive) -> None:
         """Attach / refresh the stream operands: ``alive`` [N] bool (the

@@ -892,3 +892,109 @@ def test_staging_reuses_its_pinned_buffer(served):
     assert plane.stage_reuses == 1
     assert a.is_cuda and torch.equal(a.cpu(), torch.from_numpy(Qh))
     assert torch.equal(b.cpu(), torch.from_numpy(Qh[::-1].copy()))
+
+
+# ----------------------------------------------------------------------
+# the locality-packed layout and the artifact
+# ----------------------------------------------------------------------
+
+PACKED_PIPE = ("knn", "diversify", "bridges", "layout")
+
+
+@pytest.fixture(scope="module")
+def packed(served):
+    """The served graph in the locality-packed order."""
+    from repro_torch.ann import layout
+    from repro_torch.ann.convert import graph_from_numpy
+
+    g = served["graph"]
+    arrays = [t.cpu().numpy() for t in (g.neighbors, g.lambdas, g.degrees,
+                                        g.hubs)]
+    perm = layout.locality_order(arrays[0], starts=arrays[3])
+    _, *laid = layout.apply_layout(perm, served["ds"].X, *arrays)
+    return graph_from_numpy(*laid, perm, device="cuda")
+
+
+def _packed_index(served, packed, **knobs):
+    cfg = dataclasses.replace(served["cfg"], build_pipeline=PACKED_PIPE,
+                              **knobs)
+    return Index(served["ds"].X, cfg, graph=packed, device="cuda")
+
+
+def _same_bits(a, b):
+    assert torch.equal(a[0], b[0])
+    assert torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("visited_mode", ["none", "hash"])
+def test_packed_search_equals_unpacked(served, packed, visited_mode, quant):
+    """The kernels on a packed graph answer as on the unpacked one, bit
+    for bit, in both regimes (eager calls of each procedure)."""
+    knobs = dict(visited_filter=visited_mode, quantization=quant)
+    u = _served_index(served, **knobs).plane
+    p = _packed_index(served, packed, **knobs).plane
+    K.reset_launch_counts()
+    for B in (10, 300):
+        Q = _padded(served["ds"].Q[:B], B)
+        for kind in ("small", "large"):
+            _same_bits(u.search(kind, Q, 10), p.search(kind, Q, 10))
+    gather = "gather_distances" + ("_int8" if quant == "int8" else "")
+    assert K.launch_counts()[gather] > 0
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_packed_replay_equals_eager(served, packed, quant):
+    index = _packed_index(served, packed, visited_filter="hash",
+                          quantization=quant)
+    _mutate(index, served["V"])
+    plane = index.plane
+    for B in (10, 300):
+        kind, bucket = index.regime(B), index.engine.bucket_for(B)
+        want = [t[:B].cpu().numpy() for t in plane.search_stream(
+            kind, _padded(served["ds"].Q[:B], bucket), 10)]
+        for _ in range(2):
+            ids, dists = index.search(served["ds"].Q[:B])
+            np.testing.assert_array_equal(ids, want[0])
+            np.testing.assert_array_equal(dists, want[1])
+        assert not np.isin(ids, np.arange(0, 3000, 31)).any()
+    assert index.stats.compiles == 2 and index.stats.bucket_hits == 2
+
+
+def test_same_shape_packed_rebind_keeps_the_graphs(served, packed):
+    """A packed generation of the same shapes copies its corpus, graph
+    and perm into the captured buffers: the old graphs answer as a fresh
+    eager search of it."""
+    from repro_torch.ann import build_graph
+
+    ds = served["ds"]
+    index = _packed_index(served, packed)
+    plane = index.plane
+    perm_buf = plane.graph.perm
+    exes = {kind: plane.compile(kind, 32, 10) for kind in ("small", "large")}
+    X2 = ds.X[::-1].copy()
+    g2 = build_graph(X2, index.cfg, device="cuda")
+    token = plane.shape_token()
+    plane.rebind(X2, g2)
+    assert plane.shape_token() == token and plane.graph.perm is perm_buf
+    assert torch.equal(perm_buf, g2.perm)
+    fresh = Index(X2, index.cfg, graph=g2, device="cuda").plane
+    Q = _padded(ds.Q[:32], 32)
+    for kind, exe in exes.items():
+        _same_bits([t.clone() for t in exe(Q)], fresh.search(kind, Q, 10))
+
+
+def test_save_load_on_the_card_is_bitwise(served, packed, tmp_path):
+    index = _packed_index(served, packed, visited_filter="hash",
+                          quantization="int8")
+    _mutate(index, served["V"])
+    want = {B: index.search(served["ds"].Q[:B]) for B in (10, 300)}
+    index.save(tmp_path / "idx")
+    back = Index.load(tmp_path / "idx")
+    assert back.device.type == "cuda" and back.graph.perm is not None
+    assert back.engine.stream.delta.count == index.engine.stream.delta.count
+    assert torch.equal(back.plane.codes, index.plane.codes)
+    for B, (ids, dists) in want.items():
+        got = back.search(served["ds"].Q[:B])
+        np.testing.assert_array_equal(got[0], ids)
+        np.testing.assert_array_equal(got[1], dists)

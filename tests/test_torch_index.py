@@ -36,7 +36,6 @@ def test_config_fields_and_defaults_match_reference():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(db_bf16=True), "queue A item 13"),
-    (dict(build_pipeline=("knn", "diversify", "layout")), "queue A item 11"),
 ])
 def test_later_slice_knobs_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -143,9 +142,18 @@ def test_from_numpy_round_trip(built):
     assert torch.equal(ti.graph.neighbors, g.neighbors)
     Q = built["ds"].Q[:10]
     assert np.array_equal(ti.search(Q)[0], built["t"].search(Q)[0])
-    with pytest.raises(TypeError, match="perm"):
-        Index.from_numpy(built["ds"].X, dict(arrays, perm=None),
-                         built["t"].cfg, device="cpu")
+    # a packed graph's perm passes through; X stays in external order
+    from repro_torch.ann import layout
+
+    perm = layout.locality_order(arrays["neighbors"], starts=arrays["hubs"])
+    _, nb, lam, deg, hubs = layout.apply_layout(
+        perm, built["ds"].X, arrays["neighbors"], arrays["lambdas"],
+        arrays["degrees"], arrays["hubs"])
+    tp = Index.from_numpy(built["ds"].X, dict(
+        neighbors=nb, lambdas=lam, degrees=deg, hubs=hubs, perm=perm),
+        built["t"].cfg, device="cpu")
+    assert np.array_equal(tp.graph.perm.numpy(), perm)
+    assert np.array_equal(tp.search(Q)[0], built["t"].search(Q)[0])
 
 
 def test_data_generators_match_reference():

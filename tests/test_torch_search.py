@@ -22,7 +22,6 @@ from repro.data.synthetic import make_clustered, recall_at_k
 from repro_torch.ann import Index
 from repro_torch.ann.convert import graph_from_numpy
 from repro_torch.configs.tsdg_paper import reduced
-from repro_torch.core.diversify import PackedGraph
 from repro_torch.core.search_large import _large_batch_search as t_large
 from repro_torch.core.search_small import _small_batch_search as t_small
 
@@ -160,12 +159,3 @@ def test_argument_validation(world):
         t_small(X, G, Q, visited="bloom", **SMALL)
     with pytest.raises(ValueError, match="cannot combine"):
         t_large(X, G, Q, visited="hash", exact_visited=True, **LARGE)
-
-
-@pytest.mark.parametrize("search,kw", [(t_small, SMALL), (t_large, LARGE)])
-def test_later_slice_options_raise(world, search, kw):
-    X, G, Q = world["X"], world["graph"], world["Q"][:4]
-    permuted = PackedGraph(G.neighbors, G.lambdas, G.degrees, G.hubs,
-                           perm=torch.arange(1500, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        search(X, permuted, Q, **kw)

@@ -20,6 +20,10 @@ import torch
 
 from repro_torch.kernels import visited
 
+# the plain filter is small here: one thread, so the test workers running
+# beside this file keep their cores
+torch.set_num_threads(1)
+
 WARP = 32
 
 
