@@ -92,6 +92,25 @@ Phases, each printing its own lines:
    of the new generation), and ``Index.save`` / ``Index.load`` of the
    packed int8 index with a live stream (seconds, bytes, the loaded
    index's replays bit for bit); every ANN kernel body must launch.
+12. the sharded index, on phase 3's corpus, with every counter at 0:
+   ``Index.build(..., mesh=make_mesh((4, 2), ("data", "model")))`` (the
+   seconds of each stage of each shard); on its shards fp32 and int8, both
+   visited modes, B = 10 and 10240: each replay equal to an eager call bit
+   for bit, recall@10 beside phase 4's and 7's single index, the median
+   of 20 replays, the graph pool's bytes, and the same shards on the
+   plain path (recall within 0.01, ids equal on >= 98%); a (1, 2) grid
+   over phase 3's own graph answering as phase 10's single-plane replays
+   bit for bit; ``db_bf16=True`` (recall beside fp32); phase 8's
+   mutations on the grid (no deleted id, every live added row at rank 1,
+   recall against a brute force over the effective corpus), then
+   ``compact()`` and a search of the new generation; ``Index.save`` /
+   ``Index.load(mesh=)`` of the packed int8 grid index with a live stream
+   (shard-major, seconds and bytes, replays bit for bit); the router:
+   ``"sharded:4"`` against a (4, 1) grid bit for bit, ``"replicated:2"``
+   against its donor, 256 single submits from 8 threads (no retry, no
+   lost future).  Every ANN kernel body and ``gather_distances_bf16``
+   must launch; the bf16 body is then held to its plain version at the
+   large hop's [10240, 1, 32] and the seeds' [10240, 1, 128].
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
@@ -99,7 +118,7 @@ search through replays.  Each of them starts with every launch counter at
 0 and reads the counters at its end: an eager warm-up counts its
 launches, a capture none, and a replay those its capture recorded.  Each
 of the six ANN kernel bodies must have launched in them, and again in
-phase 11's packed path.  Phase 9's path must launch each of its five, attention
+phase 11's packed path and phase 12's sharded one (with the bf16 body).  Phase 9's path must launch each of its five, attention
 and SpMM exactly as often as their routes launch kernels.
 
 The line before the last is the JSON list of kernels; the last line is the
@@ -138,6 +157,8 @@ ANN_BODIES = ("gather_distances", "gather_distances_int8", "rank_merge",
 API_BODIES = ("distance_matrix", "bitonic_sort", "embedding_bag",
               "packed_spmm", "flash_attention")
 KNN_QUERIES = 1024            # exact k-NN: phase 3's first 1,024 queries
+MESH_SHAPE = (4, 2)           # phase 12's grid: DB shards x query columns
+LAYOUT_PIPE = ("knn", "diversify", "bridges", "layout")
 SERVE_REPEATS = 20            # phase 10: untraced calls a latency median
 TOPK_KERNELS = ("warp_topk_kernel", "select_kernel", "cta_sort_kernel")
 # the search hop's kernels (csrc/l2dist.cu's row bodies, csrc/visited.cu)
@@ -260,8 +281,10 @@ def card_name() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
-    """``quant`` = (codes, scales) checks the int8 body on X's codes."""
+def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None,
+                 bf16=False):
+    """``quant`` = (codes, scales) checks the int8 body on X's codes;
+    ``bf16`` the bf16 row body on ``X`` (bf16 rows; ``xn`` their norms)."""
     import torch
 
     from repro_torch.kernels import l2dist
@@ -288,7 +311,8 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
 
     def library(lo=0, hi=S):
         ic = idx[lo:hi].long().clamp(0, N - 1)
-        V = X[ic] if sc is None else Xs[ic].float() * sc[ic][:, :, None]
+        V = X[ic].float() if sc is None else \
+            Xs[ic].float() * sc[ic][:, :, None]
         Q3 = V if self_q else Q[lo:hi]
         return torch.bmm(Q3, V.transpose(1, 2))
 
@@ -317,7 +341,8 @@ def check_gather(X, xn, name, S, Kq, C, self_q, gen, quant=None):
     kq = C if self_q else Kq
     # self-query tiles read every row; the row kernel skips masked lanes
     lanes = S * C if self_q else n_valid
-    row_bytes = d * 4 if sc is None else d + 4        # int8: codes + scale
+    # int8: codes + scale; bf16: 2 bytes an element
+    row_bytes = d + 4 if sc is not None else d * (2 if bf16 else 4)
     nbytes = lanes * row_bytes + (0 if self_q else S * Kq * d * 4) \
         + S * C * 5 + S * kq * C * 4
     flops = 2 * lanes * kq * d + 2 * lanes * d + (0 if self_q else
@@ -2009,6 +2034,397 @@ def layout_phase(ds, cfg, graph, n, d, n_queries, dev, answers,
 
 
 # --------------------------------------------------------------------------
+# phase 12: the sharded index — the mesh plane, bf16 rows, the shard-major
+# artifact and the router
+# --------------------------------------------------------------------------
+
+def check_bf16_body(ds, cfg, n_queries, dev, gen) -> list:
+    """The bf16 row body against its plain version at the large hop's
+    shape [B, 1, 32] and the seeds' [B, 1, 128], on the corpus in bf16,
+    within 1e-5 * (qn + xn) of its upcast rows."""
+    import torch
+
+    Xb = torch.from_numpy(ds.X).to(dev).to(torch.bfloat16)
+    xn = (Xb.double() ** 2).sum(1)
+    rows = [check_gather(Xb, xn, name, n_queries, 1, C, False, gen,
+                         bf16=True)
+            for name, C in (("hop large", cfg.max_degree),
+                            ("seeds large", cfg.large_n_seeds))]
+    del Xb, xn
+    return rows
+
+
+def mesh_search(index, Qh, label: str, single_recall, gt, ref=None,
+                repeats: int = SERVE_REPEATS) -> tuple:
+    """One batch through a mesh index: the first search captures its
+    graph, the next replays it, equal to an eager call of the same search
+    bit for bit; its recall beside the single index's, the median of
+    ``repeats`` replays and, with ``ref`` (the same sub-indexes on the
+    plain path), recall within 0.01 and ids equal on >= 98%."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import recall_at_k
+
+    plane, eng = index.plane, index.engine
+    B = Qh.shape[0]
+    kind, bucket = index.regime(B), eng.bucket_for(B)
+    Qd = torch.from_numpy(np.pad(Qh, ((0, bucket - B), (0, 0)),
+                                 mode="edge")).to(plane.device)
+    stream = plane.stream_active
+    t0 = time.perf_counter()
+    index.search(Qh)                        # eager warm-up + capture
+    capture_s = time.perf_counter() - t0
+    ids, dists = index.search(Qh)
+    search = plane.search_stream if stream else plane.search
+    want = [t[:B].cpu().numpy() for t in search(kind, Qd, 10)]
+    if not (np.array_equal(ids, want[0]) and np.array_equal(dists, want[1])):
+        raise AssertionError(f"{label}: replay and eager call differ")
+    rec = recall_at_k(ids, gt, 10)
+    r = dict(regime=kind, bucket=bucket, capture_s=capture_s,
+             recall_at_10=rec, single_recall=single_recall,
+             replay_ms=median_ms(lambda: index.search(Qh), repeats),
+             replay_equals_eager=True)
+    extra = ""
+    if ref is not None:
+        ids_t = ref.plane.search(kind, Qd, 10)[0][:B].cpu().numpy()
+        r.update(recall_torch=recall_at_k(ids_t, gt, 10),
+                 id_agreement=float((ids_t == ids).mean()))
+        extra = (f"; plain path recall {r['recall_torch']:.4f}, ids equal "
+                 f"{r['id_agreement']:.4%}")
+        if abs(rec - r["recall_torch"]) > 0.01 or r["id_agreement"] < 0.98:
+            raise AssertionError(f"{label}: kernel path and plain path "
+                                 "disagree")
+    log(f"[mesh] {label} regime={kind} bucket={bucket}: replay == eager "
+        f"bit for bit; recall@10 {rec:.4f} (single index "
+        + ("-" if single_recall is None else f"{single_recall:.4f}")
+        + f"); median of {repeats} replays {r['replay_ms']:.3f} ms; capture "
+        f"{capture_s:.3f} s{extra}")
+    return r, ids, dists
+
+
+def mesh_phase(ds, cfg, graph, n, d, n_queries, dev, answers,
+               record) -> tuple:
+    """Phase 12 on phase 3's corpus, with every counter at 0: the (4, 2)
+    grid's build and searches, the model axis against phase 10's replays,
+    db_bf16, a stream and its compaction, the shard-major artifact and the
+    router.  Returns (results, the phase's launch counts)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.ann import Index
+    from repro_torch.core import distributed as D
+    from repro_torch.data.synthetic import brute_force_gt, recall_at_k
+    from repro_torch.serve.plane import MeshPlane, shard_layout
+
+    out: dict = {"seconds": {}}
+    clock = [None, time.perf_counter()]
+
+    def step(tag):
+        """Close the running step's wall seconds, open ``tag``'s."""
+        now = time.perf_counter()
+        if clock[0] is not None:
+            out["seconds"][clock[0]] = now - clock[1]
+        clock[:] = [tag, now]
+
+    K.reset_launch_counts()
+    names = ("data", "model")
+    mesh = D.make_mesh(MESH_SHAPE, names, device=dev)
+
+    # ---- (a) the build, then fp32 / int8 x none / hash on its shards
+    step("a")
+    t0 = time.perf_counter()
+    base = Index.build(ds.X, cfg, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    out["build_s"], out["build_stage_s"] = build_s, base.build_seconds
+    log(f"[mesh] Index.build on a {MESH_SHAPE} grid ({D.n_db_shards(mesh)} "
+        f"DB shards of {n // D.n_db_shards(mesh)} rows, "
+        f"{D.n_query_shards(mesh)} query columns): {build_s:.2f} s; "
+        + "; ".join(f"{s}: " + " ".join(f"{k}={v:.2f}s" for k, v in t.items())
+                    for s, t in base.build_seconds.items()))
+    g = base.graph
+    parts = (base.X, g.neighbors, g.lambdas, g.degrees, g.hubs)
+
+    def on_mesh(knobs, m=mesh, p=None):
+        c = dataclasses.replace(cfg, **knobs)
+        return Index(None, c, plane=MeshPlane(None, c, m,
+                                              parts=p or parts))
+
+    Qs = {B: ds.Q[:B] for B in (10, n_queries)}
+    gts = {B: ds.gt[:B] for B in Qs}
+    searches: dict = {}
+    for quant in ("none", "int8"):
+        for visited in ("none", "hash"):
+            knobs = dict(quantization=quant, visited_filter=visited)
+            index = base if knobs == dict(quantization="none",
+                                          visited_filter="none") \
+                else on_mesh(knobs)
+            ref = on_mesh(dict(knobs, kernel_backend="torch"))
+            for B, Q in Qs.items():
+                label = f"{quant} {visited} B={B}"
+                single = record.get(
+                    f"search_{visited}_{B}" if quant == "none"
+                    else f"int8_{visited}_{B}", {}).get("recall_at_10")
+                searches[label], _, _ = mesh_search(index, Q, label, single,
+                                                    gts[B], ref=ref)
+            pool = index.plane.graph_pool_bytes()
+            searches[f"{quant} {visited} pool_bytes"] = pool
+            log(f"[mesh] {quant} {visited}: graph pool {pool / 2**20:.1f} "
+                f"MiB for {len(index.engine._compiled)} graphs of "
+                f"{int(np.prod(MESH_SHAPE))} cells each")
+            del ref
+            if index is not base:
+                del index
+            torch.cuda.empty_cache()
+    out["searches"] = searches
+
+    # ---- (b) the model axis is invisible: (1, 2) over phase 3's graph
+    step("b")
+    X_dev = torch.from_numpy(ds.X).to(dev)
+    one = (X_dev, graph.neighbors, graph.lambdas, graph.degrees, graph.hubs)
+    invisible = {}
+    for visited in ("none", "hash"):
+        index = on_mesh(dict(visited_filter=visited),
+                        D.make_mesh((1, 2), names, device=dev), one)
+        for B, Q in Qs.items():
+            label = f"none {visited} B={B}"
+            index.search(Q)                    # capture
+            got = index.search(Q)
+            want = answers[label]
+            same = bool(np.array_equal(got[0], want[0])
+                        and np.array_equal(got[1], want[1]))
+            invisible[label] = same
+            log(f"[mesh] (1, 2) grid over phase 3's graph, {label}: "
+                + ("== phase 10's single-plane replay bit for bit" if same
+                   else "DIFFERS from phase 10's single-plane replay"))
+            if not same:
+                raise AssertionError(f"(1, 2) grid {label}: the model axis "
+                                     "is visible")
+        del index
+        torch.cuda.empty_cache()
+    out["model_axis_invisible"] = invisible
+    del one, X_dev
+
+    # ---- (c) db_bf16 on the (4, 2) grid
+    step("c")
+    index = on_mesh(dict(db_bf16=True))
+    bf16 = {}
+    for B, Q in Qs.items():
+        label = f"bf16 none B={B}"
+        bf16[label], _, _ = mesh_search(
+            index, Q, label, searches[f"none none B={B}"]["recall_at_10"],
+            gts[B])
+    out["bf16"] = bf16
+    del index
+    torch.cuda.empty_cache()
+
+    # ---- (d) a stream on the grid: phase 8's mutations, then compact()
+    step("d")
+    _, V, del_base, del_add, dead, old_ids = mesh_mutations(n, d)
+
+    def mutate(index):
+        new = index.add(V)
+        index.delete(del_base)
+        index.delete(del_add)
+        return new
+
+    index = on_mesh({})
+    new = mutate(index)
+    X_eff = np.concatenate([ds.X, V])[old_ids]
+    stream = {}
+    for B, Q in Qs.items():
+        label = f"stream none B={B}"
+        gt = old_ids[brute_force_gt(X_eff, Q, 10, cfg.metric, device=dev)]
+        stream[label], ids, _ = mesh_search(index, Q, label, None, gt)
+        if dead[ids[(ids >= 0) & (ids < dead.size)]].any():
+            raise AssertionError(f"mesh {label}: a deleted id returned")
+    live = np.flatnonzero(~dead[n:])
+    first = []
+    for lo in range(0, len(live), n_queries):   # one captured bucket
+        rows = live[lo:lo + n_queries]
+        Qv = V[np.pad(rows, (0, n_queries - len(rows)), mode="edge")]
+        first.append(index.search(Qv)[0][:len(rows), 0])
+    found = float((np.concatenate(first) == new[live]).mean())
+    stream["live_adds_at_rank_1"] = found
+    log(f"[mesh] stream: {len(new)} adds, {len(del_base)} base and "
+        f"{len(del_add)} added ids deleted; no deleted id returned; live "
+        f"added rows found at rank 1: {found:.4%}")
+    if found != 1.0:
+        raise AssertionError("a live added row missed rank 1 on the mesh")
+    t0 = time.perf_counter()
+    id_map = index.compact()
+    compact_s = time.perf_counter() - t0
+    if (id_map[np.flatnonzero(dead)] != -1).any() \
+            or not (id_map[old_ids] == np.arange(len(old_ids))).all():
+        raise AssertionError("mesh compaction: id_map wrong")
+    Q = ds.Q[:n_queries]
+    ids, dists = index.search(Q)
+    gt = brute_force_gt(X_eff, Q, 10, cfg.metric, device=dev)
+    if not ((ids >= 0) & (ids < len(old_ids))).all() \
+            or not np.isfinite(dists).all():
+        raise AssertionError("mesh compaction: bad answers")
+    stream["compaction"] = dict(
+        seconds=compact_s, n=len(old_ids),
+        recall_at_10=recall_at_k(ids, gt, 10),
+        build_stage_s=index.plane.build_seconds)
+    log(f"[mesh] compact() on the grid: {len(old_ids)} rows rebuilt over "
+        f"{D.n_db_shards(mesh)} shards in {compact_s:.2f} s; B={n_queries} "
+        f"of the new generation recall@10 "
+        f"{stream['compaction']['recall_at_10']:.4f} against a brute force "
+        "over the effective corpus")
+    out["stream"] = stream
+    del index
+    torch.cuda.empty_cache()
+
+    # ---- (e) the shard-major artifact: packed int8 with a live stream
+    step("e")
+    t0 = time.perf_counter()
+    packed, layout_s = shard_layout(parts[0], parts[1:], D.n_db_shards(mesh))
+    pack_s = time.perf_counter() - t0
+    index = on_mesh(dict(quantization="int8", build_pipeline=LAYOUT_PIPE),
+                    p=packed)
+    mutate(index)
+    for Q in Qs.values():
+        index.search(Q)                        # capture
+    before = {B: index.search(Q) for B, Q in Qs.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(path)
+        del index
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = Index.load(path, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for B, (ids, dists) in before.items():
+        for _ in range(2):                    # capture, then a replay
+            got = loaded.search(Qs[B])
+        if not (np.array_equal(got[0], ids)
+                and np.array_equal(got[1], dists)):
+            raise AssertionError(f"loaded mesh index B={B}: replays differ "
+                                 "from the saved index's")
+        if dead[ids[(ids >= 0) & (ids < dead.size)]].any():
+            raise AssertionError(f"loaded mesh index B={B}: a deleted id "
+                                 "returned")
+    out["artifact"] = dict(layout_s=layout_s, pack_s=pack_s, save_s=save_s,
+                           load_s=load_s, bytes=nbytes)
+    log(f"[mesh] shard-major artifact (packed int8, "
+        f"{D.n_db_shards(mesh)} shards, a live stream of "
+        f"{loaded.engine.stream.delta.count} adds): per-shard layout "
+        + " ".join(f"{t:.2f}s" for t in layout_s)
+        + f"; save {save_s:.2f} s, load {load_s:.2f} s, {nbytes} bytes "
+        f"({nbytes / 2**20:.1f} MiB); the loaded index's replays == the "
+        "saved index's bit for bit")
+    del loaded, packed
+    torch.cuda.empty_cache()
+
+    # ---- (f) the router: sharded against a (4, 1) grid, replicated
+    step("f")
+    router: dict = {}
+    single = Index(ds.X, cfg, graph=graph, device=dev)
+    t0 = time.perf_counter()
+    with single.serve(router=f"sharded:{D.n_db_shards(mesh)}") as r:
+        router["sharded_build_s"] = time.perf_counter() - t0
+        grid = on_mesh({}, D.make_mesh((D.n_db_shards(mesh), 1), names,
+                                       device=dev))
+        for B, Q in Qs.items():
+            got, want = routed(r, Q), grid.search(Q)
+            if not (np.array_equal(got[0], want[0])
+                    and np.array_equal(got[1], want[1])):
+                raise AssertionError(f"sharded router B={B} differs from "
+                                     "the grid")
+        del grid
+    log(f"[router] sharded:{D.n_db_shards(mesh)} (its shard engines built "
+        f"in {router['sharded_build_s']:.2f} s) == a "
+        f"({D.n_db_shards(mesh)}, 1) grid over the same shards bit for bit "
+        f"at B = " + " and ".join(str(B) for B in Qs))
+    del single
+    torch.cuda.empty_cache()
+    base.warmup()
+    n_q, n_threads = 256, 8
+    results: dict = {}
+
+    def worker(t, rt):
+        futs = [(i, rt.submit(ds.Q[i])) for i in range(t, n_q, n_threads)]
+        for i, f in futs:
+            results[i] = f.result(timeout=300)[0]
+
+    with base.serve(router="replicated:2") as r:
+        for B, Q in Qs.items():
+            got, want = routed(r, Q), base.search(Q)
+            if not (np.array_equal(got[0], want[0])
+                    and np.array_equal(got[1], want[1])):
+                raise AssertionError(f"replicated router B={B} differs "
+                                     "from its donor")
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(t, r))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        router["submits_s"] = time.perf_counter() - t0
+        snap = r.snapshot()
+    rt = snap["router"]
+    if any(t.is_alive() for t in threads) or len(results) != n_q \
+            or rt["retries"] or rt["lost_futures"]:
+        raise AssertionError(f"router: {len(results)} of {n_q} answered, "
+                             f"retries {rt['retries']}, lost "
+                             f"{rt['lost_futures']}")
+    q_ids = np.stack([results[i] for i in range(n_q)])
+    router.update(rt, recall_at_10=recall_at_k(q_ids, ds.gt[:n_q], 10),
+                  compiles=snap["aggregate"]["compiles"])
+    log(f"[router] replicated:2 over the {MESH_SHAPE} grid == its donor bit "
+        f"for bit; {n_q} single submits from {n_threads} threads in "
+        f"{router['submits_s']:.3f} s: {rt['n_requests']} requests, "
+        f"{rt['n_dispatches']} dispatches, retries {rt['retries']}, lost "
+        f"futures {rt['lost_futures']}, graphs captured by the replicas "
+        f"{router['compiles']}, recall@10 {router['recall_at_10']:.4f}")
+    out["router"] = router
+    del base
+    torch.cuda.empty_cache()
+    step(None)
+    log("[mesh] phase 12 seconds by step (a build and searches, b the "
+        "model axis, c bf16, d stream and compaction, e artifact, f "
+        "router): " + json.dumps({k: round(v, 2)
+                                 for k, v in out["seconds"].items()}))
+    return out, K.launch_counts()
+
+
+def routed(r, Q):
+    """``r.query(Q)``; on a failure, each endpoint's last error is logged
+    before the failure is raised again."""
+    try:
+        return r.query(Q, timeout=600)
+    except Exception:
+        log("[router] endpoint errors: " + json.dumps(
+            {k: v["last_error"] for k, v in r.snapshot()["replicas"].items()}))
+        raise
+
+
+def mesh_mutations(n: int, d: int):
+    """Phase 8's mutations, with as many fewer base deletes (0-3) as make
+    the effective corpus split evenly over the grid's DB shards (so it
+    compacts on the grid)."""
+    import numpy as np
+
+    centers, V, del_base, del_add, _, _ = stream_mutations(n, d)
+    shards = MESH_SHAPE[0]
+    n_eff = n - len(del_base) + len(V) - len(del_add)
+    del_base = del_base[:len(del_base) - (-n_eff) % shards]
+    dead = np.zeros(n + len(V), bool)
+    dead[del_base] = dead[del_add] = True
+    return centers, V, del_base, del_add, dead, np.flatnonzero(~dead)
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the device time goes, and the k-NN graph's quality
 # --------------------------------------------------------------------------
 
@@ -2447,8 +2863,25 @@ def main() -> int:
                              f"{missing}")
     for k in ANN_BODIES:
         launches[k] += phase_launches["11"][k]
+
+    # ---- phase 12: the sharded index -------------------------------------
+    record["mesh"], phase_launches["12"] = mesh_phase(
+        ds, cfg, graph, n, d, args.queries, dev, answers, record)
+    log("[launches] phase 12 " + json.dumps(phase_launches["12"]))
+    mesh_bodies = ANN_BODIES + ("gather_distances_bf16",)
+    missing = [k for k in mesh_bodies if phase_launches["12"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sharded path: "
+                             f"{missing}")
+    for k in mesh_bodies:
+        launches[k] = launches.get(k, 0) + phase_launches["12"][k]
     del graph, answers
     torch.cuda.empty_cache()
+    # the bf16 body against its plain version (after the path's counts)
+    shapes["gather_distances_bf16"] = check_bf16_body(ds, cfg, args.queries,
+                                                      dev, gen)
+    for r in shapes["gather_distances_bf16"]:
+        log_kernel("gather_distances_bf16", r)
 
     # ---- phase 9: the kernel API ------------------------------------------
     api_shapes, api_main, api_launches, record["api"] = api_phase(
@@ -2464,6 +2897,9 @@ def main() -> int:
                              "nn_descent cand"),
         "gather_distances_int8": ("src/repro_torch/kernels/csrc/l2dist.cu",
                                   "src/repro/kernels/l2dist.py:384",
+                                  "hop large"),
+        "gather_distances_bf16": ("src/repro_torch/kernels/csrc/l2dist.cu",
+                                  "src/repro/kernels/l2dist.py:401",
                                   "hop large"),
         "rank_merge": ("src/repro_torch/kernels/csrc/topk.cu",
                        "src/repro/kernels/topk.py:103", "nn_descent merge"),

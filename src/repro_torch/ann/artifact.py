@@ -1,17 +1,22 @@
 """The versioned on-disk index artifact (the reference's
-``ann/artifact.py``, single-device plane).
+``ann/artifact.py``).
 
 Layout (a directory), the reference's own, so either package reads what
 the other writes::
 
     <path>/
       manifest.json   magic, format version, plane, ANNConfig, k, runtime
-                      fingerprint, regime threshold, generation, sha256
-                      per payload
-      arrays.npz      X + the packed graph (neighbors / lambdas / degrees
-                      [/ hubs]); with int8 residency the codes and scales
-                      (format v4); on a packed index X and the codes in
-                      packed order with ``perm`` beside them (format v5)
+                      fingerprint, mesh topology (sharded), regime
+                      threshold, generation, sha256 per payload
+      arrays.npz      single plane: X + the packed graph (neighbors /
+                      lambdas / degrees [/ hubs]); with int8 residency the
+                      codes and scales (format v4); on a packed index X and
+                      the codes in packed order with ``perm`` beside them
+                      (format v5)
+      arrays/<i>.npz  mesh plane, shard-major: DB shard i's slice of X
+                      and its OWN sub-index (the same names, ``hubs``
+                      always, ``perm`` shard-local), one file and checksum
+                      a shard
       streaming.npz   only with un-compacted mutations (format v3): the
                       tombstones (``np.packbits`` of the base mask) and the
                       delta shard's assigned rows and flags; the capacity
@@ -29,8 +34,14 @@ empty, and a reference artifact's blobs are skipped (a loaded index
 captures its graphs at warmup or on first use).
 
 Safety gates: a wrong ``magic`` or an unknown ``format_version`` and any
-sha256 mismatch raise :class:`ArtifactError`; a shard-major (mesh)
-artifact raises ``NotImplementedError`` (ROADMAP.md queue A item 13).
+sha256 mismatch raise :class:`ArtifactError`.  Topology: a sharded
+artifact loaded with ``mesh=`` of the same DB shard count re-binds the
+saved sub-indexes bit for bit; without ``mesh=`` it warns, gathers the
+shards and rebuilds a single index; onto another shard count it warns
+("topology mismatch") and rebuilds for the new cut; a single artifact
+loaded with ``mesh=`` warns and reshards.  Every rebuild takes the rows
+in external order (a packed artifact is un-permuted shard by shard), so
+saved ids — the stream's tombstones too — stay valid.
 
 ``kernel_backend`` speaks two vocabularies.  The port writes the
 reference's names in the config (``"cuda"`` -> ``"pallas"``, the
@@ -49,6 +60,7 @@ import warnings
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ANNConfig
 
@@ -113,6 +125,26 @@ def _config_from_dict(d: dict, port_backend: str | None) -> ANNConfig:
 # save
 # --------------------------------------------------------------------------
 
+def _shard_arrays(plane) -> list:
+    """The mesh plane's operands on the host, cut shard-major: one dict a
+    DB shard with its X slice and its own sub-index.  The operands are the
+    concatenations of the shards' results, so equal row slices ARE the
+    per-shard arrays."""
+    g = plane.graph
+    full = {"X": plane.X, "neighbors": g.neighbors, "lambdas": g.lambdas,
+            "degrees": g.degrees,
+            "hubs": g.hubs if g.hubs is not None else torch.zeros(
+                (0,), dtype=torch.int32)}
+    if plane.quantized:
+        full["codes"], full["scales"] = plane.codes, plane.scales
+    if g.perm is not None:  # v5: rows shard-packed, perm shard-local
+        full["perm"] = g.perm
+    full = {name: a.cpu().numpy() for name, a in full.items()}
+    n = plane.n_db_shards
+    return [{name: a[i * (a.shape[0] // n):(i + 1) * (a.shape[0] // n)]
+             for name, a in full.items()} for i in range(n)]
+
+
 def save_index(index, path, *, aot: bool = True, extra_ks=()) -> Path:
     """Write ``index`` to ``path`` (a directory, created if needed).
 
@@ -150,18 +182,30 @@ def save_index(index, path, *, aot: bool = True, extra_ks=()) -> Path:
                      delta_alive=stream.delta.alive[:count])
             manifest["streaming"] = {"file": _STREAMING,
                                      "sha256": _sha256(path / _STREAMING)}
-        g = plane.graph
-        arrays = {"X": plane.X, "neighbors": g.neighbors,
-                  "lambdas": g.lambdas, "degrees": g.degrees}
-        if g.hubs is not None:
-            arrays["hubs"] = g.hubs
-        if plane.quantized:
-            arrays["codes"], arrays["scales"] = plane.codes, plane.scales
-        if g.perm is not None:  # v5: X / codes rows are in packed order
-            arrays["perm"] = g.perm
-        np.savez(path / _ARRAYS,
-                 **{name: a.cpu().numpy() for name, a in arrays.items()})
-    manifest["arrays"] = {"file": _ARRAYS, "sha256": _sha256(path / _ARRAYS)}
+        if plane.name == "mesh":
+            manifest["topology"] = plane.topology()
+            (path / "arrays").mkdir(exist_ok=True)
+            entries = []
+            for i, shard in enumerate(_shard_arrays(plane)):
+                fname = f"arrays/{i}.npz"
+                np.savez(path / fname, **shard)
+                entries.append({"file": fname,
+                                "sha256": _sha256(path / fname)})
+            manifest["arrays"] = entries
+        else:
+            g = plane.graph
+            arrays = {"X": plane.X, "neighbors": g.neighbors,
+                      "lambdas": g.lambdas, "degrees": g.degrees}
+            if g.hubs is not None:
+                arrays["hubs"] = g.hubs
+            if plane.quantized:
+                arrays["codes"], arrays["scales"] = plane.codes, plane.scales
+            if g.perm is not None:  # v5: X / codes rows are in packed order
+                arrays["perm"] = g.perm
+            np.savez(path / _ARRAYS,
+                     **{name: a.cpu().numpy() for name, a in arrays.items()})
+            manifest["arrays"] = {"file": _ARRAYS,
+                                  "sha256": _sha256(path / _ARRAYS)}
     manifest["aot"] = []
     (path / _MANIFEST).write_text(json.dumps(manifest, indent=2))
     return path
@@ -197,10 +241,12 @@ def _finish_load(index, path: Path, manifest: dict):
     return index
 
 
-def load_index(index_cls, path, *, device=None):
-    """Restore an `Index` saved by either package (formats 1-5, single
-    plane) on ``device`` (default: the CUDA device)."""
+def load_index(index_cls, path, *, device=None, mesh=None):
+    """Restore an `Index` saved by either package (formats 1-5) on
+    ``device`` (default: the CUDA device) or, with ``mesh=``, on the
+    grid's device; see the module docstring for the topology rules."""
     from repro_torch.ann.convert import graph_from_numpy
+    from repro_torch.ann.layout import unpack_rows
     from repro_torch.device import resolve_device
 
     path = Path(path)
@@ -220,11 +266,6 @@ def load_index(index_cls, path, *, device=None):
             f"unsupported index artifact version {ver!r} "
             f"(this build reads versions {READ_VERSIONS})")
     saved_plane = manifest.get("plane", "single")
-    if saved_plane != "single":
-        raise NotImplementedError(
-            f"a shard-major ({saved_plane!r} plane) artifact is not "
-            "loadable in the PyTorch port yet (ROADMAP.md queue A item 13)")
-
     cfg = _config_from_dict(manifest["config"],
                             manifest.get("torch_kernel_backend"))
     if manifest.get("aot"):
@@ -232,14 +273,80 @@ def load_index(index_cls, path, *, device=None):
             f"{len(manifest['aot'])} AOT executables in the artifact are "
             "skipped: the port captures CUDA graphs at warmup or on first "
             "use", stacklevel=3)
+    k = manifest["k"]
+    threshold = manifest.get("calibrated_threshold")
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device={device} but the mesh is on "
+                             f"{mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
-    arrs = _verified_npz(path, manifest["arrays"])
-    graph = graph_from_numpy(
-        arrs["neighbors"], arrs["lambdas"], arrs["degrees"],
-        arrs.get("hubs"), arrs.get("perm"), device=device)
-    # v4: re-bind the saved codes (earlier formats derive them at install)
-    quant = (arrs["codes"], arrs["scales"]) if "codes" in arrs else None
-    index = index_cls(arrs["X"], cfg, k=manifest["k"], graph=graph,
-                      quant=quant, device=device, packed=True,
-                      threshold=manifest.get("calibrated_threshold"))
+
+    if saved_plane == "single":
+        arrs = _verified_npz(path, manifest["arrays"])
+        if mesh is not None:
+            warnings.warn(
+                "single-device artifact loaded with mesh=: resharding — "
+                "the database is laid over the mesh and shard-local "
+                "sub-indexes are REBUILT (the saved graph spans the whole "
+                "database)", stacklevel=3)
+            X = arrs["X"] if "perm" not in arrs \
+                else unpack_rows(arrs["X"], arrs["perm"])
+            return _finish_load(
+                index_cls(X, cfg, k=k, mesh=mesh, threshold=threshold),
+                path, manifest)
+        graph = graph_from_numpy(
+            arrs["neighbors"], arrs["lambdas"], arrs["degrees"],
+            arrs.get("hubs"), arrs.get("perm"), device=device)
+        # v4: re-bind the saved codes (earlier formats derive them at
+        # install)
+        quant = (arrs["codes"], arrs["scales"]) if "codes" in arrs else None
+        index = index_cls(arrs["X"], cfg, k=k, graph=graph, quant=quant,
+                          device=device, packed=True, threshold=threshold)
+        return _finish_load(index, path, manifest)
+
+    # ---- sharded (mesh) artifact ----------------------------------------
+    shards = [_verified_npz(path, e) for e in manifest["arrays"]]
+    names = ("X", "neighbors", "lambdas", "degrees", "hubs")
+    if "codes" in shards[0]:  # v4: the int8 payload
+        names = names + ("codes", "scales")
+    if "perm" in shards[0]:  # v5: rows shard-packed
+        names = names + ("perm",)
+    full = {name: np.concatenate([s[name] for s in shards])
+            for name in names}
+    topo = manifest.get("topology", {})
+
+    def external_X():
+        """The corpus in external row order, for the rebuilds."""
+        if "perm" not in full:
+            return full["X"]
+        return unpack_rows(full["X"], full["perm"], n_shards=len(shards))
+
+    if mesh is None:
+        warnings.warn(
+            f"sharded artifact ({topo.get('n_db_shards')} DB shards) "
+            "loaded without mesh=: gathering shards and REBUILDING a "
+            "single-device index (per-shard sub-indexes only search their "
+            "own slice); pass mesh= to restore the sharded layout",
+            stacklevel=3)
+        return _finish_load(
+            index_cls(external_X(), cfg, k=k, device=device,
+                      threshold=threshold), path, manifest)
+
+    from repro_torch.core import distributed as D
+    from repro_torch.serve.plane import MeshPlane
+
+    if D.n_db_shards(mesh) != topo.get("n_db_shards"):
+        warnings.warn(
+            f"mesh topology mismatch: artifact has "
+            f"{topo.get('n_db_shards')} DB shards, requested mesh has "
+            f"{D.n_db_shards(mesh)} — gathering and resharding (sub-"
+            "indexes REBUILT for the new shard cut)", stacklevel=3)
+        return _finish_load(
+            index_cls(external_X(), cfg, k=k, mesh=mesh,
+                      threshold=threshold), path, manifest)
+    # the same shard cut: re-bind the saved sub-indexes, no rebuild
+    plane = MeshPlane(None, cfg, mesh,
+                      parts=tuple(full[name] for name in names))
+    index = index_cls(None, cfg, k=k, plane=plane, threshold=threshold)
     return _finish_load(index, path, manifest)

@@ -1,5 +1,5 @@
 """Compaction: fold streamed mutations into a fresh index generation (the
-reference's ``ann/compaction.py``, single-device plane).
+reference's ``ann/compaction.py``).
 
 :func:`compact` re-runs the staged build over the *effective corpus* —
 live base rows, then live delta rows — and swaps the new generation into
@@ -13,7 +13,9 @@ old ones.  Compaction densifies ids: the returned ``id_map``
 rows) is the caller's bridge for external id bookkeeping.  On a packed
 index the rows are un-permuted to external order first, and the rebuild
 runs the config's pipeline, ``"layout"`` included, so the new generation
-is packed again.
+is packed again.  A mesh plane rebuilds its shard-local sub-indexes over
+the effective corpus (``MeshPlane.rebind``), which must then split evenly
+over its DB shards.
 """
 from __future__ import annotations
 
@@ -62,15 +64,27 @@ def compact(engine, *, tile: int = 2048) -> np.ndarray:
                 "cannot compact to an empty index: every row is "
                 "tombstoned; add vectors or rebuild")
         base_X = engine.X.cpu().numpy()
+        plane = engine.plane
         perm = engine.graph.perm
         if perm is not None:
-            # a packed plane's rows are in packed order, but the mutation
-            # log and id_map speak external ids: un-permute first
-            base_X = unpack_rows(base_X, perm.cpu().numpy())
+            # a packed plane's rows are in packed order (per shard on a
+            # mesh), but the mutation log and id_map speak external ids
+            base_X = unpack_rows(base_X, perm.cpu().numpy(),
+                                 n_shards=getattr(plane, "n_db_shards", 1))
         X_eff, id_map = effective_corpus(stream, base_X)
-        plane = engine.plane
-        graph = build_graph(X_eff, engine.cfg, tile=tile, device=plane.device)
-        plane.rebind(X_eff, graph)
+        if plane.name == "mesh":
+            shards = plane.n_db_shards
+            if X_eff.shape[0] % shards:
+                raise ValueError(
+                    f"effective corpus has {X_eff.shape[0]} rows, not "
+                    f"divisible over {shards} DB shards; add/delete "
+                    "vectors to a multiple or compact on a single plane")
+            # the shard build a fresh mesh plane runs
+            plane.rebind(X_eff)
+        else:
+            graph = build_graph(X_eff, engine.cfg, tile=tile,
+                                device=plane.device)
+            plane.rebind(X_eff, graph)
         engine.stream = None
         engine._prune_stale_entries()
         engine.stats.compactions += 1

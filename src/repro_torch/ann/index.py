@@ -13,6 +13,14 @@
     index.warmup()                           # capture every reachable graph
     with index.serve(max_wait_ms=2.0) as mb: # micro-batching queue + QoS
         fut = mb.submit(q, deadline_ms=15.0)
+    with index.serve(router="replicated:2") as r:  # replicas behind a router
+        fut = r.submit(q)
+
+Sharded serving is the same verbs: ``Index.build(X, cfg, mesh=mesh)``
+(``mesh = repro_torch.core.distributed.make_mesh((4, 2), ("data",
+"model"))``) builds one sub-index per DB shard of the grid behind the
+same ``search()``, ``save`` writes the shard-major artifact, and
+``Index.load(path, mesh=mesh)`` restores it without a rebuild.
 
 ``cfg.quantization="int8"`` scores per-row int8 codes in-kernel and
 re-ranks exactly against the fp32 rows.  ``cfg.regime_calibration="probe"``
@@ -26,7 +34,7 @@ Everything runs on the CUDA device unless ``device="cpu"`` is passed.
 from __future__ import annotations
 
 from repro_torch.ann.pipeline import build_graph
-from repro_torch.configs.base import ANNConfig, _later
+from repro_torch.configs.base import ANNConfig
 from repro_torch.device import resolve_device
 from repro_torch.serve.engine import ANNEngine
 
@@ -39,19 +47,25 @@ class Index:
     index's device) and skips the pipeline; a graph with ``perm`` gathers
     ``X`` (and ``quant``'s rows) into packed order, unless ``packed=True``
     says they already are (how :meth:`load` restores a packed artifact).
-    After a build, ``build_seconds`` holds each stage's wall seconds.
+    ``mesh=`` builds one sub-index per DB shard of a shard grid
+    (:mod:`repro_torch.core.distributed`) on the grid's device; ``plane=``
+    takes any prebuilt plane (how :meth:`load` restores a sharded
+    artifact).  After a build, ``build_seconds`` holds each stage's wall
+    seconds (on a mesh: ``{"shard i": {stage: seconds}}``).
     ``threshold=`` overrides the §4 regime split."""
 
     def __init__(self, X, cfg: ANNConfig | None = None, *, k: int = 10,
                  graph=None, stages=None, tile: int = 2048, quant=None,
                  device=None, threshold: float | None = None, mesh=None,
                  plane=None, packed: bool = False):
-        if mesh is not None or plane is not None:
-            raise _later("mesh= and plane=", "queue A item 13")
         cfg = cfg or ANNConfig()
-        device = resolve_device(device)
         self.build_seconds: dict = {}
-        if graph is None:
+        if plane is not None or mesh is not None:
+            if stages is not None or graph is not None:
+                raise ValueError("stages=/graph= do not apply with mesh= "
+                                 "or plane=")
+        elif graph is None:
+            device = resolve_device(device)
             graph = build_graph(X, cfg, stages=stages, tile=tile,
                                 device=device, timings=self.build_seconds)
         elif stages is not None:
@@ -59,7 +73,11 @@ class Index:
                              "(not with graph=)")
         self.engine = ANNEngine(X, cfg, k=k, graph=graph, quant=quant,
                                 device=device, threshold=threshold,
-                                packed=packed)
+                                packed=packed, mesh=mesh, plane=plane)
+        if mesh is not None:
+            self.build_seconds = {
+                f"shard {i}": t
+                for i, t in enumerate(self.engine.plane.build_seconds)}
 
     @classmethod
     def build(cls, X, cfg: ANNConfig | None = None, *, k: int = 10,
@@ -108,9 +126,21 @@ class Index:
         """A running :class:`~repro_torch.serve.queue.MicroBatcher` over
         this index.  QoS knobs pass through: ``max_wait_ms`` (coalescing
         window), ``max_batch`` (dispatch cap; submits at or above it take
-        the bypass lane); per request ``submit(..., deadline_ms=)``."""
+        the bypass lane); per request ``submit(..., deadline_ms=)``.
+
+        With ``router=`` (a :class:`~repro_torch.serve.router.RouterConfig`
+        or a spec ``"replicated:N"`` / ``"sharded:N"``): a running
+        :class:`~repro_torch.serve.router.Router` instead, N endpoints
+        each with its own queue (the QoS knobs apply to every queue).
+        Replicated endpoints share this index's plane and cache; sharded
+        endpoints cut the corpus into N equal slices and build one
+        sub-index each."""
         if router is not None:
-            raise _later("Index.serve(router=)", "queue A item 13")
+            from repro_torch.serve.router import Router, parse_router_spec
+
+            if isinstance(router, str):
+                router = parse_router_spec(router)
+            return Router.for_index(self, router, **qos)
         from repro_torch.serve.queue import MicroBatcher
 
         return MicroBatcher(self.engine, **qos)
@@ -128,12 +158,16 @@ class Index:
         return save_index(self, path, aot=aot, extra_ks=extra_ks)
 
     @classmethod
-    def load(cls, path, *, device=None) -> "Index":
-        """Restore an index saved by either package (formats v1-v5, single
-        plane) without rebuilding, on the card unless ``device="cpu"``."""
+    def load(cls, path, *, device=None, mesh=None) -> "Index":
+        """Restore an index saved by either package (formats v1-v5)
+        without rebuilding, on the card unless ``device="cpu"``.  Pass
+        ``mesh=`` to restore a sharded artifact onto a grid with the same
+        number of DB shards (on the grid's device); a sharded artifact
+        without ``mesh=``, or onto another shard count, is gathered and
+        rebuilt with a warning."""
         from repro_torch.ann.artifact import load_index
 
-        return load_index(cls, path, device=device)
+        return load_index(cls, path, device=device, mesh=mesh)
 
     # -- streaming mutability -----------------------------------------------
 
@@ -198,7 +232,12 @@ class Index:
 
     @property
     def plane(self):
+        """The engine's execution plane (single-device or mesh)."""
         return self.engine.plane
+
+    @property
+    def mesh(self):
+        return self.engine.mesh
 
     @property
     def calibration(self):
@@ -209,5 +248,5 @@ class Index:
         g = self.graph
         return (f"Index(n={g.n}, d={self.X.shape[1]}, "
                 f"max_degree={g.max_degree}, metric={self.cfg.metric!r}, "
-                f"backend={self.backend!r}, device={str(self.device)!r}, "
-                f"k={self.k})")
+                f"backend={self.backend!r}, plane={self.plane.name!r}, "
+                f"device={str(self.device)!r}, k={self.k})")

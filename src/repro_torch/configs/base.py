@@ -8,11 +8,14 @@ differences:
   resolves per call to ``"cuda"`` for CUDA tensors and ``"torch"`` for CPU
   tensors, ``"cuda"`` on a CPU tensor raises, and ``"torch"`` opts into the
   plain PyTorch path on any device (the parity comparisons use it).
-* Knobs whose feature the port does not have yet raise
-  ``NotImplementedError`` naming the ROADMAP item that adds it.
-  ``gather_fused`` is accepted for parity and changes nothing (the CUDA
+* ``gather_fused`` is accepted for parity and changes nothing (the CUDA
   distance kernel always gathers rows in-kernel); ``unroll_scans`` is a
   no-op (PyTorch runs every loop eagerly).
+
+``db_bf16=True`` makes a mesh plane's searches read a bf16 copy of each
+shard's database (``core/distributed.py``).  As in the reference, only
+the mesh path reads it: a single-device plane ignores it and searches the
+fp32 rows.
 """
 from __future__ import annotations
 
@@ -38,11 +41,6 @@ ANN_SHAPES = {
 }
 
 KERNEL_BACKENDS = ("auto", "cuda", "torch")
-
-
-def _later(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet (ROADMAP.md {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +124,6 @@ class ANNConfig:
             raise ValueError(
                 f"kernel_backend={self.kernel_backend!r} must be one of "
                 f"{KERNEL_BACKENDS}")
-        if self.db_bf16:  # the reference reads it on the mesh path only
-            raise _later("db_bf16=True", "queue A item 13")
         if "layout" in self.build_pipeline:
             if self.gather_limit:
                 raise ValueError(

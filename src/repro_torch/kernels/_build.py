@@ -12,9 +12,13 @@ Each C entry point takes raw pointers (``c_void_p``) and the CUDA stream,
 launches on that stream without synchronising, and returns
 ``cudaGetLastError()``; :func:`check` raises when it is not 0.
 
-Each wrapper counts its launches in :data:`LAUNCHES`, in Python.  A CUDA
-graph's replay runs no Python, so the graph's owner captures inside
-:func:`recording` and calls :func:`replayed` after each replay.
+Each wrapper counts its launches through :func:`count` into
+:data:`LAUNCHES`, in Python.  A CUDA graph's replay runs no Python, so the
+graph's owner captures inside :func:`recording` and calls
+:func:`replayed` after each replay.  Recording is per thread: a capture
+records only its own thread's launches, while other threads' launches
+count as they happen (the router's engines capture and replay from their
+own threads).
 """
 from __future__ import annotations
 
@@ -35,8 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 SOURCES = ("l2dist", "topk", "visited", "block", "embedding_bag",
            "segment_matmul", "flash_attention")
 # launches of each kernel body, counted by its wrapper where it launches:
-# the six of the ANN path, then the five of the kernel API (kernels/ops.py)
+# the seven of the ANN path, then the five of the kernel API
+# (kernels/ops.py)
 LAUNCHES = dict.fromkeys(("gather_distances", "gather_distances_int8",
+                          "gather_distances_bf16",
                           "rank_merge", "visited_filter", "block_distances",
                           "block_distances_int8", "distance_matrix",
                           "bitonic_sort", "embedding_bag", "packed_spmm",
@@ -44,29 +50,41 @@ LAUNCHES = dict.fromkeys(("gather_distances", "gather_distances_int8",
 
 _libs: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_local = threading.local()   # .recording: the capture's dict, or None
+
+
+def count(name: str) -> None:
+    """One launch of the body ``name``: into the current thread's
+    recording while it captures, else into :data:`LAUNCHES`."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 @contextlib.contextmanager
 def recording():
-    """Launches made inside are recorded, not counted: a CUDA graph's
-    capture records kernels without running them.  Yields a dict that
-    holds, on exit, the launches of each body made inside; the counters
-    are as they were before.  :func:`replayed` counts them once per replay
-    of the captured graph."""
-    before = dict(LAUNCHES)
+    """Launches made inside, by this thread, are recorded, not counted: a
+    CUDA graph's capture records kernels without running them.  Yields a
+    dict that holds the launches of each body made inside.
+    :func:`replayed` counts them once per replay of the captured graph."""
     recorded: dict = {}
+    outer = getattr(_local, "recording", None)
+    _local.recording = recorded
     try:
         yield recorded
     finally:
-        recorded.update((name, n - before[name]) for name, n in
-                        LAUNCHES.items() if n != before[name])
-        LAUNCHES.update(before)
+        _local.recording = outer
 
 
 def replayed(recorded: dict) -> None:
     """Count one replay of a graph whose capture recorded ``recorded``."""
-    for name, n in recorded.items():
-        LAUNCHES[name] += n
+    with _count_lock:
+        for name, n in recorded.items():
+            LAUNCHES[name] += n
 
 
 def nvcc() -> str:

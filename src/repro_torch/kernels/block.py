@@ -124,8 +124,7 @@ def block_distances(Q, V, mask=None, v_scales=None, *,
                       _build.ptr(mask), _build.ptr(out), S, Kq, C, d,
                       int(metric in ("ip", "cos")), _build.stream_of(V))
     _build.check(err, "block_distances")
-    _build.LAUNCHES["block_distances_int8" if quant
-                    else "block_distances"] += 1
+    _build.count("block_distances_int8" if quant else "block_distances")
     return out
 
 
@@ -172,7 +171,7 @@ def distance_matrix(Q, X, *, metric: str = "l2") -> torch.Tensor:
              int(metric in ("ip", "cos")), int(X.dtype == torch.bfloat16),
              _build.stream_of(X))
     _build.check(err, "distance_matrix")
-    _build.LAUNCHES["distance_matrix"] += 1
+    _build.count("distance_matrix")
     return out
 
 

@@ -42,6 +42,18 @@
 //     out as one coalesced store.  Codes become exact floats by a byte
 //     permute into 2^23's mantissa and one subtraction, cheaper than the
 //     int-to-float conversion;
+//   * the bf16 body (a mesh plane's db_bf16 database: the reference's
+//     gather body takes X at any float dtype and upcasts each row in
+//     VMEM) moves half the fp32 row's bytes, 256 at d = 128, so like the
+//     int8 body it is bound by latency more than by bandwidth, and it has
+//     the int8 body's shape: one warp owns a row s, lane c loads idx and
+//     mask of candidate c, each group of 8 lanes takes one candidate row
+//     in 16-byte pieces of 8 bf16 elements (64 elements a pass), and all 8
+//     pieces of a lane are issued before any is used.  A bf16 element
+//     becomes its exact fp32 value by a 16-bit shift (no conversion
+//     instruction), and sums run in fp32 in the fp32 formula.  Pointers
+//     that are not 16-byte aligned, or d % 8 != 0, take an element-wise
+//     body with the same lanes and sums;
 //   * the self-query kernel (the diversify tiles, [T, K, K] with K = 32
 //     and 64) does K^2 d products on K d floats in and K^2 out: 21 flops
 //     a byte at K = 64, the fp32 FFMA ridge (20) and far under the TF32
@@ -277,6 +289,140 @@ gather_row8_kernel(const float* __restrict__ Q, const int8_t* __restrict__ X,
           }
 #pragma unroll
           for (int e = 0; e < 16; ++e) {
+            dot[t] = fmaf(v[e], qv[e], dot[t]);
+            vv[t] = fmaf(v[e], v[e], vv[t]);
+          }
+        }
+      }
+      const float dj = sum8_scatter(dot, sub);
+      const float vj = sum8_scatter(vv, sub);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) qn += __shfl_xor_sync(kFull, qn, o);
+      const int c = cb + 4 * sub + g;
+      if (c < C)
+        out[(s * Kq + q) * C + c] =
+            mine < 0 ? kInf : (ip ? -dj : (qn + vj) - 2.f * dj);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// the bf16 row body: one warp a row s
+// --------------------------------------------------------------------------
+
+// Elements e and e + 1 of a row from `off` on as one word (e in the low
+// half), zeros past d.
+__device__ __forceinline__ uint32_t bf16_pair(const uint16_t* p, int off,
+                                              int e, int d) {
+  const uint32_t lo = off + e < d ? static_cast<uint32_t>(__ldg(p + e)) : 0u;
+  const uint32_t hi =
+      off + e + 1 < d ? static_cast<uint32_t>(__ldg(p + e + 1)) : 0u;
+  return lo | hi << 16;
+}
+
+// 8 bf16 elements of a candidate row from element `off` on, as 4 words
+// (element 2k in the low half of word k): one 16-byte load where rows and
+// the base are 16-byte aligned (VEC: d % 8 == 0), else element by element;
+// zeros past d and for a lane without a row (id < 0).
+template <bool VEC>
+__device__ __forceinline__ uint4 load_bf16(const uint16_t* X, int id, int off,
+                                           int d) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (id < 0 || off >= d) return r;
+  const uint16_t* p = X + static_cast<long long>(id) * d + off;
+  if constexpr (VEC) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {   // word by word: no array, nothing whose address is taken
+    r = make_uint4(bf16_pair(p, off, 0, d), bf16_pair(p, off, 2, d),
+                   bf16_pair(p, off, 4, d), bf16_pair(p, off, 6, d));
+  }
+  return r;
+}
+
+// 8 query floats from `off` on (zeros past d): two 16-byte loads (VEC) or
+// one at a time.
+template <bool VEC>
+__device__ __forceinline__ void load_query8(const float* q, int off, int d,
+                                            float (&v)[8]) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 a = off < d
+          ? __ldg(reinterpret_cast<const float4*>(q + off) + j)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * j] = a.x;
+      v[4 * j + 1] = a.y;
+      v[4 * j + 2] = a.z;
+      v[4 * j + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = off + e < d ? __ldg(q + off + e) : 0.f;
+  }
+}
+
+// Warp w of a CTA owns row s = 8 * blockIdx.x + w.  Candidates go in
+// blocks of 32 as in gather_row8_kernel: lane c holds candidate cb + c's
+// id (-1: masked or out of range); lane g * 8 + j sums slots t = 0..7,
+// candidate cb + 4t + g, over elements [8 j, 8 j + 8) of each 64-element
+// pass of d, and ends with candidate cb + 4j + g's sums.  With d <= 64
+// (one pass) the rows stay in registers across the Kq queries.  The
+// minimum of one block an SM lets ptxas keep the element-wise body's 64
+// loads in flight in registers (without it, it capped that body at 80
+// registers and spilled 12 bytes; both bodies now take ~92 and none).
+template <bool VEC>
+__global__ void __launch_bounds__(kRowThreads, 1)
+gather_rowbf16_kernel(const float* __restrict__ Q,
+                      const uint16_t* __restrict__ X,
+                      const int32_t* __restrict__ idx,
+                      const uint8_t* __restrict__ mask,
+                      float* __restrict__ out, int S, int Kq, int C, int d,
+                      long long N, int ip) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const long long s = static_cast<long long>(blockIdx.x) * (kRowThreads / 32)
+                      + (threadIdx.x >> 5);
+  if (s >= S) return;   // warp-uniform
+  const int lane = threadIdx.x & 31, g = lane >> 3, sub = lane & 7;
+  const int passes = (d + 63) >> 6;
+  for (int cb = 0; cb < C; cb += 32) {
+    int id = -1;
+    if (cb + lane < C) {
+      const long long lc = s * C + cb + lane;
+      const int32_t raw = __ldg(idx + lc);
+      if ((mask == nullptr || __ldg(mask + lc) != 0) && raw >= 0 && raw < N)
+        id = raw;
+    }
+    int sid[kRow8Slots];
+#pragma unroll
+    for (int t = 0; t < kRow8Slots; ++t)
+      sid[t] = __shfl_sync(kFull, id, 4 * t + g);
+    const int mine = __shfl_sync(kFull, id, 4 * sub + g);
+    uint4 row[kRow8Slots];
+    for (int q = 0; q < Kq; ++q) {
+      const float* qrow = Q + (s * Kq + q) * d;
+      float dot[kRow8Slots] = {}, vv[kRow8Slots] = {}, qn = 0.f;
+      for (int p = 0; p < passes; ++p) {
+        const int off = p * 64 + sub * 8;
+        if (q == 0 || passes > 1) {
+#pragma unroll
+          for (int t = 0; t < kRow8Slots; ++t)
+            row[t] = load_bf16<VEC>(X, sid[t], off, d);
+        }
+        float qv[8];
+        load_query8<VEC>(qrow, off, d, qv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) qn = fmaf(qv[e], qv[e], qn);
+#pragma unroll
+        for (int t = 0; t < kRow8Slots; ++t) {
+          const uint32_t w[4] = {row[t].x, row[t].y, row[t].z, row[t].w};
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {   // bf16 -> fp32: the bits, shifted
+            v[2 * k] = __uint_as_float(w[k] << 16);
+            v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
             dot[t] = fmaf(v[e], qv[e], dot[t]);
             vv[t] = fmaf(v[e], v[e], vv[t]);
           }
@@ -642,6 +788,15 @@ void launch_row8(const float* q, const int8_t* x, const float* sc,
       q, x, sc, ix, m, o, S, Kq, C, d, N, ip);
 }
 
+template <bool VEC>
+void launch_rowbf16(const float* q, const uint16_t* x, const int32_t* ix,
+                    const uint8_t* m, float* o, int S, int Kq, int C, int d,
+                    long long N, int ip, cudaStream_t st) {
+  constexpr int rows = kRowThreads / 32;
+  gather_rowbf16_kernel<VEC><<<(S + rows - 1) / rows, kRowThreads, 0, st>>>(
+      q, x, ix, m, o, S, Kq, C, d, N, ip);
+}
+
 }  // namespace
 
 // X is float32 [N, d], or int8 codes [N, d] when scales ([N] float32) is
@@ -685,10 +840,34 @@ extern "C" int repro_gather_distances(const void* Q, const void* X,
   return static_cast<int>(cudaGetLastError());
 }
 
+// X is bf16 [N, d] (its raw 16-bit elements), Q float32 [S, Kq, d]: the
+// bf16 row body.  16-byte pieces where d % 8 == 0 and X and Q are 16-byte
+// aligned, else the element-wise body.
+extern "C" int repro_gather_distances_bf16(const void* Q, const void* X,
+                                           const void* idx, const void* mask,
+                                           void* out, int S, int Kq, int C,
+                                           int d, long long N, int ip,
+                                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S == 0 || C == 0) return static_cast<int>(cudaGetLastError());
+  const float* q = static_cast<const float*>(Q);
+  const uint16_t* x = static_cast<const uint16_t*>(X);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* o = static_cast<float*>(out);
+  const bool vec = d % 8 == 0
+      && reinterpret_cast<uintptr_t>(x) % 16 == 0
+      && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  if (vec) launch_rowbf16<true>(q, x, ix, m, o, S, Kq, C, d, N, ip, st);
+  else launch_rowbf16<false>(q, x, ix, m, o, S, Kq, C, d, N, ip, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers and local (spilled) bytes a thread of each body, in the order
 // of kernels/l2dist.py BODIES: the self-query bodies (NT = 4, 8 n-tiles a
 // warp; 16-byte staging, then 4-byte; d in one chunk, then streamed), then
-// the int8 row body (16-byte pieces, then bytes).
+// the int8 row body (16-byte pieces, then bytes), then the bf16 row body
+// (16-byte pieces, then elements).
 extern "C" int repro_l2dist_attrs(int which, int* regs, int* local_bytes) {
 #define REPRO_SELFQ_BODIES(VEC, ONE)                               \
   reinterpret_cast<const void*>(gather_selfq_kernel<4, VEC, ONE>), \
@@ -697,7 +876,9 @@ extern "C" int repro_l2dist_attrs(int which, int* regs, int* local_bytes) {
       REPRO_SELFQ_BODIES(true, true), REPRO_SELFQ_BODIES(false, true),
       REPRO_SELFQ_BODIES(true, false), REPRO_SELFQ_BODIES(false, false),
       reinterpret_cast<const void*>(gather_row8_kernel<true>),
-      reinterpret_cast<const void*>(gather_row8_kernel<false>)};
+      reinterpret_cast<const void*>(gather_row8_kernel<false>),
+      reinterpret_cast<const void*>(gather_rowbf16_kernel<true>),
+      reinterpret_cast<const void*>(gather_rowbf16_kernel<false>)};
 #undef REPRO_SELFQ_BODIES
   constexpr int n = sizeof(bodies) / sizeof(bodies[0]);
   if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);

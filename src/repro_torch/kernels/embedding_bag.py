@@ -63,5 +63,5 @@ def embedding_bag(table, ids, *, combine: str = "mean"):
     err = fn(_build.ptr(table), _build.ptr(ids), _build.ptr(out), B, bag, V,
              E, int(combine == "mean"), _build.stream_of(table))
     _build.check(err, "embedding_bag")
-    _build.LAUNCHES["embedding_bag"] += 1
+    _build.count("embedding_bag")
     return out

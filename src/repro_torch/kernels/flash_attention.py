@@ -210,7 +210,7 @@ def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
                                       KV, hd, window, q_offset, hd ** -0.5,
                                       bf16, vec, stream)
         _build.check(err, "flash_attention")
-        _build.LAUNCHES["flash_attention"] += 1
+        _build.count("flash_attention")
         return out
     plan = split_plan(B, Sq, Skv, H, KV, window=window, q_offset=q_offset,
                       chunk=chunk)
@@ -225,9 +225,9 @@ def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
                                    plan.chunks, plan.nq, hd ** -0.5, bf16,
                                    vec, stream)
     _build.check(err, "flash_attention split")
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.count("flash_attention")
     err = _lib().repro_flash_combine(pm, pl, pacc, _build.ptr(out), rows, hd,
                                      plan.chunks, bf16, stream)
     _build.check(err, "flash_attention combine")
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.count("flash_attention")
     return out

@@ -169,7 +169,7 @@ def project(feat, w):
                                     _build.ptr(y), Nf, d, f,
                                     _build.stream_of(feat))
     _build.check(err, "packed_spmm project")
-    _build.LAUNCHES["packed_spmm"] += 1
+    _build.count("packed_spmm")
     return y
 
 
@@ -194,7 +194,7 @@ def gather_rows(neighbors, y, *, combine: str = "sum"):
                                    int(combine == "mean"),
                                    _build.stream_of(y))
     _build.check(err, "packed_spmm gather")
-    _build.LAUNCHES["packed_spmm"] += 1
+    _build.count("packed_spmm")
     return out
 
 
@@ -231,5 +231,5 @@ def packed_spmm(neighbors, feat, w, *, combine: str = "sum",
                                   d, f, int(combine == "mean"),
                                   _build.stream_of(feat))
     _build.check(err, "packed_spmm")
-    _build.LAUNCHES["packed_spmm"] += 1
+    _build.count("packed_spmm")
     return out

@@ -224,7 +224,7 @@ def _launch(L: Launch, dists, ids, mask, stream, counter: str):
     else:
         err = _lib().repro_topk_warp(*args, L.q, L.slice, L.groups, stream)
     _build.check(err, counter)
-    _build.LAUNCHES[counter] += 1
+    _build.count(counter)
     return od, oi
 
 

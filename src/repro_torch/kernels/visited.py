@@ -105,7 +105,7 @@ def visited_filter(table, ids, valid):
                        _build.ptr(valid), _build.ptr(fresh), B, W, S, M,
                        shift, _build.stream_of(table))
     _build.check(err, "visited_filter")
-    _build.LAUNCHES["visited_filter"] += 1
+    _build.count("visited_filter")
     return table, fresh
 
 

@@ -12,6 +12,13 @@ outputs.  On the CPU an entry is the eager search; the engine is the same
 code.  A capture that fails raises: the engine never answers eagerly on
 the card instead.
 
+The engine sits on an execution plane: a :class:`~repro_torch.serve.
+plane.SingleDevicePlane` by default, a :class:`~repro_torch.serve.plane.
+MeshPlane` with ``mesh=`` (one sub-index per DB shard of the grid), or any
+prebuilt plane with ``plane=``.  ``cache_from=`` makes a serving replica
+of another engine over the same plane: it shares the donor's cache and
+its lock (:mod:`repro_torch.serve.router`).
+
 The regime split is ``cfg.small_batch_threshold``, or ``threshold=``, or,
 with ``cfg.regime_calibration="probe"``, a threshold fitted from timed
 probe batches at init (:func:`repro_torch.ann.dispatch.calibrate`).
@@ -19,7 +26,8 @@ probe batches at init (:func:`repro_torch.ann.dispatch.calibrate`).
 One lock serialises queries and mutations, so a query sees one generation
 and one stream state from start to end, and the graphs, which share one
 memory pool, replay one at a time on one stream, each answer read before
-the next replay.
+the next replay.  Replicas over one plane share that lock: a graph's
+static buffers are one set, whichever engine replays it.
 """
 from __future__ import annotations
 
@@ -33,9 +41,10 @@ import torch
 
 from repro_torch.ann.delta import StreamState
 from repro_torch.ann.dispatch import calibrate, regime_for
-from repro_torch.configs.base import ANNConfig, _later
-from repro_torch.serve.plane import (SMALL_WIDTH, SingleDevicePlane,
-                                     StaleGeneration)
+from repro_torch.configs.base import ANNConfig
+from repro_torch.device import resolve_device
+from repro_torch.serve.plane import (SMALL_WIDTH, MeshPlane,
+                                     SingleDevicePlane, StaleGeneration)
 
 
 @dataclasses.dataclass
@@ -132,30 +141,61 @@ class ServeStats:
 
 
 class ANNEngine:
-    """Build once (or take a graph), answer batches of queries.
+    """Build once (or take a graph or a plane), answer batches of queries.
 
-    ``threshold=`` overrides the regime split (the same ``B·t0 <
-    4·threshold`` rule as ``cfg.small_batch_threshold``); with
-    ``cfg.regime_calibration="probe"`` and no override the threshold is
-    fitted at init and recorded in ``self.calibration``."""
+    ``mesh=`` builds a :class:`~repro_torch.serve.plane.MeshPlane` over
+    the grid (on the grid's device); ``plane=`` takes a prebuilt plane.
+    ``cache_from=`` (an engine over the same ``plane=``) shares that
+    engine's cache and lock; stats stay per engine.  ``threshold=``
+    overrides the regime split (the same ``B·t0 < 4·threshold`` rule as
+    ``cfg.small_batch_threshold``); with ``cfg.regime_calibration="probe"``
+    and no override the threshold is fitted at init and recorded in
+    ``self.calibration``."""
 
     def __init__(self, X, cfg: ANNConfig | None = None, *, k: int = 10,
                  graph=None, quant=None, device=None, mesh=None, plane=None,
                  threshold: float | None = None, cache_from=None,
                  packed: bool = False):
-        if mesh is not None or plane is not None or cache_from is not None:
-            raise _later("mesh=, plane= and cache_from=", "queue A item 13")
         self.cfg = cfg or ANNConfig()
         self.k = k
         self.stats = ServeStats()
         self.buckets = tuple(sorted(self.cfg.serve_buckets))
-        self.plane = SingleDevicePlane(X, self.cfg, graph=graph, quant=quant,
-                                       device=device, packed=packed)
+        if plane is not None:
+            if mesh is not None or graph is not None or quant is not None:
+                raise ValueError("plane= already fixes the device layout; "
+                                 "mesh=/graph=/quant= only apply when the "
+                                 "engine builds its own plane")
+            self.plane = plane
+        elif mesh is not None:
+            if graph is not None or quant is not None or packed:
+                raise ValueError("mesh mode builds its own sharded graph "
+                                 "(and codes); graph=/quant=/packed= are "
+                                 "only for single-device engines")
+            self.plane = MeshPlane(X, self.cfg, mesh)
+        else:
+            self.plane = SingleDevicePlane(X, self.cfg, graph=graph,
+                                           quant=quant, device=device,
+                                           packed=packed)
+        if device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"device={device} but the plane is on "
+                             f"{self.device}")
+        self.mesh = getattr(self.plane, "mesh", None)
         self.stream: StreamState | None = None  # the host mutation log
         self.lock = threading.RLock()
         # (regime, bucket, k, backend, quantization, shape token,
         #  stream token) -> callable
         self._compiled: dict = {}
+        if cache_from is not None:
+            # a serving replica (serve/router.py): the entries bind to the
+            # plane's buffers, and one lock keeps two engines from
+            # replaying one graph's static buffers at once
+            if cache_from.plane is not self.plane:
+                raise ValueError(
+                    "cache_from shares captured graphs, which bind to the "
+                    "plane's operand buffers; it requires plane= set to "
+                    "the donor's own plane")
+            self._compiled = cache_from._compiled
+            self.lock = cache_from.lock
         self.calibration = None
         self.threshold = threshold
         if threshold is None and self.cfg.regime_calibration == "probe":

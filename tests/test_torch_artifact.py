@@ -14,7 +14,9 @@ One graph is built by the port and handed to the reference, which saves
 * a port save -> port load round trip answers bit for bit;
 * the reference's ``Index.load`` reads a port-saved artifact;
 * a bad magic, an unknown version and a flipped payload byte raise
-  ``ArtifactError``; a shard-major manifest ``NotImplementedError``.
+  ``ArtifactError``, a shard-major payload's too; a sound shard-major
+  manifest without ``mesh=`` loads, with a warning, as a rebuilt single
+  index.
 """
 import dataclasses
 import hashlib
@@ -224,7 +226,17 @@ def test_bad_artifacts_are_refused(world, tmp_path):
     (bad / "arrays.npz").write_bytes(bytes(raw))
     with pytest.raises(ArtifactError, match="checksum mismatch"):
         _load(bad)
-    bad = shutil.copytree(src, tmp_path / "mesh")
-    _rewrite(bad, plane="mesh", topology={"n_db_shards": 2})
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
+    # shard-major: one shard, the same payload, under its own checksum
+    mesh = shutil.copytree(src, tmp_path / "mesh")
+    entry = json.loads((mesh / "manifest.json").read_text())["arrays"]
+    _rewrite(mesh, plane="mesh", topology={"n_db_shards": 1},
+             arrays=[entry])
+    with pytest.warns(UserWarning, match="without mesh="):
+        loaded = Index.load(mesh, device="cpu")
+    assert loaded.plane.name == "single" and loaded.graph.perm is not None
+    bad = shutil.copytree(mesh, tmp_path / "mesh_flipped")
+    raw = bytearray((bad / "arrays.npz").read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    (bad / "arrays.npz").write_bytes(bytes(raw))
+    with pytest.raises(ArtifactError, match="checksum mismatch"):
         Index.load(bad, device="cpu")

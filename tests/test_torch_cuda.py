@@ -100,6 +100,55 @@ def test_gather_distances_int8_matches_plain(dev, rng, C, d, Kq, metric):
     assert torch.equal(out == 3.4e38, ref == 3.4e38)
 
 
+def _shifted(t, dev):
+    """``t``'s values one element past the start of their allocation, so
+    the pointer is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 128, 288])
+@pytest.mark.parametrize("d", [9, 16, 100, 128, 130, 960])
+@pytest.mark.parametrize("Kq", [1, 3])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("offset", [False, True])
+def test_gather_distances_bf16_matches_plain(dev, rng, C, d, Kq, metric,
+                                             offset):
+    """The bf16 row body (a warp a row, 32-candidate blocks, 16-byte
+    pieces of 8 elements) against the plain version on ``X.float()``:
+    within 1e-5 * (qn + vn) of the upcast rows; ids outside [0, N),
+    masked lanes and an all-masked row give exactly 3.4e38.  d % 8 != 0,
+    or X one element past its allocation (``offset``), takes the
+    element-wise body; C > 32 loops over blocks; Kq > 1 reuses the rows
+    (d <= 64) or reloads them."""
+    N, S = 5000, 40
+    X, Q, idx, mask = _on(
+        dev, rng.normal(size=(N, d)).astype(np.float32),
+        rng.normal(size=(S, Kq, d)).astype(np.float32),
+        rng.integers(-2, N + 20, size=(S, C)).astype(np.int32),
+        rng.random((S, C)) > 0.3)
+    mask[3] = False
+    Xb = X.to(torch.bfloat16)
+    if offset:
+        Xb = _shifted(Xb, dev)
+        assert Xb.data_ptr() % 16
+    n0 = K.launch_counts()
+    out = l2dist.gather_distances(Q, Xb, idx, mask, metric=metric)
+    ref = l2dist.gather_distances_plain(Q, Xb.float(), idx, mask,
+                                        metric=metric)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    assert n1["gather_distances_bf16"] == n0["gather_distances_bf16"] + 1
+    assert n1["gather_distances"] == n0["gather_distances"]
+    norms = (Q.double() ** 2).sum(2)[:, :, None] \
+        + (Xb.double() ** 2).sum(1)[idx.long().clamp(0, N - 1)][:, None, :]
+    assert ((out.double() - ref.double()).abs() <= 1e-5 * norms).all()
+    valid = (mask & (idx >= 0) & (idx < N))[:, None, :].expand_as(out)
+    assert (out[~valid] == 3.4e38).all() and (out[3] == 3.4e38).all()
+    assert torch.equal(out == 3.4e38, ref == 3.4e38)
+
+
 def _block_case(dev, rng, S, Kq, C, d, metric, quant, offset=False):
     """One call of the block tile against its plain version: within
     1e-5 * (qn + vn), exactly 3.4e38 where masked (row S // 2 wholly when
@@ -116,11 +165,7 @@ def _block_case(dev, rng, S, Kq, C, d, metric, quant, offset=False):
         V, sc = quantize_rows(V)
         sc = sc.reshape(S, C)
     if offset:
-        def shifted(t):
-            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-            buf[1:] = t.reshape(-1)
-            return buf[1:].view(t.shape)
-        Q, V = shifted(Q), shifted(V)
+        Q, V = _shifted(Q, dev), _shifted(V, dev)
         assert Q.data_ptr() % 16 and V.data_ptr() % 16
     V = V.reshape(S, C, d)
     body = "block_distances_int8" if quant else "block_distances"
@@ -478,12 +523,12 @@ def test_distance_tile_bodies_fit_without_spills(dev):
 
 def test_search_hop_bodies_fit_without_spills(dev):
     """The card's own count for the search hop's bodies (l2dist.cu's int8
-    row body, visited.cu's filter): no spill to local memory, at most 255
-    registers."""
+    and bf16 row bodies, visited.cu's filter): no spill to local memory,
+    at most 255 registers."""
     l2 = l2dist.body_attributes()
-    attrs = {**{b: l2[b] for b in l2dist.ROW8_BODIES},
-             **visited.body_attributes()}
-    assert list(attrs) == l2dist.ROW8_BODIES + visited.BODIES
+    rows = l2dist.ROW8_BODIES + l2dist.ROWBF16_BODIES
+    attrs = {**{b: l2[b] for b in rows}, **visited.body_attributes()}
+    assert list(attrs) == rows + visited.BODIES
     for name, (regs, local) in attrs.items():
         assert local == 0, (name, local)
         assert regs <= 255, (name, regs)
@@ -998,3 +1043,77 @@ def test_save_load_on_the_card_is_bitwise(served, packed, tmp_path):
         got = back.search(served["ds"].Q[:B])
         np.testing.assert_array_equal(got[0], ids)
         np.testing.assert_array_equal(got[1], dists)
+
+
+# ----------------------------------------------------------------------
+# the shard grid and the router
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_parts(served):
+    """The served corpus built on a (2, 2) grid: its operands, which every
+    mesh test below re-binds (no rebuild)."""
+    from repro_torch.core import distributed as D
+
+    mesh = D.make_mesh((2, 2), ("data", "model"))
+    built = D.make_build_fn(mesh, served["cfg"])(served["ds"].X)
+    X = torch.from_numpy(served["ds"].X).cuda()
+    return mesh, (X, *built)
+
+
+def _mesh_index(served, mesh_parts, **knobs):
+    from repro_torch.serve.plane import MeshPlane
+
+    mesh, parts = mesh_parts
+    cfg = dataclasses.replace(served["cfg"], **knobs)
+    return Index(None, cfg, plane=MeshPlane(None, cfg, mesh, parts=parts))
+
+
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("knobs", [dict(), dict(quantization="int8"),
+                                   dict(db_bf16=True)],
+                         ids=["fp32", "int8", "bf16"])
+def test_mesh_replay_equals_eager(served, mesh_parts, knobs, stream):
+    """A (2, 2) grid's search is one captured graph over every cell's
+    launches: its replay equals an eager call bit for bit, in both
+    regimes, frozen and with a stream; deleted ids never answer; a bf16
+    database launches the bf16 row body."""
+    index = _mesh_index(served, mesh_parts, visited_filter="hash", **knobs)
+    if stream:
+        _mutate(index, served["V"])
+    plane = index.plane
+    K.reset_launch_counts()
+    for B in (10, 300):
+        kind, bucket = index.regime(B), index.engine.bucket_for(B)
+        search = plane.search_stream if stream else plane.search
+        want = [t[:B].cpu().numpy() for t in search(
+            kind, _padded(served["ds"].Q[:B], bucket), 10)]
+        for _ in range(2):
+            ids, dists = index.search(served["ds"].Q[:B])
+            np.testing.assert_array_equal(ids, want[0])
+            np.testing.assert_array_equal(dists, want[1])
+        if stream:
+            assert not np.isin(ids, np.arange(0, 3000, 31)).any()
+    assert index.stats.compiles == 2 and index.stats.bucket_hits == 2
+    body = {"fp32": "gather_distances", "int8": "gather_distances_int8",
+            "bf16": "gather_distances_bf16"}[
+        "int8" if knobs.get("quantization") else
+        "bf16" if knobs.get("db_bf16") else "fp32"]
+    assert K.launch_counts()[body] > 0
+    assert plane.graph_pool_bytes() > 0
+
+
+def test_sharded_router_equals_mesh_on_the_card(served, mesh_parts):
+    """Index.serve(router="sharded:2") on the card answers as a (2, 1)
+    grid over the same corpus, bit for bit, both regimes."""
+    from repro_torch.core import distributed as D
+
+    cfg, ds = served["cfg"], served["ds"]
+    mi = Index.build(ds.X, cfg, mesh=D.make_mesh((2, 1), ("data", "model")))
+    single = _served_index(served)
+    with single.serve(router="sharded:2") as r:
+        for B in (10, 300):
+            ids, dists = r.query(ds.Q[:B])
+            want = mi.search(ds.Q[:B])
+            np.testing.assert_array_equal(ids, want[0])
+            np.testing.assert_array_equal(dists, want[1])

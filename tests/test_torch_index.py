@@ -34,12 +34,19 @@ def test_config_fields_and_defaults_match_reference():
     assert ANN_SHAPES["build_1m"].dims == dict(n=1_048_576, d=128, k=32)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(db_bf16=True), "queue A item 13"),
-])
-def test_later_slice_knobs_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ANNConfig(**kw)
+@pytest.mark.parametrize("kw", [dict(db_bf16=True)])
+def test_later_slice_knobs_raise(kw):
+    """The later slices' knobs used to raise; the last of them, db_bf16,
+    is accepted now.  As in the reference, only a mesh plane reads it: a
+    single-plane index with it answers as one without, bit for bit."""
+    cfg = dataclasses.replace(reduced(), bridge_hubs=0, **kw)
+    assert cfg.db_bf16
+    ds = make_clustered(n=400, d=8, n_queries=8, seed=1)
+    ti = Index.build(ds.X, cfg, device="cpu")
+    plain = Index(ds.X, reduced(), graph=ti.graph, device="cpu")
+    assert ti.X.dtype == torch.float32
+    for a, b in zip(ti.search(ds.Q), plain.search(ds.Q)):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("kw", [dict(metric="hamming"),

@@ -371,6 +371,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
                            torch.ones((2, 3), dtype=torch.bool))
     l2dist.gather_distances(_t(Q)[:, None], _t(X).to(torch.int8), _t(idx),
                             scales=torch.ones(200))
+    l2dist.gather_distances(_t(Q)[:, None], _t(X).to(torch.bfloat16),
+                            _t(idx))
     for sc in (None, torch.ones((1, 6))):
         block.block_distances(torch.zeros((1, 3, 8)), torch.zeros(
             (1, 6, 8), dtype=torch.float32 if sc is None else torch.int8),
@@ -385,7 +387,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
     ops.flash_attention(torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 1, 8)),
                         torch.zeros((1, 4, 1, 8)))
     assert K.launch_counts() == dict.fromkeys(
-        ("gather_distances", "gather_distances_int8", "rank_merge",
+        ("gather_distances", "gather_distances_int8",
+         "gather_distances_bf16", "rank_merge",
          "visited_filter", "block_distances", "block_distances_int8",
          "distance_matrix", "bitonic_sort", "embedding_bag", "packed_spmm",
          "flash_attention"), 0)
@@ -419,4 +422,11 @@ def test_later_slice_features_raise(rng):
     with pytest.raises(ValueError, match="self_q"):
         l2dist.gather_distances(None, codes, _t(idx), self_q=True,
                                 scales=torch.ones(200))
+    # a bf16 database takes the search's row body only
+    Xb = _t(X).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        l2dist.gather_distances(None, Xb, _t(idx), self_q=True)
+    with pytest.raises(ValueError, match="bf16"):
+        l2dist.gather_distances_plain(_t(X)[:4, None], Xb, _t(idx),
+                                      scales=torch.ones(200))
 

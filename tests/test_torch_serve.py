@@ -200,24 +200,46 @@ def test_tensor_and_host_batches_answer_alike(world):
         eng.query(np.zeros((4, 7), np.float32))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "queue A item 13"),
-    (dict(cache_from=object()), "queue A item 13"),
-])
-def test_later_items_raise(world, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _engine(world, **kw)
+@pytest.mark.parametrize("item", ["mesh", "cache_from"])
+def test_later_items_raise(world, item):
+    """``mesh=`` and ``cache_from=`` used to raise; now a (1, 1) grid
+    builds the single plane's graph and answers as it does, and a replica
+    shares its donor's cache and lock and answers as the donor, bit for
+    bit, both regimes."""
+    from repro_torch.core.distributed import make_mesh
+
+    donor = _engine(world)
+    if item == "mesh":
+        eng = ANNEngine(world["ds"].X, world["cfg"], k=10,
+                        mesh=make_mesh((1, 1), ("data", "model"),
+                                       device="cpu"))
+        assert eng.plane.name == "mesh" and eng.mesh.shape == (1, 1)
+    else:
+        eng = ANNEngine(None, world["cfg"], k=10, plane=donor.plane,
+                        cache_from=donor)
+        assert eng._compiled is donor._compiled and eng.lock is donor.lock
+    for B in (5, 100):
+        Q = world["ds"].Q[:B]
+        for a, b in zip(eng.query(Q), donor.query(Q)):
+            np.testing.assert_array_equal(a.view(np.uint32),
+                                          b.view(np.uint32))
 
 
 def test_aot_entry_points_raise(world):
+    """The reference's AOT entry points have no CUDA-graph form; the
+    router they stood beside is here: ``serve(router=)`` answers as the
+    index does."""
     eng = _engine(world)
     for call in (lambda: eng.export_executable("small", 8),
                  eng.aot_operands,
                  lambda: eng.prime_executable("small", 8, 10, None)):
         with pytest.raises(NotImplementedError, match="no serialized form"):
             call()
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        _index(world).serve(router="replicated:2")
+    index = _index(world)
+    with index.serve(router="replicated:2", max_wait_ms=0.5) as r:
+        assert r.cfg.mode == "replicated" and len(r.endpoints) == 2
+        ids, _ = r.query(world["ds"].Q[:3])
+    np.testing.assert_array_equal(ids, index.search(world["ds"].Q[:3])[0])
 
 
 def test_regime_stats_window():
