@@ -111,6 +111,23 @@ Phases, each printing its own lines:
    lost future).  Every ANN kernel body and ``gather_distances_bf16``
    must launch; the bf16 body is then held to its plain version at the
    large hop's [10240, 1, 32] and the seeds' [10240, 1, 128].
+13. the pod (``serve/pod.py``) and the serving drivers, with every
+   counter at 0: (a) a 1-rank NCCL pod over phase 3's graph, both visited
+   modes, B = 10 and 10240, bit for bit against phase 10's single-plane
+   replays (medians of 20 replays beside phase 10's); (b) two ranks on
+   the one card over gloo (spawned), each building 2 of the 4 shards of
+   2^18 rows, saving the pod artifact (rank 0 writes) and loading it
+   back: fp32 / int8 x none / hash at B = 10 and 10240, each replay equal
+   to its eager call, both ranks alike and bit for bit the (4, 1) grid
+   over the same shards (the artifact loaded in this process), a stream
+   round (no deleted id, bit for bit the grid's), the 2-rank reload bit
+   for bit, seconds for build, save and load and medians of 20 replays;
+   (c) ``python -m repro_torch.launch.serve --n 2**20 --d 128 --router
+   replicated:2 --kill-replica 1`` (``lost_futures=0``, weighted recall
+   within 0.01 of an index built in this process on the same corpus and
+   batches) and the five ``examples/torch/`` scripts at their CI sizes,
+   all subprocesses started together, each exiting 0 with its OK line.
+   Every ANN kernel body must launch in (a) and the ranks.
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
@@ -118,7 +135,8 @@ search through replays.  Each of them starts with every launch counter at
 0 and reads the counters at its end: an eager warm-up counts its
 launches, a capture none, and a replay those its capture recorded.  Each
 of the six ANN kernel bodies must have launched in them, and again in
-phase 11's packed path and phase 12's sharded one (with the bf16 body).  Phase 9's path must launch each of its five, attention
+phase 11's packed path, phase 12's sharded one (with the bf16 body) and
+phase 13's pod.  Phase 9's path must launch each of its five, attention
 and SpMM exactly as often as their routes launch kernels.
 
 The line before the last is the JSON list of kernels; the last line is the
@@ -2425,6 +2443,457 @@ def mesh_mutations(n: int, d: int):
 
 
 # --------------------------------------------------------------------------
+# phase 13: the pod (serve/pod.py over torch.distributed) and the serving
+# drivers (the launcher and the five examples)
+# --------------------------------------------------------------------------
+
+POD_SHARDS = 4                # (b): phase 12's 4 DB shards, 2 a rank
+POD_RANKS = 2
+POD_TIMEOUT = 600             # seconds the two ranks may take in all
+POD_VARIANTS = (("fp32 none", {}), ("fp32 hash", {"visited_filter": "hash"}),
+                ("int8 none", {"quantization": "int8"}))
+# (c): the examples at their CI sizes (scripts/ci.sh); ann_serving at its
+# own default
+EXAMPLES = {"quickstart": ({"REPRO_QUICKSTART_N": "4000"}, "quickstart OK"),
+            "ann_serving": ({}, "ann_serving OK"),
+            "streaming_ingest": ({"REPRO_STREAMING_N": "3000"},
+                                 "streaming_ingest OK"),
+            "distributed_search": ({}, "distributed_search OK"),
+            "pod_serving": ({"REPRO_POD_N": "3000"}, "pod serving demo OK")}
+DRIVER_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def pod_mutations(n: int, d: int):
+    """(b)'s stream round: 2,048 rows like the corpus added, 512 base ids
+    and every 8th added id deleted."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    V = rng.normal(size=(2048, d)).astype(np.float32)
+    return V, rng.choice(n, 512, replace=False), np.arange(0, 2048, 8)
+
+
+def pod_rank(rank: int, tmp: str, port: int, n_queries: int,
+             device: str) -> None:
+    """(b)'s rank body (a spawned process): join the gloo pod, build this
+    rank's 2 of the 4 shards, save the artifact SPMD and load it back,
+    then serve fp32 / int8 x none / hash at B = 10 and ``n_queries``
+    (replay against eager, medians of 20 replays) and a stream round;
+    the answers, seconds and launch counts go to ``tmp``.  ``device``
+    is the card (a CPU rehearsal passes "cpu")."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.ann import Index
+    from repro_torch.configs.base import ANNConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.serve import pod
+
+    pod.init_pod(f"tcp://localhost:{port}", world_size=POD_RANKS, rank=rank,
+                 backend="gloo", device=device)
+    X = np.load(os.path.join(tmp, "X.npy"))
+    Q = np.load(os.path.join(tmp, "Q.npy"))
+    cfg = ANNConfig()
+    mesh = D.make_mesh((POD_SHARDS,), ("data",), device=device)
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" \
+        else (lambda: None)
+    K.reset_launch_counts()
+    rec: dict = {"seconds": {}, "replay_ms": {}}
+    answers: dict = {}
+    t0 = time.perf_counter()
+    base = Index(None, cfg, plane=pod.PodPlane(X, cfg, mesh))
+    sync()
+    rec["seconds"]["build"] = time.perf_counter() - t0
+    path = os.path.join(tmp, "pod_ix")
+    t0 = time.perf_counter()
+    base.save(path)
+    rec["seconds"]["save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = Index.load(path, mesh=mesh)
+    sync()
+    rec["seconds"]["load"] = time.perf_counter() - t0
+    rec["loaded_plane"] = loaded.plane.name
+    plane = base.plane
+    local = (plane.X, plane.graph.neighbors, plane.graph.lambdas,
+             plane.graph.degrees, plane._ops[4])
+    for name, knobs in POD_VARIANTS:
+        c = dataclasses.replace(cfg, **knobs)
+        index = base if not knobs else Index(
+            None, c, plane=pod.PodPlane(None, c, mesh, parts=local,
+                                        local=True))
+        for B in (10, n_queries):
+            label = f"{name} B={B}"
+            kind, bucket = index.regime(B), index.engine.bucket_for(B)
+            index.search(Q[:B])                   # eager warm-up + capture
+            before = index.stats.compiles
+            ids, dists = index.search(Q[:B])
+            if index.stats.compiles != before:
+                raise AssertionError(f"pod {label}: a repeated bucket "
+                                     "captured")
+            Qp = torch.from_numpy(np.pad(Q[:B], ((0, bucket - B), (0, 0)),
+                                         mode="edge")).to(plane.device)
+            eager = index.plane.search(kind, Qp, 10)
+            if not (np.array_equal(ids, eager[0][:B].cpu().numpy())
+                    and np.array_equal(dists, eager[1][:B].cpu().numpy())):
+                raise AssertionError(f"pod rank {rank} {label}: replay and "
+                                     "eager call differ")
+            rec["replay_ms"][label] = median_ms(lambda: index.search(Q[:B]))
+            answers[f"{label} ids"], answers[f"{label} dists"] = ids, dists
+            if name == "fp32 none":
+                got = loaded.search(Q[:B])
+                if not (np.array_equal(got[0], ids)
+                        and np.array_equal(got[1], dists)):
+                    raise AssertionError(f"pod rank {rank} {label}: the "
+                                         "reloaded pod answers otherwise")
+        if index is not base:
+            del index
+            torch.cuda.empty_cache()
+    del loaded
+    V, del_base, del_add = pod_mutations(X.shape[0], X.shape[1])
+    for name, knobs in (("fp32 none", {}), ("int8 none",
+                                            {"quantization": "int8"})):
+        c = dataclasses.replace(cfg, **knobs)
+        index = base if not knobs else Index(
+            None, c, plane=pod.PodPlane(None, c, mesh, parts=local,
+                                        local=True))
+        new = index.add(V)
+        index.delete(del_base)
+        index.delete(new[del_add])
+        for B in ((10, n_queries) if name == "fp32 none" else (10,)):
+            label = f"stream {name} B={B}"
+            index.search(Q[:B])                   # capture
+            ids, dists = index.search(Q[:B])
+            answers[f"{label} ids"], answers[f"{label} dists"] = ids, dists
+    rec["launches"] = K.launch_counts()
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **answers)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    pod.close_pod()
+
+
+def run_pod_ranks(tmp: str, n_queries: int, device: str) -> None:
+    """Spawn the two ranks and wait for both, within ``POD_TIMEOUT``; a
+    rank that fails, or a pod that hangs, fails the phase."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(pod_rank,
+                             args=(tmp, free_port(), n_queries, device),
+                             nprocs=POD_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + POD_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the pod's ranks took over "
+                                     f"{POD_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def start_drivers(n: int, d: int, tmp: str, dev) -> dict:
+    """(c): the launcher's chaos drill at full size and the five examples
+    at their CI sizes, each a subprocess, all started together, on the
+    card (a CPU rehearsal passes ``--device cpu``).  A thread a driver
+    waits for its exit: :func:`finish_drivers` collects them."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    where = [] if dev.type == "cuda" else ["--device", "cpu"]
+    cmds = {"launcher": ([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--n", str(n), "--d", str(d), "--router",
+                          "replicated:2", "--kill-replica", "1",
+                          "--health-interval", "0.2", *where], env)}
+    for name, (knobs, _) in EXAMPLES.items():
+        cmds[name] = ([sys.executable, os.path.join(
+            HERE, "examples", "torch", f"{name}.py"), *where],
+            dict(env, **knobs))
+    started = time.perf_counter()
+    runs = {"procs": {}, "threads": [], "out": {}, "started": started}
+
+    def wait(name, p):
+        text = p.communicate()[0]
+        runs["out"][name] = (p.returncode, text,
+                             time.perf_counter() - started)
+
+    for name, (cmd, cmd_env) in cmds.items():
+        p = runs["procs"][name] = subprocess.Popen(
+            cmd, cwd=tmp, env=cmd_env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        t = threading.Thread(target=wait, args=(name, p), daemon=True)
+        t.start()
+        runs["threads"].append(t)
+    return runs
+
+
+def stop_drivers(runs: dict) -> None:
+    for p in runs["procs"].values():
+        p.kill()
+
+
+def finish_drivers(runs: dict) -> dict:
+    """Each driver's (exit code, output, seconds from the start to its
+    exit), waiting at most ``DRIVER_TIMEOUT`` seconds from the start; the
+    ones still running then are killed and fail the phase."""
+    for t in runs["threads"]:
+        t.join(timeout=max(1.0, DRIVER_TIMEOUT
+                           - (time.perf_counter() - runs["started"])))
+    stop_drivers(runs)
+    late = [name for name in runs["procs"] if name not in runs["out"]]
+    if late:
+        raise AssertionError(f"drivers still running after "
+                             f"{DRIVER_TIMEOUT} s: {late}")
+    return runs["out"]
+
+
+def pod_phase(ds, cfg, graph, n, d, n_queries, dev, answers,
+              record) -> tuple:
+    """Phase 13: (a) a 1-rank NCCL pod over phase 3's graph against phase
+    10's single-plane replays; (b) two ranks on the card over gloo, each
+    with 2 of phase 12's 4 shards of 2^18 rows, against the (4, 1) grid
+    over the same shards, and the pod artifact; (c) the launcher's chaos
+    drill at full size and the five examples.  Returns (results, the
+    launches of the pod's path: (a)'s and both ranks')."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.ann import Index
+    from repro_torch.configs.base import ANNConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.data.synthetic import make_clustered, recall_at_k
+    from repro_torch.serve import pod
+    from repro_torch.serve.plane import MeshPlane
+
+    out: dict = {"seconds": {}}
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    # ---- (a) a 1-rank NCCL pod over phase 3's graph
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    pod.init_pod(f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                 device=dev)                        # NCCL on the card
+    backend = torch.distributed.get_backend()
+    X_dev = torch.from_numpy(ds.X).to(dev)
+    parts = (X_dev, graph.neighbors, graph.lambdas, graph.degrees,
+             graph.hubs)
+    one = {}
+    for visited in ("none", "hash"):
+        c = dataclasses.replace(cfg, visited_filter=visited)
+        index = Index(None, c, plane=pod.PodPlane(None, c, parts=parts))
+        for B in (10, n_queries):
+            label = f"none {visited} B={B}"
+            Q = ds.Q[:B]
+            index.search(Q)                       # capture
+            got = index.search(Q)
+            want = answers[label]
+            if not (np.array_equal(got[0], want[0])
+                    and np.array_equal(got[1], want[1])):
+                raise AssertionError(f"1-rank {backend} pod {label}: "
+                                     "differs from phase 10's single-plane "
+                                     "replay")
+            one[label] = dict(
+                replay_ms=median_ms(lambda: index.search(Q)),
+                single_replay_ms=record["serve"][label]["replay_ms"])
+            log(f"[pod] 1-rank {backend} pod over phase 3's graph, {label}: "
+                f"== phase 10's single-plane replay bit for bit; median of "
+                f"{SERVE_REPEATS} replays {one[label]['replay_ms']:.3f} ms "
+                f"(phase 10's single plane "
+                f"{one[label]['single_replay_ms']:.3f} ms)")
+        del index
+    del X_dev, parts
+    launches = K.launch_counts()
+    pod.close_pod()
+    torch.cuda.empty_cache()
+    out["one_rank_nccl"] = one
+    out["seconds"]["a"] = time.perf_counter() - t0
+
+    # ---- (b) two ranks on the one card over gloo, 2 of 4 shards each
+    t0 = time.perf_counter()
+    np.save(os.path.join(tmp, "X.npy"), ds.X)
+    np.save(os.path.join(tmp, "Q.npy"), ds.Q[:n_queries])
+    run_pod_ranks(tmp, n_queries, str(dev))
+    out["seconds"]["b ranks"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(POD_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            rec = json.load(f)
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+            rec["answers"] = {k: z[k] for k in z.files}
+        ranks.append(rec)
+        for k, v in rec["launches"].items():
+            launches[k] += v
+    a0, a1 = ranks[0]["answers"], ranks[1]["answers"]
+    if a0.keys() != a1.keys() or any(a0[k].tobytes() != a1[k].tobytes()
+                                     for k in a0):
+        raise AssertionError("the pod's ranks answered differently")
+    path = os.path.join(tmp, "pod_ix")
+    man = json.load(open(os.path.join(path, "manifest.json")))
+    if man["plane"] != "pod" or man["topology"]["n_processes"] != POD_RANKS \
+            or man["topology"]["n_db_shards"] != POD_SHARDS \
+            or any(rec["loaded_plane"] != "pod" for rec in ranks):
+        raise AssertionError(f"pod artifact: {man['topology']}")
+    mesh = D.make_mesh((POD_SHARDS, 1), ("data", "model"), device=dev)
+    grid = Index.load(path, mesh=mesh)
+    gp = grid.plane
+    gparts = (gp.X, gp.graph.neighbors, gp.graph.lambdas, gp.graph.degrees,
+              gp._ops[4])
+    grid_ms = {}
+    for B in (10, n_queries):                # timed alone, before (c)
+        grid.search(ds.Q[:B])                     # capture
+        grid_ms[f"fp32 none B={B}"] = median_ms(
+            lambda: grid.search(ds.Q[:B]))
+    # (c)'s drivers start now and run beside the untimed comparisons
+    drivers_run = start_drivers(n, d, tmp, dev)
+    try:
+        for name, knobs in POD_VARIANTS:
+            c = dataclasses.replace(cfg, **knobs)
+            index = grid if not knobs else Index(
+                None, c, plane=MeshPlane(None, c, mesh, parts=gparts))
+            for B in (10, n_queries):
+                label = f"{name} B={B}"
+                index.search(ds.Q[:B])                # capture
+                ids, dists = index.search(ds.Q[:B])
+                if not (np.array_equal(a0[f"{label} ids"], ids)
+                        and np.array_equal(a0[f"{label} dists"], dists)):
+                    raise AssertionError(f"pod {label}: differs from the "
+                                         f"({POD_SHARDS}, 1) grid")
+            if index is not grid:
+                del index
+                torch.cuda.empty_cache()
+        V, del_base, del_add = pod_mutations(n, d)
+        for name, knobs in (("fp32 none", {}), ("int8 none",
+                                                {"quantization": "int8"})):
+            c = dataclasses.replace(cfg, **knobs)
+            index = grid if not knobs else Index(
+                None, c, plane=MeshPlane(None, c, mesh, parts=gparts))
+            new = index.add(V)
+            index.delete(del_base)
+            index.delete(new[del_add])
+            dead = np.concatenate([del_base, new[del_add]])
+            for B in ((10, n_queries) if name == "fp32 none" else (10,)):
+                label = f"stream {name} B={B}"
+                ids, dists = index.search(ds.Q[:B])
+                if not (np.array_equal(a0[f"{label} ids"], ids)
+                        and np.array_equal(a0[f"{label} dists"], dists)):
+                    raise AssertionError(f"pod {label}: differs from the grid")
+                if np.isin(ids, dead).any():
+                    raise AssertionError(f"pod {label}: a deleted id returned")
+            if index is not grid:
+                del index
+        del grid, gp, gparts
+        torch.cuda.empty_cache()
+        out["two_ranks"] = dict(
+            seconds=[rec["seconds"] for rec in ranks],
+            replay_ms=[rec["replay_ms"] for rec in ranks],
+            grid_replay_ms=grid_ms,
+            recall={lbl: recall_at_k(a0[f"{lbl} ids"],
+                                     ds.gt[:a0[f"{lbl} ids"].shape[0]], 10)
+                    for lbl in (f"{nm} B={B}" for nm, _ in POD_VARIANTS
+                                for B in (10, n_queries))})
+        for r, rec in enumerate(ranks):
+            log(f"[pod] rank {r} of {POD_RANKS} (gloo, one card): build "
+                f"{rec['seconds']['build']:.2f} s ({POD_SHARDS // POD_RANKS} "
+                f"shards of {n // POD_SHARDS} rows), save "
+                f"{rec['seconds']['save']:.2f} s, load "
+                f"{rec['seconds']['load']:.2f} s; each replay == its eager "
+                f"call bit for bit; median of {SERVE_REPEATS} replays, ms: "
+                + ", ".join(f"{k} {v:.3f}"
+                            for k, v in rec["replay_ms"].items()))
+        log(f"[pod] both ranks answer alike, and == the ({POD_SHARDS}, 1) "
+            "grid over the same shards bit for bit: " + ", ".join(
+                f"{k} recall@10 {v:.4f}" for k, v in
+                out["two_ranks"]["recall"].items())
+            + f"; stream rounds (fp32 B = 10 and {n_queries}, int8 B = 10) "
+            "too, no deleted id; the artifact's manifest names the pod "
+            f"({POD_RANKS} processes), the 2-rank reload answers bit for bit; "
+            f"the grid's median replays (one process): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in grid_ms.items()))
+        out["seconds"]["b"] = time.perf_counter() - t0
+
+        # ---- (c) the launcher at full size and the five examples (started
+        # above)
+        t0 = time.perf_counter()
+        # the launcher's corpus and batches, served by an index in this
+        # process: its recall is the launcher's yardstick
+        lds = make_clustered(n=n, d=d, n_queries=512, n_clusters=64,
+                             noise=0.6, device=dev)
+        index = Index.build(lds.X, ANNConfig(), device=dev)
+        rng = np.random.default_rng(0)
+        hits = total = 0
+        for _ in range(20):
+            B = int(rng.choice([1, 4, 16, 64, 256]))
+            sel = rng.integers(0, len(lds.Q), B)
+            ids = index.search(lds.Q[sel])[0]
+            hits += recall_at_k(ids, lds.gt[sel], 10) * B
+            total += B
+        want_recall = hits / total
+        del index, lds
+    except BaseException:
+        stop_drivers(drivers_run)         # stop every driver on a failure
+        raise
+    runs = finish_drivers(drivers_run)
+    out["seconds"]["c"] = time.perf_counter() - t0
+    drivers = {}
+    for name, (rc, text, secs) in runs.items():
+        lines = text.rstrip().splitlines()
+        with open(os.path.join(HERE, "chiprun_out", f"smoke_{name}.log"),
+                  "w") as f:
+            f.write(text)
+        drivers[name] = dict(rc=rc, seconds=secs, last=lines[-1:])
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}: " + "\n".join(
+                lines[-20:]))
+    final = [ln for ln in runs["launcher"][1].splitlines()
+             if ln.startswith("[router] ")]
+    got_recall = float(final[-2].rsplit("weighted recall ", 1)[1])
+    if "lost_futures=0" not in final[-1] \
+            or abs(got_recall - want_recall) > 0.01:
+        raise AssertionError(f"launcher: {final[-2:]} (recall of this "
+                             f"process's index {want_recall:.4f})")
+    drivers["launcher"].update(recall=got_recall, index_recall=want_recall,
+                               final=final[-2:])
+    log(f"[drivers] python -m repro_torch.launch.serve --n {n} --d {d} "
+        "--router replicated:2 --kill-replica 1: exit 0 in "
+        f"{runs['launcher'][2]:.1f} s; " + final[-1][len("[router] "):]
+        + f"; weighted recall@10 {got_recall:.4f} (the same corpus and "
+        f"batches in this process: {want_recall:.4f}; phase 4's B = "
+        f"{n_queries} recall "
+        f"{record[f'search_none_{n_queries}']['recall_at_10']:.4f} is on "
+        "phase 3's corpus, noise 0.15 against the launcher's 0.6)")
+    for name, (knobs, ok) in EXAMPLES.items():
+        if drivers[name]["last"] != [ok]:
+            raise AssertionError(f"{name}: last line {drivers[name]['last']}")
+        log(f"[drivers] examples/torch/{name}.py "
+            + " ".join(f"{k}={v}" for k, v in knobs.items())
+            + f": exit 0 in {drivers[name]['seconds']:.1f} s, '{ok}'")
+    out["drivers"] = drivers
+    tmp_dir.cleanup()
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    log("[pod] phase 13 seconds by part (a 1-rank NCCL pod, b two ranks "
+        "and the grid, c drivers after b, which they overlap): " + json.dumps(
+            {k: round(v, 2) for k, v in out["seconds"].items()}))
+    return out, launches
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the device time goes, and the k-NN graph's quality
 # --------------------------------------------------------------------------
 
@@ -2875,6 +3344,18 @@ def main() -> int:
                              f"{missing}")
     for k in mesh_bodies:
         launches[k] = launches.get(k, 0) + phase_launches["12"][k]
+
+    # ---- phase 13: the pod and the serving drivers ------------------------
+    record["pod"], phase_launches["13"] = pod_phase(
+        ds, cfg, graph, n, d, args.queries, dev, answers, record)
+    log("[launches] phase 13 (the 1-rank pod and both ranks) "
+        + json.dumps(phase_launches["13"]))
+    missing = [k for k in ANN_BODIES if phase_launches["13"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the pod's path: "
+                             f"{missing}")
+    for k in ANN_BODIES:
+        launches[k] += phase_launches["13"][k]
     del graph, answers
     torch.cuda.empty_cache()
     # the bf16 body against its plain version (after the path's counts)

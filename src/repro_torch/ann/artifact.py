@@ -36,7 +36,10 @@ captures its graphs at warmup or on first use).
 Safety gates: a wrong ``magic`` or an unknown ``format_version`` and any
 sha256 mismatch raise :class:`ArtifactError`.  Topology: a sharded
 artifact loaded with ``mesh=`` of the same DB shard count re-binds the
-saved sub-indexes bit for bit; without ``mesh=`` it warns, gathers the
+saved sub-indexes bit for bit (inside a pod, :mod:`repro_torch.serve.pod`,
+each rank reads and re-binds only its own shards onto a ``PodPlane``; a
+pod saves SPMD, rank 0 writing, with ``plane: "pod"`` and
+``topology.n_processes``); without ``mesh=`` it warns, gathers the
 shards and rebuilds a single index; onto another shard count it warns
 ("topology mismatch") and rebuilds for the new cut; a single artifact
 loaded with ``mesh=`` warns and reshards.  Every rebuild takes the rows
@@ -60,7 +63,6 @@ import warnings
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from repro_torch.configs.base import ANNConfig
 
@@ -125,36 +127,19 @@ def _config_from_dict(d: dict, port_backend: str | None) -> ANNConfig:
 # save
 # --------------------------------------------------------------------------
 
-def _shard_arrays(plane) -> list:
-    """The mesh plane's operands on the host, cut shard-major: one dict a
-    DB shard with its X slice and its own sub-index.  The operands are the
-    concatenations of the shards' results, so equal row slices ARE the
-    per-shard arrays."""
-    g = plane.graph
-    full = {"X": plane.X, "neighbors": g.neighbors, "lambdas": g.lambdas,
-            "degrees": g.degrees,
-            "hubs": g.hubs if g.hubs is not None else torch.zeros(
-                (0,), dtype=torch.int32)}
-    if plane.quantized:
-        full["codes"], full["scales"] = plane.codes, plane.scales
-    if g.perm is not None:  # v5: rows shard-packed, perm shard-local
-        full["perm"] = g.perm
-    full = {name: a.cpu().numpy() for name, a in full.items()}
-    n = plane.n_db_shards
-    return [{name: a[i * (a.shape[0] // n):(i + 1) * (a.shape[0] // n)]
-             for name, a in full.items()} for i in range(n)]
-
-
 def save_index(index, path, *, aot: bool = True, extra_ks=()) -> Path:
     """Write ``index`` to ``path`` (a directory, created if needed).
 
     ``aot`` and ``extra_ks`` are the reference's: each ``k`` is validated
     against every warmup-reachable regime before anything is written, but
-    no executable is stored (see the module docstring)."""
+    no executable is stored (see the module docstring).  On a pod every
+    rank calls it (the shards are gathered with a collective), rank 0
+    alone writes, and all ranks meet at a barrier before returning."""
     eng = index.engine
     plane = eng.plane
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
+    writer = getattr(plane, "rank", 0) == 0
     kinds = {p[0] for p in eng.warmup_probes()}
     for k in sorted({index.k, *extra_ks}):  # fail fast, before any bytes
         for kind in kinds:
@@ -173,7 +158,7 @@ def save_index(index, path, *, aot: bool = True, extra_ks=()) -> Path:
             "generation": int(eng.stats.generation),
         }
         stream = eng.stream
-        if stream is not None and stream.dirty:
+        if stream is not None and stream.dirty and writer:
             count = stream.delta.count
             np.savez(path / _STREAMING,
                      alive_bits=np.packbits(stream.base_alive),
@@ -182,16 +167,18 @@ def save_index(index, path, *, aot: bool = True, extra_ks=()) -> Path:
                      delta_alive=stream.delta.alive[:count])
             manifest["streaming"] = {"file": _STREAMING,
                                      "sha256": _sha256(path / _STREAMING)}
-        if plane.name == "mesh":
+        if plane.name in ("mesh", "pod"):
             manifest["topology"] = plane.topology()
-            (path / "arrays").mkdir(exist_ok=True)
-            entries = []
-            for i, shard in enumerate(_shard_arrays(plane)):
-                fname = f"arrays/{i}.npz"
-                np.savez(path / fname, **shard)
-                entries.append({"file": fname,
-                                "sha256": _sha256(path / fname)})
-            manifest["arrays"] = entries
+            shards = plane.host_shards()  # a collective on a pod
+            if writer:
+                (path / "arrays").mkdir(exist_ok=True)
+                entries = []
+                for i, shard in enumerate(shards):
+                    fname = f"arrays/{i}.npz"
+                    np.savez(path / fname, **shard)
+                    entries.append({"file": fname,
+                                    "sha256": _sha256(path / fname)})
+                manifest["arrays"] = entries
         else:
             g = plane.graph
             arrays = {"X": plane.X, "neighbors": g.neighbors,
@@ -206,8 +193,11 @@ def save_index(index, path, *, aot: bool = True, extra_ks=()) -> Path:
                      **{name: a.cpu().numpy() for name, a in arrays.items()})
             manifest["arrays"] = {"file": _ARRAYS,
                                   "sha256": _sha256(path / _ARRAYS)}
-    manifest["aot"] = []
-    (path / _MANIFEST).write_text(json.dumps(manifest, indent=2))
+    if writer:
+        manifest["aot"] = []
+        (path / _MANIFEST).write_text(json.dumps(manifest, indent=2))
+    if plane.name == "pod":
+        plane.barrier()
     return path
 
 
@@ -305,16 +295,26 @@ def load_index(index_cls, path, *, device=None, mesh=None):
                           device=device, packed=True, threshold=threshold)
         return _finish_load(index, path, manifest)
 
-    # ---- sharded (mesh) artifact ----------------------------------------
-    shards = [_verified_npz(path, e) for e in manifest["arrays"]]
-    names = ("X", "neighbors", "lambdas", "degrees", "hubs")
-    if "codes" in shards[0]:  # v4: the int8 payload
-        names = names + ("codes", "scales")
-    if "perm" in shards[0]:  # v5: rows shard-packed
-        names = names + ("perm",)
-    full = {name: np.concatenate([s[name] for s in shards])
-            for name in names}
+    # ---- sharded (mesh or pod) artifact ---------------------------------
+    entries = manifest["arrays"]
     topo = manifest.get("topology", {})
+    from repro_torch.core import distributed as D
+    from repro_torch.serve import pod
+
+    if mesh is not None and pod.active() \
+            and D.n_db_shards(mesh) == topo.get("n_db_shards"):
+        # inside a pod, the same shard cut: each rank re-binds its own
+        # shards, read from their own files
+        world, rank = pod.world()
+        per = len(entries) // world
+        mine = [_verified_npz(path, e)
+                for e in entries[rank * per:(rank + 1) * per]]
+        plane = pod.PodPlane(None, cfg, mesh, local=True,
+                             parts=tuple(_stacked(mine).values()))
+        index = index_cls(None, cfg, k=k, plane=plane, threshold=threshold)
+        return _finish_load(index, path, manifest)
+    shards = [_verified_npz(path, e) for e in entries]
+    full = _stacked(shards)
 
     def external_X():
         """The corpus in external row order, for the rebuilds."""
@@ -333,7 +333,6 @@ def load_index(index_cls, path, *, device=None, mesh=None):
             index_cls(external_X(), cfg, k=k, device=device,
                       threshold=threshold), path, manifest)
 
-    from repro_torch.core import distributed as D
     from repro_torch.serve.plane import MeshPlane
 
     if D.n_db_shards(mesh) != topo.get("n_db_shards"):
@@ -346,7 +345,19 @@ def load_index(index_cls, path, *, device=None, mesh=None):
             index_cls(external_X(), cfg, k=k, mesh=mesh,
                       threshold=threshold), path, manifest)
     # the same shard cut: re-bind the saved sub-indexes, no rebuild
-    plane = MeshPlane(None, cfg, mesh,
-                      parts=tuple(full[name] for name in names))
+    plane = MeshPlane(None, cfg, mesh, parts=tuple(full.values()))
     index = index_cls(None, cfg, k=k, plane=plane, threshold=threshold)
     return _finish_load(index, path, manifest)
+
+
+def _stacked(shards: list) -> dict:
+    """Shard payloads concatenated row-wise, in the operand order the
+    mesh plane takes: ``X, neighbors, lambdas, degrees, hubs`` [+ v4's
+    ``codes, scales``] [+ v5's ``perm``]."""
+    names = ("X", "neighbors", "lambdas", "degrees", "hubs")
+    if "codes" in shards[0]:  # v4: the int8 payload
+        names = names + ("codes", "scales")
+    if "perm" in shards[0]:  # v5: rows shard-packed
+        names = names + ("perm",)
+    return {name: np.concatenate([s[name] for s in shards])
+            for name in names}

@@ -15,13 +15,13 @@ index the rows are un-permuted to external order first, and the rebuild
 runs the config's pipeline, ``"layout"`` included, so the new generation
 is packed again.  A mesh plane rebuilds its shard-local sub-indexes over
 the effective corpus (``MeshPlane.rebind``), which must then split evenly
-over its DB shards.
+over its DB shards; a pod's ranks compact together, each rebuilding its
+own shards over the gathered corpus.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.ann.layout import unpack_rows
 from repro_torch.ann.pipeline import build_graph
 
 
@@ -54,32 +54,26 @@ def compact(engine, *, tile: int = 2048) -> np.ndarray:
     map."""
     with engine.lock:
         stream = engine.stream
-        n_base = int(engine.X.shape[0])
+        plane = engine.plane
         if stream is None or not stream.dirty:
             engine.stream = None
-            engine.plane.clear_stream()
-            return np.arange(n_base, dtype=np.int64)
+            plane.clear_stream()
+            return np.arange(plane.n_rows, dtype=np.int64)
         if stream.n_active() == 0:
             raise ValueError(
                 "cannot compact to an empty index: every row is "
                 "tombstoned; add vectors or rebuild")
-        base_X = engine.X.cpu().numpy()
-        plane = engine.plane
-        perm = engine.graph.perm
-        if perm is not None:
-            # a packed plane's rows are in packed order (per shard on a
-            # mesh), but the mutation log and id_map speak external ids
-            base_X = unpack_rows(base_X, perm.cpu().numpy(),
-                                 n_shards=getattr(plane, "n_db_shards", 1))
-        X_eff, id_map = effective_corpus(stream, base_X)
-        if plane.name == "mesh":
-            shards = plane.n_db_shards
+        # the base rows in external order (a pod gathers every rank's):
+        # the mutation log and id_map speak external ids
+        X_eff, id_map = effective_corpus(stream, plane.host_rows())
+        shards = getattr(plane, "n_db_shards", None)
+        if shards is not None:
             if X_eff.shape[0] % shards:
                 raise ValueError(
                     f"effective corpus has {X_eff.shape[0]} rows, not "
                     f"divisible over {shards} DB shards; add/delete "
                     "vectors to a multiple or compact on a single plane")
-            # the shard build a fresh mesh plane runs
+            # the shard build a fresh mesh (or pod) plane runs
             plane.rebind(X_eff)
         else:
             graph = build_graph(X_eff, engine.cfg, tile=tile,

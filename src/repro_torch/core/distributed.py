@@ -16,8 +16,9 @@ a search over views of the concatenated row-sharded operands, run one
 after another on the device's stream.  The operands are laid out as the
 reference lays them out (the concatenation of the shard-local results), so
 an artifact moves between the packages unchanged, and the search stays
-capturable into one CUDA graph.  A grid across several cards is the
-multi-process pod's job (ROADMAP.md queue A item 13b).
+capturable into one CUDA graph.  A grid across processes (one a card)
+is the pod's (:mod:`repro_torch.serve.pod`): each rank runs its shards'
+cells, and the pools are gathered before the same merge.
 
 Determinism contract (the reference's): every search row is seeded by its
 GLOBAL index — the large regime passes each query column's row offset as
@@ -258,7 +259,82 @@ def make_search_fn(mesh: Mesh, cfg, *, kind: str = "large", k: int = 10,
     the same candidates), into the same merge at global ids
     ``N + slot``.  With ``cfg.db_bf16`` the searches read a bf16 copy of
     X (a bf16 X operand is used as it is).  The body reads no tensor value
-    on the host, so it can be captured into a CUDA graph."""
+    on the host, so it can be captured into a CUDA graph.  It is
+    :func:`make_cells_fn`, :func:`splice_delta` and :func:`merge_topk`
+    over the pools' rows in turn; the pod plane runs the same three with
+    an exchange of the cells' pools between the first two."""
+    cells = make_cells_fn(mesh, cfg, kind=kind, k=k)
+    quantized = getattr(cfg, "quantization", "none") == "int8"
+    has_layout = "layout" in tuple(getattr(cfg, "build_pipeline", ()) or ())
+
+    def search(*ops):
+        index_ops, stream_ops, Q = split_operands(
+            ops, quantized=quantized, has_layout=has_layout, stream=stream)
+        alive = stream_ops[0] if stream else None
+        pools_i, pools_d = cells(*index_ops, Q, alive=alive)
+        if stream:
+            splice_delta(pools_i, pools_d, query_slices(Q, kind, mesh),
+                         stream_ops[1:], index_ops[0].shape[0], cfg, k=k)
+        return merge_topk(torch.cat(pools_i), torch.cat(pools_d), k)
+
+    return search
+
+
+def split_operands(ops, *, quantized: bool, has_layout: bool,
+                   stream: bool):
+    """``make_search_fn``'s operands -> ``((X, neighbors, lambdas,
+    degrees, hubs, codes, scales, perm), (alive, delta_X, delta_alive,
+    delta_quant), Q)``; absent parts are None (``delta_quant``: the
+    delta's ``(codes, scales)``), and the stream tuple is empty without
+    ``stream``."""
+    ops = list(ops)
+    X, nbrs, lams, degs, hubs = ops[:5]
+    rest = ops[5:]
+    codes = scales = perm = None
+    if quantized:  # row-sharded codes ride right after the fp32 parts
+        codes, scales = rest[:2]
+        rest = rest[2:]
+    if has_layout:  # shard-local locality perm rides after the codes
+        perm = rest[0]
+        rest = rest[1:]
+    stream_ops = ()
+    if stream:
+        alive, dX, dal = rest[:3]
+        rest = rest[3:]
+        dquant = None
+        if quantized:
+            dquant = tuple(rest[:2])
+            rest = rest[2:]
+        stream_ops = (alive, dX, dal, dquant)
+    if len(rest) != 1:
+        raise ValueError(f"expected one query operand after the "
+                         f"{len(ops) - len(rest)} index operands, got "
+                         f"{len(rest)}")
+    return (X, nbrs, lams, degs, hubs, codes, scales, perm), stream_ops, \
+        rest[0]
+
+
+def query_slices(Q, kind: str, mesh: Mesh) -> list:
+    """The query rows of each pool: all of Q in the small regime, each
+    query column's rows in the large."""
+    if kind == "small":
+        return [Q]
+    n_q = n_query_shards(mesh)
+    B_local = Q.shape[0] // n_q
+    return [Q[j * B_local:(j + 1) * B_local] for j in range(n_q)]
+
+
+def make_cells_fn(mesh: Mesh, cfg, *, kind: str = "large", k: int = 10,
+                  first_shard: int = 0):
+    """The grid's cells: ``cells(X, neighbors, lambdas, degrees, hubs,
+    codes, scales, perm, Q, *, alive=None) -> (pools_i, pools_d)``, one
+    (ids, dists) pool a query slice (:func:`query_slices`), each the
+    cells' top-k at global ids in shard-major columns (PAD_ID, INF where
+    a cell had fewer answers).  ``codes``/``scales``/``perm`` are None
+    without int8 residency or the layout; ``alive`` is the tombstone mask
+    over these rows.  The operands hold ``mesh``'s DB shards, whose first
+    is global shard ``first_shard``: shard ``i``'s ids start at
+    ``(first_shard + i) * n_local``."""
     if kind not in ("small", "large"):
         raise ValueError(f"kind={kind!r} must be 'small' or 'large'")
     n_db = n_db_shards(mesh)
@@ -266,43 +342,18 @@ def make_search_fn(mesh: Mesh, cfg, *, kind: str = "large", k: int = 10,
     quantized = getattr(cfg, "quantization", "none") == "int8"
     rerank_mult = getattr(cfg, "rerank_mult", 4)
     visited = getattr(cfg, "visited_filter", "none")
-    has_layout = "layout" in tuple(getattr(cfg, "build_pipeline", ()) or ())
     bf16 = bool(getattr(cfg, "db_bf16", False))
     metric = cfg.metric
 
-    def search(*ops):
-        ops = list(ops)
-        X, nbrs, lams, degs, hubs = ops[:5]
-        rest = ops[5:]
-        codes = scales = perm = None
-        if quantized:  # row-sharded codes ride right after the fp32 parts
-            codes, scales = rest[:2]
-            rest = rest[2:]
-        if has_layout:  # shard-local locality perm rides after the codes
-            perm = rest[0]
-            rest = rest[1:]
-        if stream:
-            alive, dX, dal = rest[:3]
-            rest = rest[3:]
-            if quantized:
-                dcodes, dscales = rest[:2]
-                rest = rest[2:]
-        else:
-            alive = None
-        if len(rest) != 1:
-            raise ValueError(f"expected one query operand after the "
-                             f"{len(ops) - len(rest)} index operands, got "
-                             f"{len(rest)}")
-        Q = rest[0]
+    def cells(X, nbrs, lams, degs, hubs, codes, scales, perm, Q, *,
+              alive=None):
         if bf16 and X.dtype != torch.bfloat16:
             X = X.to(torch.bfloat16)
-        N = X.shape[0]
-        n_local = rows_per_shard(N, n_db)
+        n_local = rows_per_shard(X.shape[0], n_db)
         nh = hubs.shape[0] // n_db
         B = Q.shape[0]
-        dev = X.device
         backend = HP.resolve_backend(
-            getattr(cfg, "kernel_backend", "auto"), dev)
+            getattr(cfg, "kernel_backend", "auto"), X.device)
         if kind == "large" and B % n_q:
             raise ValueError(f"batch {B} does not split over {n_q} query "
                              "shards; pad it to a multiple")
@@ -349,31 +400,38 @@ def make_search_fn(mesh: Mesh, cfg, *, kind: str = "large", k: int = 10,
                 # the search pads with hotpath.PAD_ID (2**31 - 1): only
                 # ids below n_local name rows of this shard
                 ok = ids < n_local
-                cols_i[j].append(torch.where(ok, ids + lo,
+                gid = ids + (first_shard + i) * n_local
+                cols_i[j].append(torch.where(ok, gid,
                                              torch.full_like(ids, PAD_ID)))
                 cols_d[j].append(torch.where(ok, dist,
                                              torch.full_like(dist, INF)))
         if kind == "small":  # every cell's pool, shard-major
-            pools_i = [torch.cat([cols_i[j][i] for i in range(n_db)
-                                  for j in range(n_q)], dim=1)]
-            pools_d = [torch.cat([cols_d[j][i] for i in range(n_db)
-                                  for j in range(n_q)], dim=1)]
-            slices = [Q]
-        else:  # one pool a query column, over the DB shards
-            pools_i = [torch.cat(c, dim=1) for c in cols_i]
-            pools_d = [torch.cat(c, dim=1) for c in cols_d]
-            slices = [Q[j * B_local:(j + 1) * B_local] for j in range(n_q)]
-        if stream:
-            for p, Qs in enumerate(slices):
-                d_ids, d_d = delta_candidates(
-                    Qs, dX, dal, (dcodes, dscales) if quantized else None,
-                    N, k=k, metric=metric, rerank_mult=rerank_mult,
-                    backend=backend)
-                pools_i[p] = torch.cat([pools_i[p], d_ids], dim=1)
-                pools_d[p] = torch.cat([pools_d[p], d_d], dim=1)
-        return merge_topk(torch.cat(pools_i), torch.cat(pools_d), k)
+            return ([torch.cat([cols_i[j][i] for i in range(n_db)
+                                for j in range(n_q)], dim=1)],
+                    [torch.cat([cols_d[j][i] for i in range(n_db)
+                                for j in range(n_q)], dim=1)])
+        # one pool a query column, over the DB shards
+        return ([torch.cat(c, dim=1) for c in cols_i],
+                [torch.cat(c, dim=1) for c in cols_d])
 
-    return search
+    return cells
+
+
+def splice_delta(pools_i: list, pools_d: list, slices: list, delta_ops,
+                 n_total: int, cfg, *, k: int) -> None:
+    """Append the delta shard's candidates (:func:`delta_candidates`,
+    ``delta_ops`` = (delta_X, delta_alive, delta_quant)) to each pool, in
+    place, scanned once per query slice at global ids ``n_total +
+    slot``."""
+    dX, dal, dquant = delta_ops
+    backend = HP.resolve_backend(getattr(cfg, "kernel_backend", "auto"),
+                                 dX.device)
+    for p, Qs in enumerate(slices):
+        d_ids, d_d = delta_candidates(
+            Qs, dX, dal, dquant, n_total, k=k, metric=cfg.metric,
+            rerank_mult=getattr(cfg, "rerank_mult", 4), backend=backend)
+        pools_i[p] = torch.cat([pools_i[p], d_ids], dim=1)
+        pools_d[p] = torch.cat([pools_d[p], d_d], dim=1)
 
 
 def delta_candidates(Q, dX, dal, dquant, n_total: int, *, k: int,

@@ -457,14 +457,14 @@ class ANNEngine:
     def n_active(self) -> int:
         """Rows a search can currently return (base + delta - tombstones)."""
         stream = self.stream
-        return int(self.X.shape[0]) if stream is None else stream.n_active()
+        return self.plane.n_rows if stream is None else stream.n_active()
 
     def _ensure_stream(self) -> StreamState:
         """Create the host-side mutation log on first use (caller holds
         the lock)."""
         if self.stream is None:
             self.stream = StreamState(
-                int(self.X.shape[0]), int(self.X.shape[1]),
+                self.plane.n_rows, int(self.X.shape[1]),
                 min_cap=getattr(self.cfg, "delta_min_cap", 256))
         return self.stream
 
@@ -491,11 +491,11 @@ class ANNEngine:
         else:
             stream = stream_from_numpy(base_alive, delta_X, delta_alive,
                                        count)
-        if stream.n_base != self.X.shape[0] \
-                or stream.delta.d != self.X.shape[1]:
+        shape = (self.plane.n_rows, int(self.X.shape[1]))
+        if (stream.n_base, stream.delta.d) != shape:
             raise ValueError(
                 f"stream state over {stream.n_base} x {stream.delta.d} "
-                f"does not match the index's {tuple(self.X.shape)}")
+                f"does not match the index's {shape}")
         with self.lock:
             self.stream = stream if stream.dirty else None
             if self.stream is None:

@@ -9,7 +9,8 @@ search procedure of each regime (the reference's ``serve/plane.py``).
   stream, so a search is still one CUDA graph.
 
 :func:`register_plane` / :func:`get_plane` / :func:`planes` name them
-(``"single"``, ``"mesh"``).
+(``"single"``, ``"mesh"``, and ``"pod"``, the multi-process
+:mod:`repro_torch.serve.pod`, registered when first asked for).
 
 The engine above a plane asks for one callable per (regime, bucket, k):
 ``compile`` and ``compile_stream`` take the bucket-padded query batch and
@@ -154,10 +155,28 @@ class _OwnedPlane:
         self._pool = None           # the CUDA graphs' shared memory pool
         self._stage_bufs: dict = {}
         self.stage_reuses = 0
+        self.perm_shards = 1        # row slices a packed perm is local to
 
     @property
     def quantized(self) -> bool:
         return getattr(self.cfg, "quantization", "none") == "int8"
+
+    @property
+    def n_rows(self) -> int:
+        """Rows of the database the index answers over (the pod's: every
+        rank's)."""
+        return int(self.X.shape[0])
+
+    def host_rows(self) -> np.ndarray:
+        """The database on the host in external row order (a packed
+        layout's rows un-permuted, per row slice of ``perm_shards``)."""
+        from repro_torch.ann.layout import unpack_rows
+
+        X = self.X.cpu().numpy()
+        perm = self.graph.perm
+        if perm is None:
+            return X
+        return unpack_rows(X, perm.cpu().numpy(), n_shards=self.perm_shards)
 
     def _own(self, ops) -> bool:
         """Make ``ops`` the plane's operands: copied into the current
@@ -285,17 +304,15 @@ class _OwnedPlane:
         callable taking the padded [bucket, d] float32 batch on the device
         and returning (ids, dists) — a :class:`CapturedSearch` on the card,
         the eager search on the CPU."""
-        return self._bind(lambda Q: self.search(kind, Q, k), bucket,
-                          streaming=False)
+        return self._bind(kind, bucket, k, streaming=False)
 
     def compile_stream(self, kind: str, bucket: int, k: int):
         """The same for the mutable index (``search_stream``); bound to
         the current stream buffers too."""
         self._require_stream("compile_stream")
-        return self._bind(lambda Q: self.search_stream(kind, Q, k), bucket,
-                          streaming=True)
+        return self._bind(kind, bucket, k, streaming=True)
 
-    def _bind(self, fn, bucket: int, *, streaming: bool):
+    def _bind(self, kind: str, bucket: int, k: int, *, streaming: bool):
         token = self.shape_token()
         stream_tok = self.stream_token() if streaming else None
 
@@ -306,6 +323,11 @@ class _OwnedPlane:
                     "callable bound to a previous generation's operand "
                     "buffers; re-dispatch against the new token")
 
+        def fn(Q):
+            if streaming:
+                return self.search_stream(kind, Q, k)
+            return self.search(kind, Q, k)
+
         if self.device.type != "cuda":
             def call(Qb):
                 current()
@@ -313,6 +335,11 @@ class _OwnedPlane:
             return call
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        return self._capture(fn, kind, bucket, k, streaming, current)
+
+    def _capture(self, fn, kind: str, bucket: int, k: int,
+                 streaming: bool, current):
+        """The card's callable: ``fn`` captured whole."""
         return CapturedSearch(fn, (bucket, self.X.shape[1]), self.device,
                               self._pool, current)
 
@@ -522,11 +549,23 @@ class MeshPlane(_OwnedPlane):
                 "axes 'data' (and optionally 'pod'/'model')")
         self.n_db_shards = D.n_db_shards(mesh)
         self.n_q_shards = D.n_query_shards(mesh)
+        # the shards this process holds: here all of them
+        self.local_mesh, self.first_shard = self._local_grid(mesh)
+        self.perm_shards = D.n_db_shards(self.local_mesh)
         self.build_seconds: list = []
         self._fns: dict = {}
         if parts is None:
-            parts = self._build(self._put(X, torch.float32))
+            parts = self._build(X)
         self._install(tuple(self._put(a) for a in parts))
+
+    def _local_grid(self, mesh):
+        """(the grid of the shards this process holds, the global index
+        of its first shard)."""
+        return mesh, 0
+
+    def _own_rows(self, A):
+        """The rows of a row-sharded operand that this process holds."""
+        return A
 
     @property
     def has_layout(self) -> bool:
@@ -534,11 +573,12 @@ class MeshPlane(_OwnedPlane):
                                  or ())
 
     def _build(self, X) -> tuple:
-        """The shard build (stage seconds into ``build_seconds``), then the
-        per-shard host layout: ``(X, neighbors, lambdas, degrees, hubs
-        [, perm])``."""
+        """The shard build of this process's rows of ``X`` (stage seconds
+        into ``build_seconds``), then the per-shard host layout: ``(X,
+        neighbors, lambdas, degrees, hubs[, perm])``."""
+        X = self._put(self._own_rows(X), torch.float32)
         self.build_seconds = []
-        built = D.make_build_fn(self.mesh, self.cfg)(
+        built = D.make_build_fn(self.local_mesh, self.cfg)(
             X, timings=self.build_seconds)
         return self._host_layout(X, built)
 
@@ -547,16 +587,17 @@ class MeshPlane(_OwnedPlane):
         config has the "layout" stage, which the shard build strips."""
         if not self.has_layout:
             return (X, *built)
-        parts, seconds = shard_layout(X, built, self.n_db_shards)
+        parts, seconds = shard_layout(X, built, self.perm_shards)
         for timings, t in zip(self.build_seconds, seconds):
             timings["layout"] = t
         return parts
 
     def _install(self, parts) -> None:
-        """Swap in a generation: ``parts`` as :meth:`__init__` takes them,
-        already on the device.  A quantized config without saved codes
-        derives them (row-local, so the shard cut does not matter); a
-        ``db_bf16`` config makes the bf16 copy.  Clears the stream."""
+        """Swap in a generation: this process's shards of ``parts`` as
+        :meth:`__init__` takes them, already on the device.  A quantized
+        config without saved codes derives them (row-local, so the shard
+        cut does not matter); a ``db_bf16`` config makes the bf16 copy.
+        Clears the stream."""
         X, nbrs, lams, degs, hubs = parts[:5]
         rest = tuple(parts[5:])
         perm = None
@@ -569,10 +610,10 @@ class MeshPlane(_OwnedPlane):
                 f"parts= holds {len(parts)} operands, which does not match "
                 f"quantization={self.cfg.quantization!r} and layout="
                 f"{self.has_layout}")
-        n_local = D.rows_per_shard(X.shape[0], self.n_db_shards)
-        if hubs.shape[0] % self.n_db_shards:
+        n_local = D.rows_per_shard(X.shape[0], self.perm_shards)
+        if hubs.shape[0] % self.perm_shards:
             raise ValueError(f"{hubs.shape[0]} hubs do not split over "
-                             f"{self.n_db_shards} DB shards")
+                             f"{self.perm_shards} DB shards")
         ops = (X, nbrs, lams, degs, hubs) + tuple(rest)
         if perm is not None:
             ops = ops + (perm,)
@@ -605,8 +646,32 @@ class MeshPlane(_OwnedPlane):
         shard-local sub-indexes over it — the build a fresh mesh plane
         runs — and install them (copied into the current buffers when the
         shapes hold, so every captured graph stays valid)."""
-        X = self._put(X, torch.float32)
         self._install(self._build(X))
+
+    def host_arrays(self) -> dict:
+        """The operands on the host, each the concatenation of every DB
+        shard's rows: ``X`` and the sub-indexes (``hubs`` always), the int8
+        ``codes, scales``, a packed layout's shard-local ``perm``."""
+        g = self.graph
+        full = {"X": self.X, "neighbors": g.neighbors, "lambdas": g.lambdas,
+                "degrees": g.degrees,
+                "hubs": g.hubs if g.hubs is not None else torch.zeros(
+                    (0,), dtype=torch.int32)}
+        if self.quantized:
+            full["codes"], full["scales"] = self.codes, self.scales
+        if g.perm is not None:  # v5: rows shard-packed, perm shard-local
+            full["perm"] = g.perm
+        return {name: a.cpu().numpy() for name, a in full.items()}
+
+    def host_shards(self) -> list:
+        """:meth:`host_arrays` cut shard-major: one dict a DB shard with
+        its X slice and its own sub-index.  The operands are the
+        concatenations of the shards' results, so equal row slices ARE
+        the per-shard arrays."""
+        full = self.host_arrays()
+        n = self.n_db_shards
+        return [{name: a[i * (a.shape[0] // n):(i + 1) * (a.shape[0] // n)]
+                 for name, a in full.items()} for i in range(n)]
 
     def fingerprint(self) -> dict:
         fp = self._fingerprint()
@@ -669,10 +734,11 @@ def planes() -> tuple:
 
 def get_plane(name: str):
     if name == "pod" and name not in _PLANES:
-        raise NotImplementedError(
-            "the multi-process pod plane is not in the PyTorch port yet "
-            "(ROADMAP.md queue A item 13b: serve/pod.py over "
-            "torch.distributed)")
+        # registers itself on first use, so single-process code never
+        # imports torch.distributed
+        from repro_torch.serve import pod
+
+        pod.PodPlane  # noqa: B018 — builds and registers the class
     try:
         return _PLANES[name]
     except KeyError:

@@ -1117,3 +1117,40 @@ def test_sharded_router_equals_mesh_on_the_card(served, mesh_parts):
             want = mi.search(ds.Q[:B])
             np.testing.assert_array_equal(ids, want[0])
             np.testing.assert_array_equal(dists, want[1])
+
+
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_pod_replay_equals_eager_on_the_card(served, mesh_parts, quant,
+                                             stream):
+    """A 1-rank pod (no process group) over the grid's two DB shards: its
+    search is two captured graphs around the exchange, and a replay
+    equals an eager call and the (2, 1) grid's replay bit for bit, in
+    both regimes, frozen and with a stream; a repeated bucket captures
+    nothing."""
+    from repro_torch.core import distributed as D
+    from repro_torch.serve.plane import MeshPlane
+    from repro_torch.serve.pod import PodPlane
+
+    _, parts = mesh_parts
+    mesh = D.make_mesh((2, 1), ("data", "model"))
+    cfg = dataclasses.replace(served["cfg"], quantization=quant)
+    pod = Index(None, cfg, plane=PodPlane(None, cfg, mesh, parts=parts))
+    grid = Index(None, cfg, plane=MeshPlane(None, cfg, mesh, parts=parts))
+    if stream:
+        _mutate(pod, served["V"])
+        _mutate(grid, served["V"])
+    plane = pod.plane
+    for B in (10, 300):
+        kind, bucket = pod.regime(B), pod.engine.bucket_for(B)
+        search = plane.search_stream if stream else plane.search
+        want = [t[:B].cpu().numpy() for t in search(
+            kind, _padded(served["ds"].Q[:B], bucket), 10)]
+        for _ in range(2):
+            ids, dists = pod.search(served["ds"].Q[:B])
+            np.testing.assert_array_equal(ids, want[0])
+            np.testing.assert_array_equal(dists, want[1])
+        g = grid.search(served["ds"].Q[:B])
+        np.testing.assert_array_equal(ids, g[0])
+        np.testing.assert_array_equal(dists, g[1])
+    assert pod.stats.compiles == 2 and pod.stats.bucket_hits == 2
