@@ -64,7 +64,12 @@ Phases, each printing its own lines:
    16 heads of 128, bf16, the "tile" body) and one decode step over
    32,768 keys (the "split" body) through ``ops.flash_attention``.
    Attention also reports SDPA's own err/tol on the same inputs, both
-   bodies at 1-64 query rows a KV head (``[threshold]`` lines);
+   bodies at 1-64 query rows a KV head (``[threshold]`` lines).  The bf16
+   bodies: wide_deep's bags of a bf16 table and GraphSAGE's layer on bf16
+   features (both routes), each against its plain version on the widened
+   inputs within the float32 contract plus one rounding of the output
+   (2^-8 * |out|), with its times and its bound at bf16's bytes, then
+   once each on the counted path (1 and 2 launches);
 10. serving, on phase 3's graph: for fp32 and int8, both visited modes,
    B = 10 and 10240, and the stream search with phase 8's live delta, the
    engine's replayed CUDA graph against an eager call of the same search
@@ -128,6 +133,31 @@ Phases, each printing its own lines:
    batches) and the five ``examples/torch/`` scripts at their CI sizes,
    all subprocesses started together, each exiting 0 with its OK line.
    Every ANN kernel body must launch in (a) and the ranks.
+14. the language models' serving path (``models/transformer.py``), with
+   the ANN state released and every counter at 0: four drills one after
+   another, each freed before the next, weights from ``init_params`` with
+   a seeded generator on the card, tokens from ``LMStream(seed=0)``: (a)
+   ``olmo_1b`` at full size, B = 4, a 2,048-token prompt and 32 decode
+   steps; (b) ``gemma3_27b`` at full width cut to 18 layers (three 5:1
+   periods; the card's memory cuts it), B = 2, prompt 2,048, 16 steps;
+   (c) ``starcoder2_7b`` at full size, B = 1, prompt 4,608 (past its
+   4,096 window), 8 steps; (d) ``olmoe_1b_7b`` at full size, B = 4,
+   prompt 512, 8 steps.
+   Each first holds ``flash_attention`` to its plain version at the
+   drill's own shapes (a prefill layer and a decode step at q_offset P
+   over the P + steps cache, every window of the drill, on unit-normal
+   q/k/v and on a layer's own) within the attention contract; this is
+   the gate a wrong kernel fails.  Then ``prefill`` and teacher-forced
+   ``decode_step``s on the hand
+   kernel (``flash_attention`` one tile launch a layer in the prefill,
+   split + combine a layer a step, by the counter), on the plain path
+   (``kernel_backend="torch"``) in bf16 and in float32 (TF32 off), the
+   reference: ``err_kernel <= 2 * err_plain`` over the prefill's last
+   logits and every step's; the same gate shown two planted faults (a
+   dropped scale, a dropped window; reported, not gated); the greedy
+   tokens' agreement (not gated); prefill and decode medians (CUDA
+   events) beside their bounds, flash_attention's device time in a
+   traced prefill and step, and the peak device memory (``[lm]`` lines).
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
@@ -137,7 +167,8 @@ launches, a capture none, and a replay those its capture recorded.  Each
 of the six ANN kernel bodies must have launched in them, and again in
 phase 11's packed path, phase 12's sharded one (with the bf16 body) and
 phase 13's pod.  Phase 9's path must launch each of its five, attention
-and SpMM exactly as often as their routes launch kernels.
+and SpMM exactly as often as their routes launch kernels, and phase 14's
+flash_attention as its bodies launch.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -737,6 +768,10 @@ def sort_case(R, W, dev, gen):
 
 
 def check_embedding_bag(name, table, ids, combine="mean"):
+    """``ops.embedding_bag`` against its plain version on the widened
+    table, within 1e-6 * the bag's sum of |rows| (plus one rounding of
+    the output, 2^-8 * |out|, for a bf16 table); the bound at the table's
+    own bytes an element."""
     import torch
     import torch.nn.functional as F
 
@@ -744,6 +779,7 @@ def check_embedding_bag(name, table, ids, combine="mean"):
 
     B, bag = ids.shape
     E = table.shape[1]
+    bf16 = table.dtype == torch.bfloat16
 
     def kern():
         return ops.embedding_bag(table, ids, combine=combine)
@@ -757,29 +793,37 @@ def check_embedding_bag(name, table, ids, combine="mean"):
         return F.embedding_bag(ids64, table, mode=combine)
 
     out = kern()
-    ref = plain()
+    # the plain version on the widened table, in float32
+    ref = embedding_bag.embedding_bag_plain(table.float(), ids,
+                                            combine=combine)
     torch.cuda.synchronize()
-    scale = table.abs()[ids64].sum(1) / (bag if combine == "mean" else 1)
-    err = (out - ref).abs()
-    if bool((err > 1e-6 * scale).any()) or not bool(
+    scale = table[ids64].float().abs().sum(1) / (
+        bag if combine == "mean" else 1)
+    tol = 1e-6 * scale + (2.0 ** -8 * ref.abs() if bf16 else 0.0)
+    err = (out.float() - ref).abs()
+    if out.dtype != table.dtype or bool((err > tol).any()) or not bool(
             torch.isfinite(out).all()):
-        raise AssertionError(f"embedding_bag {name}: over 1e-6*sum|rows|")
+        raise AssertionError(f"embedding_bag {name}: over 1e-6*sum|rows|"
+                             + (" + 2^-8|out|" if bf16 else ""))
     ms = cuda_ms(kern, 20)
     device_ms = cuda_ms(kern, 20, repeats=3, ahead=True)
     plain_ms = cuda_ms(plain, 5)
     lib_ms = cuda_ms(library, 5)
     rows = int(torch.unique(ids).numel())   # the rows this batch needs
-    b_ms, b_by = bound(rows * E * 4 + B * bag * 4 + B * E * 4, B * bag * E)
+    el = table.element_size()
+    b_ms, b_by = bound(rows * E * el + B * bag * 4 + B * E * el, B * bag * E)
     return dict(shape=name, V=table.shape[0], E=E, B=B, bag=bag,
-                combine=combine, max_abs_err=float(err.max()), ms=ms,
+                combine=combine, dtype=str(table.dtype).replace("torch.", ""),
+                max_abs_err=float(err.max()), ms=ms,
                 device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
 
 
 def check_spmm(name, nbrs, feat, w, combine="mean"):
     """``ops.packed_spmm`` (the route ``segment_matmul.path`` picks) and
-    both forced routes against the plain version, each within
-    1e-5 * (|agg| @ |W|); every time but ``ms`` is ``device_ms`` (the
+    both forced routes against the plain version on the widened inputs,
+    each within 1e-5 * (|agg| @ |W|) (plus one rounding of the output,
+    2^-8 * |out|, for bf16 feat); every time but ``ms`` is ``device_ms`` (the
     calls queued ahead).  No single PyTorch call computes this function
     (a gather, a masked mean, a product), so library_ms is None; the
     transform route's projection is timed beside ``torch.matmul`` (TF32
@@ -789,7 +833,8 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
     floor and HBM-traffic estimate come from ``segment_matmul.route_costs``
     over the valid lanes: the floor reads each distinct row of feat or Y
     once, the estimate every valid lane's row from HBM (no L2 hits), which
-    a gather can beat."""
+    a gather can beat.  Rows of bf16 feat count 2 bytes an element, and
+    so does a bf16 output."""
     import torch
 
     from repro_torch.kernels import ops, segment_matmul as sm
@@ -798,6 +843,8 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
     Nf, d = feat.shape
     f = w.shape[1]
     route = sm.path(N, M, Nf, d, f)
+    bf16 = feat.dtype == torch.bfloat16
+    el = feat.element_size()
 
     def kern():
         return ops.packed_spmm(nbrs, feat, w, combine=combine)
@@ -805,18 +852,22 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
     def plain():
         return sm.packed_spmm_plain(nbrs, feat, w, combine=combine)
 
-    ref = plain()
     agg = sm.aggregate(nbrs, feat, combine=combine)
-    tol = 1e-5 * (agg.abs() @ w.abs())
+    ref = agg @ w.float()      # the plain version's float32 result
+    tol = 1e-5 * (agg.abs() @ w.float().abs())
+    if bf16:
+        tol += 2.0 ** -8 * ref.abs()
     del agg
     err_max, ratio = 0.0, {}
     for via in sm.ROUTES:
         out = sm.packed_spmm(nbrs, feat, w, combine=combine, via=via)
         torch.cuda.synchronize()
-        err = (out - ref).abs()
-        if bool((err > tol).any()) or not bool(torch.isfinite(out).all()):
+        err = (out.float() - ref).abs()
+        if out.dtype != feat.dtype or bool((err > tol).any()) or not bool(
+                torch.isfinite(out).all()):
             raise AssertionError(f"packed_spmm {name} via {via}: over "
-                                 "1e-5*(|agg|@|W|)")
+                                 "1e-5*(|agg|@|W|)"
+                                 + (" + 2^-8|out|" if bf16 else ""))
         err_max = max(err_max, float(err.max()))
         ratio[via] = float((err / tol.clamp_min(1e-30)).max())
         del out, err
@@ -825,11 +876,14 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
     dev_ms = {via: cuda_ms(lambda: sm.packed_spmm(
         nbrs, feat, w, combine=combine, via=via), 5, repeats=2, ahead=True)
         for via in sm.ROUTES}
-    y = sm.project(feat, w)
-    project_ms = cuda_ms(lambda: sm.project(feat, w), 5, repeats=2,
-                         ahead=True)
-    matmul_ms = cuda_ms(lambda: torch.matmul(feat, w), 5, repeats=2,
-                        ahead=True)
+    y = sm.project(feat, w, out_dtype=torch.float32)
+    project_ms = cuda_ms(lambda: sm.project(feat, w,
+                                            out_dtype=torch.float32), 5,
+                         repeats=2, ahead=True)
+    feat_f = feat.float()      # the library's product on the widened rows
+    matmul_ms = cuda_ms(lambda: torch.matmul(feat_f, w.float()), 5,
+                        repeats=2, ahead=True)
+    del feat_f
     gather_ms = cuda_ms(lambda: sm.gather_rows(nbrs, y, combine=combine),
                         5, repeats=2, ahead=True)
     del y
@@ -837,15 +891,18 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
     valid = nbrs < Nf
     n_valid = int(valid.sum())
     rows = int(torch.unique(nbrs[valid]).numel())
-    nbytes = N * M * 4 + rows * d * 4 + d * f * 4 + N * f * 4
+    nbytes = (N * M * 4 + rows * d * el + d * f * w.element_size()
+              + N * f * el)
     flops = 2 * N * d * f + n_valid * d + (N * d if combine == "mean" else 0)
     if route == "transform":   # the product on tensor cores in 3xTF32
         bounds = tensor_bounds(nbytes, flops, 2 * Nf * d * f, False)
     else:
         bounds = dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops)))
-    floor = sm.route_costs(N, M, Nf, d, f, lanes=n_valid, rows=rows)
-    traffic = sm.route_costs(N, M, Nf, d, f, lanes=n_valid)
+    floor = sm.route_costs(N, M, Nf, d, f, lanes=n_valid, rows=rows,
+                           elem=el)
+    traffic = sm.route_costs(N, M, Nf, d, f, lanes=n_valid, elem=el)
     return dict(shape=name, path=route, N=N, M=M, Nf=Nf, d=d, f=f,
+                dtype=str(feat.dtype).replace("torch.", ""),
                 combine=combine, valid_lanes=n_valid, max_abs_err=err_max,
                 err_over_tol=ratio, ms=ms, device_ms=dev_ms[route],
                 fused_device_ms=dev_ms["fused"],
@@ -854,7 +911,7 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
                 library_matmul_device_ms=matmul_ms,
                 gather_device_ms=gather_ms, plain_ms=plain_ms,
                 library_ms=None, **bounds,
-                gathered_bytes=n_valid * d * 4,
+                gathered_bytes=n_valid * d * el,
                 fused_floor_ms=sm.modelled_ms(floor["fused"]),
                 fused_traffic_ms=sm.modelled_ms(traffic["fused"]),
                 project_floor_ms=sm.modelled_ms(floor["transform"][:1]),
@@ -1127,6 +1184,16 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
                        f"[{GNN_FEAT}, {GNN_HIDDEN}] mean")
     for name, lists in ((spmm_shape, nbrs), (minibatch_shape, nbrs_mb)):
         shapes["packed_spmm"].append(check_spmm(name, lists, feat, w))
+    # the bf16 bodies: wide_deep's bags of a bf16 table, GraphSAGE's layer
+    # on bf16 features (W float32, widened as the reference widens it)
+    table_b, feat_b = table.bfloat16(), feat.bfloat16()
+    bag_bf16_shape = (f"[{BAG_ROWS}, {BAG_DIM}] bf16 bag {BAG_SIZE} mean "
+                      f"B={BAG_BATCHES[-1]}")
+    spmm_bf16_shape = spmm_shape + " bf16"
+    shapes["embedding_bag_bf16"] = [check_embedding_bag(
+        bag_bf16_shape, table_b, bag_ids[BAG_BATCHES[-1]])]
+    shapes["packed_spmm_bf16"] = [check_spmm(spmm_bf16_shape, nbrs, feat_b,
+                                             w)]
     bf16 = torch.bfloat16
     attn_shape = (f"olmo_1b prefill [1, {LM_SEQ}, {OLMO_HEADS}, {HEAD_DIM}]"
                   " causal bf16")
@@ -1160,7 +1227,7 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
     for kname, rows in shapes.items():
         for r in rows:
             extra = ""
-            if kname == "packed_spmm":
+            if kname.startswith("packed_spmm"):
                 tol = r["err_over_tol"]
                 extra = (f" err/tol fused={tol['fused']:.3f} transform="
                          f"{tol['transform']:.3f}; device_ms fused="
@@ -1215,19 +1282,33 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
         out[f"embedding_bag_{B}_ms"] = (time.perf_counter() - t0) * 1e3
         if emb.shape != (B, BAG_DIM) or not bool(torch.isfinite(emb).all()):
             raise AssertionError(f"embedding_bag B={B}: bad output")
+    bf16_launches = {}
+    before = K.launch_counts()
+    emb = ops.embedding_bag(table_b, bag_ids[BAG_BATCHES[-1]])
+    torch.cuda.synchronize()
+    bf16_launches["embedding_bag_bf16"] = \
+        K.launch_counts()["embedding_bag"] - before["embedding_bag"]
+    if emb.dtype != torch.bfloat16 or not bool(torch.isfinite(emb).all()):
+        raise AssertionError("embedding_bag bf16: bad output")
     spmm_launches = 0
-    for label, lists in (("graphsage", nbrs), ("minibatch", nbrs_mb)):
+    for label, lists, x in (("graphsage", nbrs, feat),
+                            ("minibatch", nbrs_mb, feat),
+                            ("graphsage_bf16", nbrs, feat_b)):
+        n0 = K.launch_counts()["packed_spmm"]
         t0 = time.perf_counter()
-        h = ops.packed_spmm(lists, feat, w, combine="mean")
+        h = ops.packed_spmm(lists, x, w, combine="mean")
         torch.cuda.synchronize()
         out[f"packed_spmm_{label}_ms"] = (time.perf_counter() - t0) * 1e3
-        if h.shape != (lists.shape[0], GNN_HIDDEN) or not bool(
-                torch.isfinite(h).all()):
+        if h.shape != (lists.shape[0], GNN_HIDDEN) or h.dtype != x.dtype \
+                or not bool(torch.isfinite(h).all()):
             raise AssertionError(f"packed_spmm {label}: bad output")
         route = segment_matmul.path(*lists.shape, GNN_NODES, GNN_FEAT,
                                     GNN_HIDDEN)
         out[f"packed_spmm_{label}_path"] = route
         spmm_launches += 2 if route == "transform" else 1
+        if x is feat_b:
+            bf16_launches["packed_spmm_bf16"] = \
+                K.launch_counts()["packed_spmm"] - n0
         del h
     for label, case, kw in (("prefill", lm, {}),
                             ("decode", decode,
@@ -1246,7 +1327,9 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
         + f"; packed_spmm GraphSAGE ({out['packed_spmm_graphsage_path']}): "
         f"{out['packed_spmm_graphsage_ms']:.3f} ms, minibatch_lg "
         f"({out['packed_spmm_minibatch_path']}): "
-        f"{out['packed_spmm_minibatch_ms']:.3f} ms; flash_attention "
+        f"{out['packed_spmm_minibatch_ms']:.3f} ms, GraphSAGE bf16 "
+        f"({out['packed_spmm_graphsage_bf16_path']}): "
+        f"{out['packed_spmm_graphsage_bf16_ms']:.3f} ms; flash_attention "
         f"olmo_1b prefill (tile): {out['flash_attention_prefill_ms']:.3f} ms,"
         f" decode (split): {out['flash_attention_decode_ms']:.3f} ms (host "
         "clock)")
@@ -1264,12 +1347,21 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
         raise AssertionError("flash_attention: a prefill (tile, 1 launch) "
                              "and a decode step (split, 2) launched "
                              f"{launches['flash_attention']} times")
+    if bf16_launches != {"embedding_bag_bf16": 1, "packed_spmm_bf16": 2}:
+        raise AssertionError(f"the bf16 bodies' launches {bf16_launches}: "
+                             "a bag (1) and GraphSAGE's transform route (2)")
     out["flash_attention_threshold"] = threshold
     main = dict(distance_matrix=knn_shape, bitonic_sort=topk_shape,
                 embedding_bag=f"[{BAG_ROWS}, {BAG_DIM}] bag {BAG_SIZE} mean "
                               f"B={BAG_BATCHES[-1]}",
-                packed_spmm=spmm_shape, flash_attention=attn_shape)
-    return shapes, main, {k: launches[k] for k in API_BODIES}, out
+                packed_spmm=spmm_shape, flash_attention=attn_shape,
+                embedding_bag_bf16=bag_bf16_shape,
+                packed_spmm_bf16=spmm_bf16_shape)
+    # the fp32 bodies' launches: the counters also took the bf16 calls
+    launches["embedding_bag"] -= bf16_launches["embedding_bag_bf16"]
+    launches["packed_spmm"] -= bf16_launches["packed_spmm_bf16"]
+    return (shapes, main, {**{k: launches[k] for k in API_BODIES},
+                           **bf16_launches}, out)
 
 
 # --------------------------------------------------------------------------
@@ -2894,6 +2986,376 @@ def pod_phase(ds, cfg, graph, n, d, n_queries, dev, answers,
 
 
 # --------------------------------------------------------------------------
+# phase 14: the language models' serving path (models/transformer.py)
+# --------------------------------------------------------------------------
+
+# (label, arch, layers or None for full depth, sequences, prompt, decode
+# steps): widths are the configs' own, random weights from a seeded
+# generator; each prompt runs past its arch's windows.  gemma3's 62
+# layers are 108 GB in fp32: 18 (three 5:1 periods, ~54 GiB with the bf16
+# copies) fit the card beside the runs
+LM_DRILLS = (("a", "olmo-1b", None, 4, 2048, 32),
+             ("b", "gemma3-27b", 18, 2, 2048, 16),
+             ("c", "starcoder2-7b", None, 1, 4608, 8),
+             ("d", "olmoe-1b-7b", None, 4, 512, 8))
+FLASH_KERNELS = ("tile_kernel", "split_kernel", "combine_kernel")
+
+
+def lm_serve(model, cfg, toks, P: int, steps: int, backend: str) -> dict:
+    """Prefill ``toks[:, :P]``, then ``steps`` teacher-forced decode steps
+    (token ``P + j`` at position ``P + j``) into a cache of ``P + steps``
+    slots.  Returns the float32 logits of the prefill's last position and
+    of each step ([steps + 1, B, V]), flash_attention's launches in the
+    prefill and in each step (by the counter), and the CUDA-event ms of
+    the prefill alone and of each step (the first from after the cache's
+    set-up, each later one from the end of the one before)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+
+    def fa():
+        return K.launch_counts()["flash_attention"]
+
+    B = toks.shape[0]
+    pre_ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    n0 = fa()
+    pre_ev[0].record()
+    last, pre = T.prefill(model, cfg, toks[:, :P], kernel_backend=backend)
+    pre_ev[1].record()
+    launches = [fa() - n0]
+    cache = T.init_cache(cfg, B, P + steps, device=toks.device)
+    for name, kv in pre.items():
+        for t in ("k", "v"):
+            cache[name][t][:, :P] = kv[t]
+    del pre
+    logits = [last.float()]
+    ev[0].record()
+    for j in range(steps):
+        n0 = fa()
+        x, cache = T.decode_step(model, cfg, cache, toks[:, P + j], P + j,
+                                 kernel_backend=backend)
+        ev[j + 1].record()
+        launches.append(fa() - n0)
+        logits.append(x.float())
+    torch.cuda.synchronize()
+    return dict(logits=torch.stack(logits), launches=launches,
+                prefill_ms=pre_ev[0].elapsed_time(pre_ev[1]),
+                step_ms=[ev[j].elapsed_time(ev[j + 1])
+                         for j in range(steps)])
+
+
+def lm_bounds(cfg, B: int, P: int, steps: int) -> dict:
+    """The least ms of a prefill and of a mean decode step on the card,
+    counting only the work the served function needs.  Prefill: the
+    products (2 a weight a token through every layer's projections and
+    FFN (MoE: its top-k and shared experts), the head for the last
+    position only, which is all prefill returns; 4 hd a visible (query,
+    key) pair a head for attention) at 989 TFLOP/s bf16.  Step: the bf16
+    bytes of the matmul weights it reads (MoE: the shared experts, the
+    router and at most min(E, B k) routed experts, the most B tokens can
+    reach) and of the K and V cache up to the step's position, at 3.35
+    TB/s.  The head over every prompt position and the capacity dispatch
+    through all E experts are work of the port, not of the bound."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV, L, V = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers, cfg.vocab
+    attn = d * hd * (2 * H + 2 * KV)
+    if cfg.moe:
+        m = cfg.moe
+        expert = 3 * d * m.d_expert
+        ffn_active = expert * (m.top_k + m.n_shared) + d * m.n_experts
+        ffn_step = expert * (min(m.n_experts, B * m.top_k) + m.n_shared) \
+            + d * m.n_experts
+    else:
+        ffn_active = ffn_step = (3 if cfg.gated_ffn else 2) * d * cfg.d_ff
+    from repro_torch.models import transformer as T
+
+    windows = T.layer_windows(cfg)
+    pairs = sum(visible_pairs(P, P, int(w), 0) for w in windows)
+    flops = 2 * B * P * L * (attn + ffn_active) + 2 * B * d * V \
+        + 4 * hd * H * B * pairs
+    pos = P + (steps - 1) / 2          # the mean step's position
+    cache = sum(2 * B * min(pos + 1, int(w) if w > 0 else pos + 1) * KV
+                * hd * 2 for w in windows)
+    weights = 2 * (L * (attn + ffn_step) + d * V)
+    return dict(prefill_tflop=flops / 1e12,
+                prefill_bound_ms=flops / BF16_OPS_PER_S * 1e3,
+                step_weight_gb=weights / 1e9, step_cache_gb=cache / 1e9,
+                step_bound_ms=(weights + cache) / HBM_BYTES_PER_S * 1e3)
+
+
+def lm_attention_checks(label, model, cfg, toks, P: int, steps: int,
+                        gen) -> list:
+    """``flash_attention`` at the drill's own shapes, each held to its
+    plain version (``ref.attention_ref`` in float32) by
+    :func:`check_attention`'s contract (:func:`attention_err_over_tol`
+    <= 1): for every distinct window of the drill's layers, one prefill
+    layer (the P-token prompt, q_offset 0) and one decode step (q_offset P
+    over the P + steps slots of the cache), on unit-normal bf16 q/k/v
+    (the cache's slots past P hold noise that the causal bound must drop)
+    and on the q/k/v of the first layer with that window, computed from
+    the prompt's embeddings (its cache past P zero, as served).  The
+    launches are comparisons, recorded and not counted."""
+    import torch
+
+    from repro_torch.kernels import _build, flash_attention as FA, ref
+    from repro_torch.models import transformer as T
+
+    B, S, bf = toks.shape[0], P + steps, torch.bfloat16
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    windows = [int(w) for w in T.layer_windows(cfg)]
+    W = model.weights(bf)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=toks.device).to(bf)
+
+    rows = []
+    with torch.no_grad(), _build.recording():
+        x = W["embed"][toks[:, :P + 1].long()]
+        positions = torch.arange(P + 1, device=toks.device)[None, :]
+        for w in sorted(set(windows)):
+            li = windows.index(w)
+            qr, kr, vr = T._qkv(cfg, W["layers"][li], x, positions)
+            kc = torch.zeros((B, S, KV, hd), dtype=bf, device=toks.device)
+            vc = torch.zeros_like(kc)
+            kc[:, :P + 1], vc[:, :P + 1] = kr, vr
+            cases = (
+                ("unit normal", "prefill", rnd(B, P, H, hd),
+                 rnd(B, P, KV, hd), rnd(B, P, KV, hd), 0),
+                ("unit normal", "decode", rnd(B, 1, H, hd),
+                 rnd(B, S, KV, hd), rnd(B, S, KV, hd), P),
+                (f"layer {li}", "prefill", qr[:, :P], kr[:, :P], vr[:, :P],
+                 0),
+                (f"layer {li}", "decode", qr[:, P:], kc, vc, P))
+            for inputs, kind, q, k, v, off in cases:
+                q, k, v = (t.contiguous() for t in (q, k, v))
+                kw = dict(window=max(w, 0), q_offset=off)
+                out = FA.flash_attention(q, k, v, **kw)
+                qf, kf, vf = q.float(), k.float(), v.float()
+                want = ref.attention_ref(qf, kf, vf, **kw)
+                weight = ref.attention_ref(qf, kf, vf.abs(), **kw)
+                ratio = attention_err_over_tol(out, want, weight)
+                rows.append(dict(
+                    window=w, inputs=inputs, kind=kind, Sq=q.shape[1],
+                    Skv=k.shape[1], q_offset=off, err_over_tol=ratio,
+                    body=FA.path(B, q.shape[1], k.shape[1], H, KV, hd, bf),
+                    finite=bool(torch.isfinite(out).all())))
+                del out, want, weight, qf, kf, vf
+            del qr, kr, vr, kc, vc
+        del x
+    torch.cuda.empty_cache()
+    log(f"[lm] ({label}) flash_attention at the drill's shapes (G = "
+        f"{H // KV}) against its plain version, err/tol of 1e-5*(P@|V|) + "
+        "2^-8*|out|: " + "; ".join(
+            f"window {r['window']} {r['kind']} {r['Sq']}x{r['Skv']} at "
+            f"q_offset {r['q_offset']} ({r['body']}), {r['inputs']}: "
+            f"{r['err_over_tol']:.3f}" for r in rows))
+    bad = [r for r in rows if not (r["err_over_tol"] <= 1.0 and r["finite"])]
+    if bad:
+        raise AssertionError(f"[lm] ({label}) flash_attention over its "
+                             f"tolerance at the drill's shapes: {bad}")
+    return rows
+
+
+def lm_planted_faults(label, model, cfg, toks, P: int, steps: int,
+                      ref_logits, err_plain: float) -> dict:
+    """The model-level gate against two planted faults: the kernel path
+    served again with flash_attention's inputs altered as a faulty kernel
+    would treat them, q times sqrt(hd) (the 1/sqrt(hd) scale dropped)
+    and, where a layer has a window, window 0 (the window dropped).  The
+    kernel itself is unchanged.  Reported, not gated: whether
+    ``err_kernel <= 2 * err_plain`` would let each fault through.  The
+    launches are recorded, not counted."""
+    import types
+
+    from repro_torch.kernels import _build, flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    hd = cfg.resolved_head_dim
+    faults = {"no scale": lambda q, k, v, **kw: FA.flash_attention(
+        q * hd ** 0.5, k, v, **kw)}
+    if any(int(w) > 0 for w in T.layer_windows(cfg)):
+        faults["no window"] = lambda q, k, v, window=0, q_offset=0: \
+            FA.flash_attention(q, k, v, q_offset=q_offset)
+    found = {}
+    try:
+        for name, fn in faults.items():
+            T._fa = types.SimpleNamespace(flash_attention=fn)
+            with _build.recording():
+                logits = lm_serve(model, cfg, toks, P, steps, "auto")["logits"]
+            err = float((logits - ref_logits).abs().max())
+            found[name] = dict(err_kernel=err, over_err_plain=err / err_plain,
+                               gate_rejects=not err <= 2 * err_plain)
+            del logits
+    finally:
+        T._fa = FA
+    log(f"[lm] ({label}) planted faults against the model gate (2x "
+        f"err_plain {err_plain:.4g}; not gated): " + "; ".join(
+            f"{k}: err {v['err_kernel']:.4g} ({v['over_err_plain']:.2f}x), "
+            + ("rejected" if v["gate_rejects"] else "let through")
+            for k, v in found.items()))
+    return found
+
+
+def lm_phase(dev) -> tuple:
+    """Phase 14, with every counter at 0: for each of :data:`LM_DRILLS`,
+    one after another, each freed before the next: the model from
+    ``init_params`` on the card,
+    ``LMStream`` tokens, a prefill and teacher-forced decode steps on the
+    hand kernel (``flash_attention``: one tile launch a layer in the
+    prefill, split + combine a layer at each step, by the counters), on
+    the plain path (``kernel_backend="torch"``) in bf16 and on the plain
+    path in float32 (TF32 off), the reference; ``err_kernel <= 2 *
+    err_plain`` against it.  Before the runs, flash_attention is held to
+    its plain version at the drill's own shapes
+    (:func:`lm_attention_checks`), the gate that a wrong kernel cannot
+    pass; after them, the model gate is shown two planted faults
+    (:func:`lm_planted_faults`).  Times (CUDA events; medians), the device time
+    of flash_attention in a traced prefill and step, the bounds and the
+    peak memory.  Returns (results, the phase's launch counts)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMStream
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params, param_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the float32 reference
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    for label, arch, layers, B, P, steps in LM_DRILLS:
+        t0 = time.perf_counter()
+        cfg = get_arch(arch)
+        cut = ""
+        if layers is not None and layers < cfg.n_layers:
+            cut = f", cut from {cfg.n_layers} to {layers} layers"
+            cfg = dc.replace(cfg, n_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = T.Transformer(cfg, init_params(T.schema(cfg), gen, dev))
+        toks_np = next(LMStream(cfg.vocab, P + steps, B, seed=0))["tokens"]
+        toks = torch.as_tensor(toks_np[:, :P + steps], device=dev)
+        log(f"[lm] ({label}) {arch}: {cfg.n_layers} layers{cut}, d "
+            f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+            f"{cfg.resolved_head_dim}, vocab {cfg.vocab}, "
+            f"{param_bytes(T.schema(cfg)) / 1e9:.2f} GB of fp32 weights; "
+            f"B={B}, prompt {P}, {steps} decode steps "
+            f"(LMStream seed 0)")
+        attn_checks = lm_attention_checks(label, model, cfg, toks, P, steps,
+                                          gen)
+        cfg32 = dc.replace(cfg, compute_dtype="float32")
+        ref = lm_serve(model, cfg32, toks, P, steps, "torch")["logits"]
+        plain = lm_serve(model, cfg, toks, P, steps, "torch")
+        kern = lm_serve(model, cfg, toks, P, steps, "auto")
+        err_kernel = float((kern["logits"] - ref).abs().max())
+        err_plain = float((plain["logits"] - ref).abs().max())
+        agree = float((kern["logits"].argmax(-1)
+                       == plain["logits"].argmax(-1)).float().mean())
+        finite = bool(torch.isfinite(kern["logits"]).all())
+        faults = lm_planted_faults(label, model, cfg, toks, P, steps, ref,
+                                   err_plain)
+        del ref
+        L = cfg.n_layers
+        if kern["launches"] != [L] + [2 * L] * steps or any(
+                plain["launches"]):
+            raise AssertionError(
+                f"[lm] ({label}) flash_attention launches "
+                f"{kern['launches']} (plain path {plain['launches']}): "
+                f"want {L} in the prefill (tile) and {2 * L} a step "
+                "(split + combine), none on the plain path")
+        # timing: two more prefills beside the run's, the run's steps
+        pre_ms = [kern["prefill_ms"]] + [
+            lm_serve(model, cfg, toks, P, 0, "auto")["prefill_ms"]
+            for _ in range(2)]
+        prefill_ms = float(np.median(pre_ms))
+        step_ms = float(np.median(kern["step_ms"]))
+        # one traced prefill and decode step: flash_attention's share
+        cache = T.init_cache(cfg, B, P + 1, device=dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, pre = T.prefill(model, cfg, toks[:, :P])
+            torch.cuda.synchronize()
+        busy_p, top_p, per_p = device_time(prof, 4)
+        for name, kv in pre.items():
+            for t in ("k", "v"):
+                cache[name][t][:, :P] = kv[t]
+        del pre
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            T.decode_step(model, cfg, cache, toks[:, P], P)
+            torch.cuda.synchronize()
+        busy_s, top_s, per_s = device_time(prof, 4)
+        del cache
+        fa_p = kernel_us(per_p, FLASH_KERNELS) / 1e3
+        fa_s = kernel_us(per_s, FLASH_KERNELS) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        b = lm_bounds(cfg, B, P, steps)
+        r = dict(arch=arch, n_layers=cfg.n_layers, cut=cut.lstrip(", "),
+                 B=B, prompt=P, steps=steps, err_kernel=err_kernel,
+                 err_plain=err_plain, greedy_agreement=agree,
+                 prefill_ms=prefill_ms, prefill_runs_ms=pre_ms,
+                 prompt_tokens_per_s=B * P / prefill_ms * 1e3,
+                 step_ms=step_ms, decode_tokens_per_s=B / step_ms * 1e3,
+                 traced_prefill_busy_ms=busy_p / 1e3,
+                 traced_prefill_flash_ms=fa_p,
+                 traced_step_busy_ms=busy_s / 1e3,
+                 traced_step_flash_ms=fa_s, top_prefill=top_p,
+                 top_step=top_s, peak_gib=peak,
+                 launches_prefill=kern["launches"][0],
+                 launches_step=kern["launches"][1], **b,
+                 attention_checks=attn_checks, planted_faults=faults,
+                 seconds=time.perf_counter() - t0)
+        results[label] = r
+        log(f"[lm] ({label}) {arch}: logits against the float32 plain "
+            f"run: err_kernel={r['err_kernel']:.4g} err_plain (bf16 plain "
+            f"path)={r['err_plain']:.4g} (limit 2x); greedy tokens of the "
+            f"kernel path equal the plain path's on {agree:.2%} (not "
+            f"gated); flash_attention launches {L} in the prefill, "
+            f"{2 * L} a step")
+        log(f"[lm] ({label}) {arch}: prefill {prefill_ms:.3f} ms (median "
+            f"of 3; {r['prompt_tokens_per_s']:.0f} prompt tokens/s; bound "
+            f"{b['prefill_bound_ms']:.3f} ms for {b['prefill_tflop']:.2f} "
+            f"TFLOP at 989 TFLOP/s), decode {step_ms:.3f} ms a step (median"
+            f" of {steps}; {r['decode_tokens_per_s']:.0f} tokens/s; bound "
+            f"{b['step_bound_ms']:.3f} ms for {b['step_weight_gb']:.2f} GB"
+            f" of bf16 weights and {b['step_cache_gb']:.3f} GB of cache); "
+            f"traced: prefill device {busy_p / 1e3:.3f} ms, flash_attention"
+            f" {fa_p:.3f} ms ({fa_p / max(busy_p / 1e3, 1e-9):.1%}); step "
+            f"device {busy_s / 1e3:.3f} ms, flash_attention {fa_s:.3f} ms "
+            f"({fa_s / max(busy_s / 1e3, 1e-9):.1%}); peak "
+            f"{peak:.2f} GiB; {r['seconds']:.1f} s")
+        log(f"[lm] ({label}) costliest device ops: prefill "
+            + "; ".join(f"{k[:60]} {t:.3f} ms" for k, t in top_p)
+            + " | step " + "; ".join(f"{k[:60]} {t:.3f} ms"
+                                     for k, t in top_s))
+        if not finite:
+            raise AssertionError(f"[lm] ({label}) non-finite logits")
+        if not r["err_kernel"] <= 2 * r["err_plain"]:
+            raise AssertionError(
+                f"[lm] ({label}) err_kernel {r['err_kernel']} over twice "
+                f"err_plain {r['err_plain']}")
+        del model, kern, plain
+        torch.cuda.empty_cache()
+    launches = K.launch_counts()
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"[lm] phase 14: {results['seconds']:.1f} s")
+    log("[launches] phase 14 " + json.dumps(launches))
+    if launches["flash_attention"] <= 0:
+        raise AssertionError("flash_attention never launched on the LM path")
+    return results, launches
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the device time goes, and the k-NN graph's quality
 # --------------------------------------------------------------------------
 
@@ -3370,6 +3832,14 @@ def main() -> int:
     shapes.update(api_shapes)
     launches.update(api_launches)
     phase_launches["9"] = api_launches
+    del ds
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the language models' serving path ----------------------
+    log(f"[lm] device memory before phase 14 (the ANN state released): "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    record["lm"], phase_launches["14"] = lm_phase(dev)
+    launches["flash_attention"] += phase_launches["14"]["flash_attention"]
 
     # ---- summary -----------------------------------------------------------
     meta = {
@@ -3407,6 +3877,12 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:71",
                             api_main["flash_attention"]),
+        "embedding_bag_bf16": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                               "src/repro/kernels/embedding_bag.py:45",
+                               api_main["embedding_bag_bf16"]),
+        "packed_spmm_bf16": ("src/repro_torch/kernels/csrc/segment_matmul.cu",
+                             "src/repro/kernels/segment_matmul.py:51",
+                             api_main["packed_spmm_bf16"]),
     }
     kernels = []
     for kname, (source, replaces, main_shape) in meta.items():

@@ -1,1 +1,4 @@
-from repro_torch.configs.base import ANN_SHAPES, ANNConfig, ShapeSpec  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ANN_SHAPES, ANNConfig, LM_SHAPES, MoEConfig, ShapeSpec,
+    TransformerConfig, get_arch, get_reduced, list_archs, shapes_for,
+)

@@ -1,4 +1,5 @@
-"""ANN configuration and shape specs for the PyTorch port.
+"""Configurations and shape specs for the PyTorch port: the ANN index,
+the language models, and the arch registry.
 
 ``ANNConfig`` carries every field and default of the JAX reference's
 config, so one set of knobs describes an index in either package.  Two
@@ -16,6 +17,15 @@ differences:
 shard's database (``core/distributed.py``).  As in the reference, only
 the mesh path reads it: a single-device plane ignores it and searches the
 fp32 rows.
+
+``MoEConfig``, ``TransformerConfig`` and ``LM_SHAPES`` are the reference's
+(``src/repro/configs/base.py``) field for field, ``n_params`` and
+``n_active_params`` included.  ``remat``, ``scan_layers`` and ``unroll``
+are kept for parity and have no effect in the port: it runs its layers
+eagerly, one after another, and serves without gradients.  The registry
+(``list_archs``/``get_arch``/``get_reduced``) lists the reference's archs
+and serves those the port has: the five language models and
+``tsdg_paper``; the others raise ``KeyError`` as not ported yet.
 """
 from __future__ import annotations
 
@@ -25,8 +35,20 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # build | search
+    kind: str  # train | prefill | decode | build | search
     dims: dict
+
+
+LM_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train",
+                          dict(seq_len=4096, global_batch=256)),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill",
+                             dict(seq_len=32768, global_batch=32)),
+    "decode_32k": ShapeSpec("decode_32k", "decode",
+                            dict(seq_len=32768, global_batch=128)),
+    "long_500k": ShapeSpec("long_500k", "decode",
+                           dict(seq_len=524288, global_batch=1)),
+}
 
 
 # The paper's own system at SIFT1M scale (the reference's ANN_SHAPES).
@@ -137,3 +159,130 @@ class ANNConfig:
                     f"(got {self.hop_width} < {self.max_degree}): the "
                     "small-batch chunked hop pairs lanes positionally, "
                     "which is only permutation-equivariant in one chunk")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    aux_loss: float = 1e-2
+    # group-local dispatch: tokens split into this many contiguous groups,
+    # each routed to its own [E, C, d] buffers
+    dispatch_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None      # None -> d_model // n_heads
+    moe: MoEConfig | None = None
+    window: int | None = None        # sliding-window size (starcoder2)
+    local_global_ratio: int = 0      # gemma3: N local layers per global
+    local_window: int = 1024
+    nonparametric_ln: bool = False   # olmo
+    gated_ffn: bool = True           # False -> plain 2-matrix GELU MLP
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # no effect in the port (eager layers, no gradients); kept for parity
+    remat: bool = True
+    scan_layers: bool = True
+    unroll: bool = False
+    family: str = "lm"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def n_params(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        hd = self.resolved_head_dim
+        attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads \
+            + hd * self.n_heads * d
+        if self.moe:
+            ff = 3 * d * self.moe.d_expert * (self.moe.n_experts
+                                              + self.moe.n_shared) \
+                + d * self.moe.n_experts
+        else:
+            ff = (3 if self.gated_ffn else 2) * d * f
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ff) + emb
+
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.n_params()
+        d = self.d_model
+        hd = self.resolved_head_dim
+        attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads \
+            + hd * self.n_heads * d
+        ff = 3 * d * self.moe.d_expert * (self.moe.top_k + self.moe.n_shared) \
+            + d * self.moe.n_experts
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ff) + emb
+
+
+def shapes_for(cfg) -> dict:
+    """The shape specs of a config's family (the language models' and the
+    ANN index's are ported)."""
+    shapes = {"lm": LM_SHAPES, "ann": ANN_SHAPES}
+    if cfg.family not in shapes:
+        raise KeyError(f"the {cfg.family!r} family's shapes are not ported "
+                       "yet")
+    return shapes[cfg.family]
+
+
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+
+# the reference's archs, in its order; the port has the modules of PORTED
+_ARCH_MODULES = (
+    "olmoe_1b_7b", "kimi_k2_1t_a32b", "starcoder2_7b", "gemma3_27b",
+    "olmo_1b", "gin_tu", "gatedgcn", "mace", "graphsage_reddit",
+    "wide_deep", "tsdg_paper",
+)
+PORTED = ("olmoe_1b_7b", "kimi_k2_1t_a32b", "starcoder2_7b", "gemma3_27b",
+          "olmo_1b", "tsdg_paper")
+
+
+def list_archs() -> list:
+    return [m.replace("_", "-") for m in _ARCH_MODULES]
+
+
+def _arch_module(arch_id: str):
+    mod_name = arch_id.replace("-", "_")
+    if mod_name not in _ARCH_MODULES:
+        import difflib
+
+        close = difflib.get_close_matches(
+            arch_id.replace("_", "-"), list_archs(), n=3, cutoff=0.5)
+        hint = f"; did you mean {' or '.join(map(repr, close))}?" \
+            if close else ""
+        raise KeyError(
+            f"unknown arch {arch_id!r}{hint}; known: {list_archs()}")
+    if mod_name not in PORTED:
+        raise KeyError(f"arch {arch_id!r} is not ported yet; the port has "
+                       f"{[m.replace('_', '-') for m in PORTED]}")
+    import importlib
+
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_arch(arch_id: str):
+    return _arch_module(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str):
+    return _arch_module(arch_id).reduced()

@@ -49,6 +49,20 @@ def block_distances_plain(Q, V, mask=None, v_scales=None, *,
     return torch.where(mask[:, None, :], dist, torch.full_like(dist, INF))
 
 
+# the element types of the kernel API's float operands (the bag's table,
+# the SpMM's features and W)
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtypes(**tensors) -> None:
+    """Raise ``ValueError`` unless each named tensor is float32 or
+    bfloat16 (on any device: the CPU must not accept what the card
+    refuses)."""
+    for name, t in tensors.items():
+        if t.dtype not in FLOAT_DTYPES:
+            raise ValueError(f"{name}: float32 or bfloat16, got {t.dtype}")
+
+
 def check(t, name, dtype, shape, device):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device`` (a None entry of ``shape`` matches any size)."""

@@ -6,11 +6,15 @@
 //   agg[i] = sum over t < M with nbrs[i, t] < Nf of feat[max(nbrs[i, t], 0)]
 //   agg[i] = agg[i] / max(cnt_i, 1)                            (mean)
 //   out[i] = agg[i] @ W
-// neighbors [N, M] int32, feat [Nf, d] float32, W [d, f] float32 ->
-// out [N, f] float32.  Ids >= Nf are sentinels and skipped; a negative id
-// reads row 0 and counts, as the reference's plain path clips it.  The
-// product with W is inside the TPU kernel's body, so both routes below
-// compute it themselves.
+// neighbors [N, M] int32, feat [Nf, d] float32 or bf16, W [d, f] float32
+// -> out [N, f] in feat's type.  Ids >= Nf are sentinels and
+// skipped; a negative id reads row 0 and counts, as the reference's plain
+// path clips it.  The product with W is inside the TPU kernel's body, so
+// both routes below compute it themselves.  bf16 feat is widened to fp32
+// as it is read (the reference's .astype(float32) of each row; the
+// wrapper widens a bf16 W once), every sum and product runs in fp32, and a bf16 output is rounded
+// once, to nearest even, on its store: the transform route keeps Y in
+// fp32 and rounds only the gathered output.
 //
 // The product is linear, so (sum_t feat[n_t]) @ W / cnt equals
 // sum_t (feat[n_t] @ W) / cnt: the aggregate can come first (gather rows
@@ -39,12 +43,17 @@
 // project_kernel, block.cu's tile without its norms: one CTA of 8 warps
 // (2 x 4, each 32 x 32 outputs) per 64 rows of feat x all of f <= 128
 // columns, so feat is read once, two CTAs an SM; d streams through a
-// three-stage cp.async ring of 32-column chunks.  feat's rows are staged
+// three-stage cp.async ring of 32-column chunks.  fp32 feat's rows are staged
 // in the widest cp.async piece their alignment allows (16, 8 or 4 bytes:
 // at d = 602 a row is 2,408 bytes, 8-byte aligned), W's [32, 128] chunk
 // k-major in 16-byte pieces; an operand that cannot take them (W's rows
 // not 16-byte aligned, or feat's not 8) takes the body that stages both
-// in 4-byte pieces: three bodies, each within 128 registers.  x = hi + lo is split as the fragments
+// in 4-byte pieces: three bodies, each within 128 registers.  A bf16
+// feat (two more bodies, by W's piece) is read element by element,
+// each thread's elements loaded before any is widened and stored into the
+// same fp32 ring slot, so the tile and its products are unchanged; a
+// bf16 element widened to fp32 is one TF32 hi with lo = 0.  Y is stored
+// in fp32 or, for project() called alone, in bf16.  x = hi + lo is split as the fragments
 // load, lo.hi + hi.lo + hi.hi into one float32 accumulator; the tensor
 // cores' adder truncates, so each chunk sums into a fresh accumulator that
 // is added to the running one rounded to nearest.  Y is stored with plain
@@ -53,13 +62,36 @@
 // gather_kernel: one warp per output row and 128-column tile, each lane a
 // float4 of the tile (f % 4 == 0 and 16-byte aligned; else 4 columns 32
 // apart); the row's ids are loaded once, one a lane, and shuffled out;
-// up to kBatch row loads are in flight before the adds.
+// up to kBatch row loads are in flight before the adds; the output is
+// stored in fp32 or bf16.
+//
+// Bytes of the bf16 bodies: 2 a feat element and (for bf16) an output
+// element, so the bounds above halve where feat's rows dominate.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_tf32.cuh"
 
 namespace {
+
+// a bf16 element (its raw 16 bits) widened to fp32: the top half of the
+// float32's bits
+__device__ __forceinline__ float widen(uint16_t b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+__device__ __forceinline__ uint16_t to_bf16(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float load_elem(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_elem(const uint16_t* p) {
+  return widen(__ldg(p));
+}
+__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_elem(uint16_t* p, float x) {
+  *p = to_bf16(x);
+}
 
 // ---- "fused": the gather, the mean and the FFMA product in one body ------
 
@@ -70,9 +102,11 @@ constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 8 outputs each
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 16;     // neighbour rows read before the adds
 
+// TF: float (fp32 feat and output) or uint16_t (bf16's raw elements)
+template <typename TF>
 __global__ void __launch_bounds__(kThreads)
-spmm_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ feat,
-            const float* __restrict__ w, float* __restrict__ out, int N,
+spmm_kernel(const int32_t* __restrict__ nbrs, const TF* __restrict__ feat,
+            const float* __restrict__ w, TF* __restrict__ out, int N,
             int M, int Nf, int d, int f, int mean) {
   extern __shared__ int32_t sid[];         // [kRows][M]: row, or -1
   __shared__ float as[kDc][kRows + 1];     // aggregate chunk, [k][row]
@@ -114,7 +148,7 @@ spmm_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ feat,
           v[u] = 0.f;
           if (t0 + u < M && k < d) {
             const int32_t id = rid[t0 + u];
-            if (id >= 0) v[u] = __ldg(feat + (long long)id * d + k);
+            if (id >= 0) v[u] = load_elem(feat + (long long)id * d + k);
           }
         }
 #pragma unroll
@@ -147,11 +181,11 @@ spmm_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ feat,
   for (int i = 0; i < 4; ++i) {
     const long long r = r0 + ty + 16 * i;
     if (r >= N) continue;
-    float* orow = out + r * f;
+    TF* orow = out + r * f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = f0 + tx + 16 * j;
-      if (c < f) orow[c] = acc[i][j];
+      if (c < f) store_elem(orow + c, acc[i][j]);
     }
   }
 }
@@ -206,6 +240,50 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld,
   }
 }
 
+// the same tile of a bf16 source, element by element: thread t takes
+// column t % COLS of rows t / COLS, + STEP, ... (consecutive threads,
+// consecutive columns), loads kPer of its elements before it widens and
+// stores any, so they are in flight together; its source pointer is made
+// once, behind an empty asm, and stepped by STEP rows (stage_tile's
+// cure for spills)
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_wide(float* dst, int ld,
+                                           const uint16_t* src, int stride,
+                                           int valid, int cvalid) {
+  constexpr int kPer = 8, STEP = kPThreads / COLS, N = ROWS / STEP;
+  static_assert(kPThreads % COLS == 0 && ROWS % STEP == 0 && N % kPer == 0,
+                "elements");
+  const int r = threadIdx.x / COLS, c = threadIdx.x % COLS;
+  const uint16_t* s = src + static_cast<long long>(r) * stride + c;
+  asm volatile("" : "+l"(s));
+  const long long step = static_cast<long long>(STEP) * stride;
+  float* p = dst + r * ld + c;
+#pragma unroll
+  for (int i0 = 0; i0 < N; i0 += kPer) {
+    uint16_t v[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u, s += step) {
+      v[u] = r + STEP * (i0 + u) < valid && c < cvalid
+                 ? __ldg(s) : static_cast<uint16_t>(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u, p += STEP * ld) *p = widen(v[u]);
+  }
+}
+
+// a tile of feat or W: BYTES = 16, 8 or 4, fp32 rows in cp.async pieces
+// of that size; 2, a bf16 source widened element by element
+template <int BYTES, int ROWS, int COLS, typename T>
+__device__ __forceinline__ void stage_any(float* dst, int ld, const T* src,
+                                          int stride, int valid,
+                                          int cvalid) {
+  if constexpr (BYTES == 2) {
+    stage_wide<ROWS, COLS>(dst, ld, src, stride, valid, cvalid);
+  } else {
+    stage_tile<BYTES, ROWS, COLS>(dst, ld, src, stride, valid, cvalid);
+  }
+}
+
 // acc += the feat tile's rows [32 wm, +32) . W tile's columns [32 wn, +32)
 // over one chunk: 3xTF32 mma.m16n8k8, k-index t of a step column 2t and
 // t + 4 column 2t + 1 (feat: one 8-byte load a pair; W: rows 2t, 2t + 1),
@@ -255,11 +333,15 @@ __device__ __forceinline__ void p_products(float (&acc)[kPMI][kPNI][4],
 }
 
 // One CTA per 64 rows of feat x 128 columns of W (blockIdx.y), two CTAs
-// an SM.  AB / WB: the cp.async piece of feat's / W's rows, in bytes.
+// an SM.  AB / WB: the cp.async piece of feat's / W's fp32 rows, in
+// bytes, or AB = 2 for a bf16 feat.  y is float32, or bf16 for out_bf16.
 template <int AB, int WB>
 __global__ void __launch_bounds__(kPThreads, 2)
-project_kernel(const float* __restrict__ feat, const float* __restrict__ w,
-               float* __restrict__ y, int Nf, int d, int f) {
+project_kernel(const void* __restrict__ feat_, const void* __restrict__ w_,
+               void* __restrict__ y, int Nf, int d, int f, int out_bf16) {
+  using TA = typename std::conditional<AB == 2, uint16_t, float>::type;
+  const TA* feat = static_cast<const TA*>(feat_);
+  const float* w = static_cast<const float*>(w_);
   constexpr int MI = kPMI, NI = kPNI;
   extern __shared__ __align__(16) float p_smem[];   // [stage][feat | W]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -269,15 +351,15 @@ project_kernel(const float* __restrict__ feat, const float* __restrict__ w,
   const int f0 = blockIdx.y * kPCols;
   const int rv = static_cast<int>(Nf - r0 < kPRows ? Nf - r0 : kPRows);
   const int fv = f - f0;
-  const float* fa = feat + r0 * d;
+  const TA* fa = feat + r0 * d;
   const float* wa = w + f0;
   const int n_chunks = (d + kPDc - 1) / kPDc;
   auto stage = [&](int c) {
     float* st = p_smem + (c % kPStages) * kPStage;
     const int d0 = c * kPDc;
-    stage_tile<AB, kPRows, kPDc>(st, kPLdA, fa + d0, d, rv, d - d0);
-    stage_tile<WB, kPDc, kPCols>(st + kPRows * kPLdA, kPLdB,
-                                 wa + (long long)d0 * f, f, d - d0, fv);
+    stage_any<AB, kPRows, kPDc>(st, kPLdA, fa + d0, d, rv, d - d0);
+    stage_any<WB, kPDc, kPCols>(st + kPRows * kPLdA, kPLdB,
+                                wa + (long long)d0 * f, f, d - d0, fv);
   };
 
   float acc[MI][NI][4];
@@ -318,13 +400,23 @@ project_kernel(const float* __restrict__ feat, const float* __restrict__ w,
     for (int h = 0; h < 2; ++h) {
       const int lr = 16 * (MI * wm + mi) + g + 8 * h;
       if (lr >= rv) continue;
-      float* yrow = y + (r0 + lr) * f + f0;
+      const long long y0 = (r0 + lr) * f + f0;
+      float* yrow = static_cast<float*>(y) + y0;
+      uint16_t* hrow = static_cast<uint16_t*>(y) + y0;
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int lc = 8 * (NI * wn + ni) + 2 * t4;
         if (lc >= fv) continue;
         const float a = acc[mi][ni][2 * h], b = acc[mi][ni][2 * h + 1];
-        if (pairs) {
+        if (out_bf16) {
+          if (pairs) {
+            *reinterpret_cast<uint32_t*>(hrow + lc) =
+                to_bf16(a) | static_cast<uint32_t>(to_bf16(b)) << 16;
+          } else {
+            hrow[lc] = to_bf16(a);
+            if (lc + 1 < fv) hrow[lc + 1] = to_bf16(b);
+          }
+        } else if (pairs) {
           *reinterpret_cast<float2*>(yrow + lc) = make_float2(a, b);
         } else {
           yrow[lc] = a;
@@ -340,12 +432,13 @@ constexpr int kGWarps = 8;     // output rows a CTA, one a warp
 constexpr int kGCols = 128;    // columns a warp: 4 a lane
 
 // VEC: lane l holds columns 4l .. 4l + 3 of the tile (one float4 load a
-// row); else columns l + 32 j, j < 4.
+// row); else columns l + 32 j, j < 4.  out is float32, or bf16 for
+// out_bf16.
 template <bool VEC>
 __global__ void __launch_bounds__(kGWarps * 32)
 gather_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ y,
-              float* __restrict__ out, int N, int M, int Nf, int f,
-              int mean) {
+              void* __restrict__ out, int N, int M, int Nf, int f,
+              int mean, int out_bf16) {
   const int lane = threadIdx.x & 31;
   const long long i = (long long)blockIdx.x * kGWarps + (threadIdx.x >> 5);
   if (i >= N) return;
@@ -403,7 +496,21 @@ gather_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ y,
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[j] = __fdiv_rn(s[j], div);
   }
-  float* orow = out + i * f;
+  if (out_bf16) {
+    uint16_t* hrow = static_cast<uint16_t*>(out) + i * f;
+    if constexpr (VEC) {
+      if (col[0])
+        *reinterpret_cast<uint2*>(hrow + c0) = make_uint2(
+            to_bf16(s[0]) | static_cast<uint32_t>(to_bf16(s[1])) << 16,
+            to_bf16(s[2]) | static_cast<uint32_t>(to_bf16(s[3])) << 16);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col[j]) hrow[c0 + 32 * j] = to_bf16(s[j]);
+    }
+    return;
+  }
+  float* orow = static_cast<float*>(out) + i * f;
   if constexpr (VEC) {
     if (col[0])
       *reinterpret_cast<float4*>(orow + c0) = make_float4(s[0], s[1], s[2],
@@ -415,46 +522,60 @@ gather_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ y,
   }
 }
 
+// the fused body for feat's type TF, its [64, M] ids in dynamic shared
+// memory
+template <typename TF>
+int launch_fused(dim3 grid, const void* nbrs, const void* feat,
+                 const void* w, void* out, int N, int M, int Nf, int d, int f,
+                 int mean, cudaStream_t st) {
+  const size_t smem = (size_t)kRows * M * sizeof(int32_t);
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spmm_kernel<TF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  spmm_kernel<TF><<<grid, kThreads, smem, st>>>(
+      static_cast<const int32_t*>(nbrs), static_cast<const TF*>(feat),
+      static_cast<const float*>(w), static_cast<TF*>(out), N, M, Nf, d, f,
+      mean);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the projection's bodies by the cp.async pieces of feat's rows and W's
-// (bytes), in kernels/segment_matmul.py BODIES' order
-using ProjectFn = void (*)(const float*, const float*, float*, int, int,
+// (bytes; 2: a bf16 feat), in kernels/segment_matmul.py BODIES' order
+using ProjectFn = void (*)(const void*, const void*, void*, int, int, int,
                            int);
 constexpr ProjectFn kProjectBodies[] = {
-    project_kernel<16, 16>, project_kernel<8, 16>, project_kernel<4, 4>};
+    project_kernel<16, 16>, project_kernel<8, 16>, project_kernel<4, 4>,
+    project_kernel<2, 16>,  project_kernel<2, 4>};
+constexpr int kNProject = sizeof(kProjectBodies) / sizeof(ProjectFn);
 
 }  // namespace
 
-// "fused": neighbors [N, M] int32, feat [Nf, d] float32, w [d, f] float32
-// -> out [N, f] float32; mean != 0 divides each aggregate by its valid
-// count.
+// "fused": neighbors [N, M] int32, feat [Nf, d] float32 (feat_bf16 = 0)
+// or bf16 (1), w [d, f] float32 -> out [N, f] in feat's type; mean != 0 divides each aggregate by its valid count.
 extern "C" int repro_spmm_fused(const void* nbrs, const void* feat,
                                 const void* w, void* out, int N, int M,
-                                int Nf, int d, int f, int mean,
+                                int Nf, int d, int f, int mean, int feat_bf16,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N == 0 || f == 0) return static_cast<int>(cudaGetLastError());
   const int f_tiles = (f + kCols - 1) / kCols;
   if (f_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)kRows * M * sizeof(int32_t);
-  if (smem > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        spmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const dim3 grid(static_cast<unsigned>((N + (long long)kRows - 1) / kRows),
                   f_tiles);
-  spmm_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const int32_t*>(nbrs), static_cast<const float*>(feat),
-      static_cast<const float*>(w), static_cast<float*>(out), N, M, Nf, d, f,
-      mean);
-  return static_cast<int>(cudaGetLastError());
+  return feat_bf16 ? launch_fused<uint16_t>(grid, nbrs, feat, w, out, N, M,
+                                            Nf, d, f, mean, st)
+                   : launch_fused<float>(grid, nbrs, feat, w, out, N, M, Nf,
+                                         d, f, mean, st);
 }
 
-// "transform" (a): feat [Nf, d] float32 x w [d, f] float32 -> y [Nf, f]
-// float32 (y 8-byte aligned).
+// "transform" (a): feat [Nf, d] float32 or bf16 (feat_bf16) x w [d, f]
+// float32 -> y [Nf, f] float32, or bf16 for out_bf16 (y 8-byte aligned).
 extern "C" int repro_spmm_project(const void* feat, const void* w, void* y,
-                                  int Nf, int d, int f, void* stream) {
+                                  int Nf, int d, int f, int feat_bf16,
+                                  int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nf == 0 || f == 0) return static_cast<int>(cudaGetLastError());
   const int f_tiles = (f + kPCols - 1) / kPCols;
@@ -462,8 +583,13 @@ extern "C" int repro_spmm_project(const void* feat, const void* w, void* y,
   const uintptr_t fp = reinterpret_cast<uintptr_t>(feat);
   const uintptr_t wp = reinterpret_cast<uintptr_t>(w);
   const bool w16 = f % 4 == 0 && wp % 16 == 0;
-  const int body = w16 && d % 4 == 0 && fp % 16 == 0 ? 0
-                   : w16 && d % 2 == 0 && fp % 8 == 0 ? 1 : 2;
+  int body;
+  if (feat_bf16) {
+    body = w16 ? 3 : 4;
+  } else {
+    body = w16 && d % 4 == 0 && fp % 16 == 0 ? 0
+           : w16 && d % 2 == 0 && fp % 8 == 0 ? 1 : 2;
+  }
   const auto kern = kProjectBodies[body];
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -471,17 +597,16 @@ extern "C" int repro_spmm_project(const void* feat, const void* w, void* y,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((Nf + (long long)kPRows - 1) /
                                         kPRows), f_tiles);
-  kern<<<grid, kPThreads, kPSmem, st>>>(
-      static_cast<const float*>(feat), static_cast<const float*>(w),
-      static_cast<float*>(y), Nf, d, f);
+  kern<<<grid, kPThreads, kPSmem, st>>>(feat, w, y, Nf, d, f, out_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
 // "transform" (b): neighbors [N, M] int32 over y [Nf, f] float32 -> out
-// [N, f] float32, the lane-order sum (mean != 0: divided by the count).
+// [N, f] float32, or bf16 for out_bf16, the lane-order sum (mean != 0:
+// divided by the count).
 extern "C" int repro_spmm_gather(const void* nbrs, const void* y, void* out,
                                  int N, int M, int Nf, int f, int mean,
-                                 void* stream) {
+                                 int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N == 0 || f == 0) return static_cast<int>(cudaGetLastError());
   const int f_tiles = (f + kGCols - 1) / kGCols;
@@ -492,26 +617,28 @@ extern "C" int repro_spmm_gather(const void* nbrs, const void* y, void* out,
                                         kGWarps), f_tiles);
   auto kern = vec ? gather_kernel<true> : gather_kernel<false>;
   kern<<<grid, kGWarps * 32, 0, st>>>(
-      static_cast<const int32_t*>(nbrs), static_cast<const float*>(y),
-      static_cast<float*>(out), N, M, Nf, f, mean);
+      static_cast<const int32_t*>(nbrs), static_cast<const float*>(y), out,
+      N, M, Nf, f, mean, out_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers and local (spilled) bytes a thread of body `which`, in the
-// order of kernels/segment_matmul.py BODIES: fused, the three projections
-// (kProjectBodies), gather with float4 rows, gather element-wise.
+// order of kernels/segment_matmul.py BODIES: fused fp32, fused bf16, the
+// five projections (kProjectBodies), gather with float4 rows, gather
+// element-wise.
 extern "C" int repro_spmm_attrs(int which, int* regs, int* local_bytes) {
-  static const void* const bodies[] = {
-      reinterpret_cast<const void*>(spmm_kernel),
-      reinterpret_cast<const void*>(kProjectBodies[0]),
-      reinterpret_cast<const void*>(kProjectBodies[1]),
-      reinterpret_cast<const void*>(kProjectBodies[2]),
-      reinterpret_cast<const void*>(gather_kernel<true>),
-      reinterpret_cast<const void*>(gather_kernel<false>)};
-  constexpr int n = sizeof(bodies) / sizeof(bodies[0]);
+  constexpr int n = 2 + kNProject + 2;
   if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
+  const void* body =
+      which == 0   ? reinterpret_cast<const void*>(spmm_kernel<float>)
+      : which == 1 ? reinterpret_cast<const void*>(spmm_kernel<uint16_t>)
+      : which < 2 + kNProject
+          ? reinterpret_cast<const void*>(kProjectBodies[which - 2])
+      : which == 2 + kNProject
+          ? reinterpret_cast<const void*>(gather_kernel<true>)
+          : reinterpret_cast<const void*>(gather_kernel<false>);
   cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, bodies[which]);
+  const cudaError_t e = cudaFuncGetAttributes(&a, body);
   if (e != cudaSuccess) return static_cast<int>(e);
   *regs = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);

@@ -2,22 +2,27 @@
 
 Replaces the reference's ``kernels/embedding_bag.py::embedding_bag_pallas``.
 The kernel is ``csrc/embedding_bag.cu`` (one warp per bag, the bag's row
-loads issued before the adds); its header note gives the bound and the
-design.
+loads issued before the adds), with a float32 and a bfloat16 body; its
+header note gives the bound and the design.
 
 ``out[b] = sum_t table[ids[b, t]]`` summed in float32 in the order
-t = 0 .. bag-1 from zero, divided by ``bag`` for ``combine="mean"``.
+t = 0 .. bag-1 from zero (bfloat16 rows widened first), divided by
+``bag`` for ``combine="mean"``, and returned in the table's dtype (a
+bfloat16 output rounded once), as the reference's kernel returns it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.block import check
+from repro_torch.kernels.block import check, check_dtypes
 
 COMBINES = ("mean", "sum")
+# the compiled bodies, in csrc/embedding_bag.cu repro_bag_attrs' order
+BODIES = ["f32", "bf16"]
 
 
 def embedding_bag_plain(table, ids, *, combine: str = "mean"):
@@ -41,27 +46,45 @@ def embedding_bag_plain(table, ids, *, combine: str = "mean"):
     return acc.to(table.dtype)
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library, its entry point typed once."""
+    lib = _build.library("embedding_bag")
+    lib.repro_embedding_bag.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.repro_embedding_bag.restype = ctypes.c_int
+    return lib
+
+
+def body_attributes() -> dict:
+    """Registers and spilled (local) bytes a thread of each compiled body
+    of :data:`BODIES`, as the card reports them."""
+    return _build.body_attributes("embedding_bag", "repro_bag_attrs",
+                                  BODIES)
+
+
 def embedding_bag(table, ids, *, combine: str = "mean"):
-    """table [V, E] float32 x ids [B, bag] int32 -> [B, E] float32.  CPU
-    tensors take :func:`embedding_bag_plain`; CUDA tensors launch the
-    kernel (counted on ``embedding_bag``)."""
+    """table [V, E] float32 or bfloat16 x ids [B, bag] int32 -> [B, E] in
+    the table's dtype.  CPU tensors take :func:`embedding_bag_plain`; CUDA
+    tensors launch the kernel's body for the table's dtype (counted on
+    ``embedding_bag``)."""
+    check_dtypes(table=table)
     if table.device.type == "cpu":
         return embedding_bag_plain(table, ids, combine=combine)
     if combine not in COMBINES:
         raise ValueError(f"combine={combine!r}")
     dev = table.device
-    check(table, "table", torch.float32, (None, None), dev)
+    check(table, "table", table.dtype, (None, None), dev)
     check(ids, "ids", torch.int32, (None, None), dev)
     (V, E), (B, bag) = table.shape, ids.shape
     if V == 0 and B * bag > 0:
         raise ValueError("an empty table has no rows to look up")
-    out = torch.empty((B, E), dtype=torch.float32, device=dev)
-    fn = _build.library("embedding_bag").repro_embedding_bag
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_build.ptr(table), _build.ptr(ids), _build.ptr(out), B, bag, V,
-             E, int(combine == "mean"), _build.stream_of(table))
+    out = torch.empty((B, E), dtype=table.dtype, device=dev)
+    err = _lib().repro_embedding_bag(
+        _build.ptr(table), _build.ptr(ids), _build.ptr(out), B, bag, V, E,
+        int(combine == "mean"), int(table.dtype == torch.bfloat16),
+        _build.stream_of(table))
     _build.check(err, "embedding_bag")
     _build.count("embedding_bag")
     return out

@@ -33,7 +33,11 @@ minibatch over a large table.
 ``max(cnt_i, 1)`` for ``combine="mean"``.  A negative id reads row 0 and
 counts, as the reference's plain path clips it.  Both routes sum in that
 lane order in float32: "fused" feat's rows, then the product; "transform"
-the rows of Y = feat @ W.
+the rows of Y = feat @ W.  feat and W are each float32 or bfloat16
+(widened to float32, the reference's ``.astype(float32)``: feat's rows as
+the kernels read them, a bfloat16 W once by the wrapper), and the output takes feat's dtype, a bfloat16 one
+rounded once: the transform route keeps Y in float32.  :func:`path`
+prices float32 rows whatever the dtype.
 """
 from __future__ import annotations
 
@@ -43,16 +47,19 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.block import check
+from repro_torch.kernels.block import FLOAT_DTYPES, check, check_dtypes
 
 COMBINES = ("mean", "sum")
 ROUTES = ("fused", "transform")
 # the fused kernel stages a tile's neighbour ids in shared memory: 64 x M
 MAX_DEGREE = 512
 # the compiled bodies, in csrc/segment_matmul.cu repro_spmm_attrs' order:
-# the projection's by the cp.async pieces (bytes) of feat's and W's rows
-PROJECT_BODIES = ["project_a16_w16", "project_a8_w16", "project_a4_w4"]
-BODIES = ["fused", *PROJECT_BODIES, "gather_vec", "gather_scalar"]
+# the projection's by the cp.async pieces (bytes) of feat's and W's rows,
+# 2 for a bfloat16 feat read element by element
+PROJECT_BODIES = ["project_a16_w16", "project_a8_w16", "project_a4_w4",
+                  "project_a2_w16", "project_a2_w4"]
+BODIES = ["fused", "fused_bf16", *PROJECT_BODIES, "gather_vec",
+          "gather_scalar"]
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 FP32_OPS_PER_S = 67e12          # fp32 FFMA, outside the tensor cores
 MMA_TF32_OPS_PER_S = 313e12     # mma.sync's TF32 ceiling (PERF.md)
@@ -60,22 +67,24 @@ TILE_COLS = 128                 # output columns a CTA of every kernel
 
 
 def route_costs(N: int, M: int, Nf: int, d: int, f: int, *,
-                lanes: int | None = None, rows: int | None = None) -> dict:
+                lanes: int | None = None, rows: int | None = None,
+                elem: int = 4) -> dict:
     """Each route's launches under the module note's model, as
     ``{route: [(bytes, products, products a second), ...]}``.  ``lanes``
     counts the lanes gathered (all N * M by default: :func:`path` does not
     read ``neighbors``) and ``rows`` the rows of feat or Y a gather reads
-    from HBM (by default one a lane, none found in L2)."""
+    from HBM (by default one a lane, none found in L2); ``elem`` is the
+    bytes of an element of feat and of the output (Y is float32)."""
     lanes = N * M if lanes is None else lanes
     rows = lanes if rows is None else rows
     tiles = -(-f // TILE_COLS)
     ids = tiles * N * M * 4
     return {
-        "fused": [(ids + tiles * rows * 4 * d + 4 * d * f + 4 * N * f,
+        "fused": [(ids + tiles * rows * elem * d + 4 * d * f + elem * N * f,
                    2 * N * d * f, FP32_OPS_PER_S)],
-        "transform": [(tiles * 4 * Nf * d + 4 * d * f + 4 * Nf * f,
+        "transform": [(tiles * elem * Nf * d + 4 * d * f + 4 * Nf * f,
                        6 * Nf * d * f, MMA_TF32_OPS_PER_S),
-                      (ids + rows * 4 * f + 4 * N * f, lanes * f,
+                      (ids + rows * 4 * f + elem * N * f, lanes * f,
                        FP32_OPS_PER_S)]}
 
 
@@ -135,11 +144,11 @@ def _lib():
     """The built library, its C entry points typed once."""
     lib = _build.library("segment_matmul")
     lib.repro_spmm_fused.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.repro_spmm_project.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.repro_spmm_gather.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.repro_spmm_gather.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     for fn in (lib.repro_spmm_fused, lib.repro_spmm_project,
                lib.repro_spmm_gather):
         fn.restype = ctypes.c_int
@@ -153,33 +162,49 @@ def body_attributes() -> dict:
                                   BODIES)
 
 
-def project(feat, w):
-    """feat [Nf, d] float32 x w [d, f] float32 -> [Nf, f] float32, the
-    transform route's first kernel.  CPU tensors take ``feat @ w``; CUDA
-    tensors launch the 3xTF32 tile (counted on ``packed_spmm``)."""
+def _bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def project(feat, w, *, out_dtype=None):
+    """feat [Nf, d] x w [d, f], each float32 or bfloat16 -> [Nf, f] in
+    ``out_dtype`` (feat's dtype by default), the product in float32: the
+    transform route's first kernel (which asks for float32).  CPU tensors
+    take ``feat @ w`` in float32; CUDA tensors launch the 3xTF32 tile on
+    w widened to float32 (counted on ``packed_spmm``)."""
+    check_dtypes(feat=feat, w=w)
+    out_dtype = feat.dtype if out_dtype is None else out_dtype
+    if out_dtype not in FLOAT_DTYPES:
+        raise ValueError(f"out_dtype: float32 or bfloat16, got {out_dtype}")
     if feat.device.type == "cpu":
-        return feat.to(torch.float32) @ w.to(torch.float32)
+        return (feat.to(torch.float32) @ w.to(torch.float32)).to(out_dtype)
     dev = feat.device
-    check(feat, "feat", torch.float32, (None, None), dev)
+    check(feat, "feat", feat.dtype, (None, None), dev)
     Nf, d = feat.shape
-    check(w, "w", torch.float32, (d, None), dev)
+    check(w, "w", w.dtype, (d, None), dev)
+    w = w.to(torch.float32)
     f = w.shape[1]
-    y = torch.empty((Nf, f), dtype=torch.float32, device=dev)
+    y = torch.empty((Nf, f), dtype=out_dtype, device=dev)
     err = _lib().repro_spmm_project(_build.ptr(feat), _build.ptr(w),
-                                    _build.ptr(y), Nf, d, f,
+                                    _build.ptr(y), Nf, d, f, _bf16(feat),
+                                    _bf16(y),
                                     _build.stream_of(feat))
     _build.check(err, "packed_spmm project")
     _build.count("packed_spmm")
     return y
 
 
-def gather_rows(neighbors, y, *, combine: str = "sum"):
-    """neighbors [N, M] int32 over y [Nf, f] float32 -> [N, f] float32,
-    :func:`aggregate` of y's rows, the transform route's second kernel.
-    CPU tensors take :func:`aggregate`; CUDA tensors launch the gather
-    (counted on ``packed_spmm``)."""
+def gather_rows(neighbors, y, *, combine: str = "sum",
+                out_dtype=torch.float32):
+    """neighbors [N, M] int32 over y [Nf, f] float32 -> [N, f] in
+    ``out_dtype`` (float32 or bfloat16, rounded once), :func:`aggregate`
+    of y's rows, the transform route's second kernel.  CPU tensors take
+    :func:`aggregate`; CUDA tensors launch the gather (counted on
+    ``packed_spmm``)."""
+    if out_dtype not in FLOAT_DTYPES:
+        raise ValueError(f"out_dtype: float32 or bfloat16, got {out_dtype}")
     if y.device.type == "cpu":
-        return aggregate(neighbors, y, combine=combine)
+        return aggregate(neighbors, y, combine=combine).to(out_dtype)
     if combine not in COMBINES:
         raise ValueError(f"combine={combine!r}")
     dev = y.device
@@ -188,10 +213,10 @@ def gather_rows(neighbors, y, *, combine: str = "sum"):
     (N, M), (Nf, f) = neighbors.shape, y.shape
     if Nf == 0 and N * M > 0:
         raise ValueError("y has no rows to gather")
-    out = torch.empty((N, f), dtype=torch.float32, device=dev)
+    out = torch.empty((N, f), dtype=out_dtype, device=dev)
     err = _lib().repro_spmm_gather(_build.ptr(neighbors), _build.ptr(y),
                                    _build.ptr(out), N, M, Nf, f,
-                                   int(combine == "mean"),
+                                   int(combine == "mean"), _bf16(out),
                                    _build.stream_of(y))
     _build.check(err, "packed_spmm gather")
     _build.count("packed_spmm")
@@ -200,35 +225,40 @@ def gather_rows(neighbors, y, *, combine: str = "sum"):
 
 def packed_spmm(neighbors, feat, w, *, combine: str = "sum",
                 via: str | None = None):
-    """neighbors [N, M] int32 x feat [Nf, d] float32 x w [d, f] float32 ->
-    [N, f] float32.  CPU tensors take :func:`packed_spmm_plain`; CUDA
-    tensors launch the route :func:`path` picks ("fused": one launch,
-    "transform": two, each counted on ``packed_spmm``).  ``via`` forces a
-    route, to hold it to shapes it would not take."""
+    """neighbors [N, M] int32 x feat [Nf, d] x w [d, f], feat and w each
+    float32 or bfloat16 -> [N, f] in feat's dtype.  CPU tensors take
+    :func:`packed_spmm_plain`; CUDA tensors launch the route :func:`path`
+    picks ("fused": one launch, "transform": two, each counted on
+    ``packed_spmm``).  ``via`` forces a route, to hold it to shapes it
+    would not take."""
     if via not in (None, *ROUTES):
         raise ValueError(f"via: 'fused' or 'transform', got {via!r}")
+    check_dtypes(feat=feat, w=w)
     if feat.device.type == "cpu":
         return packed_spmm_plain(neighbors, feat, w, combine=combine)
     if combine not in COMBINES:
         raise ValueError(f"combine={combine!r}")
     dev = feat.device
-    check(feat, "feat", torch.float32, (None, None), dev)
+    check(feat, "feat", feat.dtype, (None, None), dev)
     Nf, d = feat.shape
     check(neighbors, "neighbors", torch.int32, (None, None), dev)
-    check(w, "w", torch.float32, (d, None), dev)
+    check(w, "w", w.dtype, (d, None), dev)
     (N, M), f = neighbors.shape, w.shape[1]
     if Nf == 0 and N * M > 0:
         raise ValueError("feat has no rows to gather")
     route = via or path(N, M, Nf, d, f)
     if route == "transform":
-        return gather_rows(neighbors, project(feat, w), combine=combine)
+        return gather_rows(neighbors,
+                           project(feat, w, out_dtype=torch.float32),
+                           combine=combine, out_dtype=feat.dtype)
     if M > MAX_DEGREE:
         raise ValueError(f"degree M={M} exceeds the fused kernel's "
                          f"{MAX_DEGREE}")
-    out = torch.empty((N, f), dtype=torch.float32, device=dev)
+    out = torch.empty((N, f), dtype=feat.dtype, device=dev)
+    w = w.to(torch.float32)
     err = _lib().repro_spmm_fused(_build.ptr(neighbors), _build.ptr(feat),
                                   _build.ptr(w), _build.ptr(out), N, M, Nf,
-                                  d, f, int(combine == "mean"),
+                                  d, f, int(combine == "mean"), _bf16(feat),
                                   _build.stream_of(feat))
     _build.check(err, "packed_spmm")
     _build.count("packed_spmm")

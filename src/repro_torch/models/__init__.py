@@ -1,0 +1,3 @@
+"""The port's models: the language models' transformer (``transformer``)
+over its layers (``layers``), the MoE layer (``moe``) and the parameter
+schema (``module``); ``convert`` carries the reference's weights in."""

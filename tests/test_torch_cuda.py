@@ -10,7 +10,9 @@ Tolerances: distances within 1e-5 * (qn + vn) (the kernel sums in another
 order than cuBLAS), merges, sorts and the visited filter exactly,
 embedding bags within 1e-6 * the bag's sum of |rows|, packed SpMM within
 1e-5 * (|agg| @ |W|), attention within 1e-5 * (P @ |V|) of the float32
-oracle plus one rounding of the output (2^-8 * |out|) in bfloat16.
+oracle plus one rounding of the output (2^-8 * |out|) in bfloat16; a
+bfloat16 bag or SpMM output likewise, against its plain version on the
+widened inputs, plus 2^-8 * |out|.
 """
 import dataclasses
 
@@ -592,35 +594,78 @@ def test_embedding_bag_matches_plain(dev, rng, V, E, B, bag, combine):
     assert ((out - ref).abs() <= 1e-6 * scale).all()
 
 
-def _spmm_case(dev, rng, N, M, Nf, d, f, offset=0):
+@pytest.mark.parametrize("V,E,B,bag", [(1000, 32, 64, 10), (500, 40, 19, 7),
+                                       (300, 8, 33, 20)])
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+def test_embedding_bag_bf16_matches_plain(dev, rng, V, E, B, bag, combine):
+    """The bfloat16 body: rows widened, summed in float32, the output
+    rounded once to bfloat16; against the plain version on the widened
+    table within 1e-6 * the bag's sum of |rows| plus 2^-8 * |out|."""
+    table, ids = _on(dev, rng.normal(size=(V, E)).astype(np.float32),
+                     rng.integers(0, V, size=(B, bag)).astype(np.int32))
+    table = table.bfloat16()
+    n0 = K.launch_counts()["embedding_bag"]
+    out = ops.embedding_bag(table, ids, combine=combine)
+    want = embedding_bag.embedding_bag_plain(table.float(), ids,
+                                             combine=combine)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] == n0 + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (B, E)
+    scale = table.float().abs()[ids.long()].sum(1) / (
+        bag if combine == "mean" else 1)
+    assert ((out.float() - want).abs()
+            <= 1e-6 * scale + 2.0 ** -8 * want.abs()).all()
+    assert torch.equal(out, embedding_bag.embedding_bag_plain(
+        table, ids, combine=combine))
+
+
+def test_embedding_bag_bodies_fit_without_spills(dev):
+    """The card's own count for embedding_bag.cu's two bodies: no spill
+    to local memory, at most 255 registers."""
+    attrs = embedding_bag.body_attributes()
+    assert list(attrs) == embedding_bag.BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0, (name, local)
+        assert regs <= 255, (name, regs)
+
+
+def _spmm_case(dev, rng, N, M, Nf, d, f, offset=0,
+               dtypes=(torch.float32, torch.float32)):
     """Ids in [-2, Nf + Nf / 9): sentinels, negative ids and (N > 5) an
-    all-sentinel row 5; with ``offset``, every operand starts that many
-    elements into its allocation."""
+    all-sentinel row 5; feat and W in ``dtypes``; with ``offset``, every
+    operand starts that many elements into its allocation."""
     nbrs = rng.integers(-2, Nf + Nf // 9, size=(N, M)).astype(np.int32)
     if N > 5:
         nbrs[5] = Nf
     out = []
-    for a in (nbrs, rng.normal(size=(Nf, d)).astype(np.float32),
-              rng.normal(size=(d, f)).astype(np.float32)):
+    for a, dt in ((nbrs, None),
+                  (rng.normal(size=(Nf, d)).astype(np.float32), dtypes[0]),
+                  (rng.normal(size=(d, f)).astype(np.float32), dtypes[1])):
         t = torch.from_numpy(np.concatenate([np.zeros(offset, a.dtype),
                                              a.ravel()])).to(dev)
-        out.append(t[offset:].view(a.shape))
+        out.append((t if dt is None else t.to(dt))[offset:].view(a.shape))
     return out
 
 
 def _assert_spmm(dev, nbrs, feat, w, combine, via):
     """One call along ``via`` within 1e-5 * (|agg| @ |W|) of the plain
-    version, with the route's launches counted (fused 1, transform 2)."""
+    version on the widened inputs (plus 2^-8 * |out| for a bfloat16
+    output), in feat's dtype, with the route's launches counted (fused 1,
+    transform 2)."""
     n0 = K.launch_counts()["packed_spmm"]
     out = segment_matmul.packed_spmm(nbrs, feat, w, combine=combine, via=via)
-    ref = segment_matmul.packed_spmm_plain(nbrs, feat, w, combine=combine)
+    ref = segment_matmul.packed_spmm_plain(nbrs, feat.float(), w.float(),
+                                           combine=combine)
     torch.cuda.synchronize()
     assert K.launch_counts()["packed_spmm"] - n0 == (1 if via == "fused"
                                                      else 2)
     agg = segment_matmul.aggregate(nbrs, feat, combine=combine)
-    tol = 1e-5 * (agg.abs() @ w.abs())
-    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
-    assert ((out - ref).abs() <= tol).all()
+    tol = 1e-5 * (agg.abs() @ w.float().abs())
+    if feat.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * ref.abs()
+    assert out.dtype == feat.dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    assert ((out.float() - ref).abs() <= tol).all()
     if nbrs.shape[0] > 5:
         assert (out[5] == 0).all()
 
@@ -641,6 +686,54 @@ def test_packed_spmm_matches_plain(dev, N, M, Nf, d, f, via, combine):
     flight."""
     rng = np.random.default_rng([N, M, Nf, d, f])
     _assert_spmm(dev, *_spmm_case(dev, rng, N, M, Nf, d, f), combine, via)
+
+
+@pytest.mark.parametrize("N,M,Nf", [(1, 15, 50), (129, 1, 40),
+                                    (129, 20, 1000), (300, 15, 90),
+                                    (300, 20, 2000)])
+@pytest.mark.parametrize("d", [8, 70, 602, 960])
+@pytest.mark.parametrize("f", [8, 16, 128, 200])
+@pytest.mark.parametrize("via", ["fused", "transform"])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_packed_spmm_bf16_matches_plain(dev, N, M, Nf, d, f, via, combine):
+    """The bfloat16 bodies over the float32 cases' edges: bfloat16 feat
+    (the projection's element-wise staging, the fused gather's widening),
+    float32 W, a bfloat16 output rounded once."""
+    rng = np.random.default_rng([N, M, Nf, d, f, 16])
+    _assert_spmm(dev, *_spmm_case(dev, rng, N, M, Nf, d, f,
+                                  dtypes=(torch.bfloat16, torch.float32)),
+                 combine, via)
+
+
+@pytest.mark.parametrize("N,M,Nf", [(129, 20, 1000), (300, 15, 90)])
+@pytest.mark.parametrize("d,f", [(70, 16), (602, 128), (960, 200)])
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("via", ["fused", "transform"])
+def test_packed_spmm_bf16_weights(dev, N, M, Nf, d, f, feat_dtype, via):
+    """W in bfloat16, widened as it is read, with either feat: the
+    projection's bodies for a bfloat16 W and the fused body's W load."""
+    rng = np.random.default_rng([N, M, Nf, d, f, 2])
+    _assert_spmm(dev, *_spmm_case(dev, rng, N, M, Nf, d, f,
+                                  dtypes=(feat_dtype, torch.bfloat16)),
+                 "mean", via)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_project_returns_its_dtype(dev, out_dtype):
+    """``project`` alone: bfloat16 features give a bfloat16 Y by default,
+    rounded once from the float32 product."""
+    rng = np.random.default_rng(7)
+    _, feat, w = _spmm_case(dev, rng, 1, 1, 300, 602, 128,
+                            dtypes=(torch.bfloat16, torch.float32))
+    y = segment_matmul.project(feat, w, out_dtype=out_dtype)
+    want = feat.float() @ w
+    torch.cuda.synchronize()
+    assert y.dtype == out_dtype
+    tol = 1e-5 * (feat.float().abs() @ w.abs())
+    if out_dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * want.abs()
+        assert segment_matmul.project(feat, w).dtype == torch.bfloat16
+    assert ((y.float() - want).abs() <= tol).all()
 
 
 @pytest.mark.parametrize("N,Nf,via", [(3000, 3000, "transform"),
@@ -689,6 +782,17 @@ def test_spmm_bodies_fit_without_spills(dev):
     assert min(project) > 0, hmma
 
 
+@pytest.mark.parametrize("d,f", [(602, 128), (33, 31)])
+@pytest.mark.parametrize("via", ["fused", "transform"])
+def test_packed_spmm_bf16_unaligned_rows(dev, d, f, via):
+    """bfloat16 operands one element off their allocation (2-byte
+    aligned): element-wise reads and stores."""
+    rng = np.random.default_rng([d, f, 16])
+    _assert_spmm(dev, *_spmm_case(dev, rng, 300, 15, 400, d, f, offset=1,
+                                  dtypes=(torch.bfloat16, torch.bfloat16)),
+                 "mean", via)
+
+
 def _attention_case(dev, rng, B, Sq, Skv, H, KV, hd, dtype):
     q, k, v = _on(dev, *(rng.normal(size=(B, S, h, hd)).astype(np.float32)
                          for S, h in ((Sq, H), (Skv, KV), (Skv, KV))))
@@ -716,7 +820,11 @@ def _assert_attention_close(out, q, k, v, window, q_offset):
     (1, 64, 64, 2, 2, 33, 0, 0),
     # 2 query rows a KV head (the split path's threshold), then 3 and 4
     (1, 2, 400, 2, 2, 64, 0, 398), (1, 3, 400, 2, 2, 64, 0, 397),
-    (1, 2, 400, 4, 2, 64, 0, 398)])
+    (1, 2, 400, 4, 2, 64, 0, 398),
+    # StarCoder2's G = 9 (36 heads over 4): 9 query rows a KV head at a
+    # decode step, over SPLIT_NQ's 8; its window past the prompt; prefill
+    (2, 1, 700, 36, 4, 128, 0, 699), (1, 1, 5000, 36, 4, 128, 4096, 4999),
+    (1, 300, 300, 36, 4, 128, 0, 0), (1, 200, 200, 36, 4, 128, 64, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, rng, B, Sq, Skv, H, KV, hd,
                                        window, q_offset, dtype):
@@ -761,7 +869,9 @@ def test_flash_attention_split_matches_plain(dev, rng, B, Sq, Skv, H, KV, hd,
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset", [
     (1, 64, 500, 4, 2, 64, 100, 300), (2, 3, 200, 2, 2, 128, 0, 197),
-    (1, 17, 40, 3, 1, 48, 9, 23)])
+    (1, 17, 40, 3, 1, 48, 9, 23),
+    # G = 9: 9 and 45 query rows a KV head
+    (1, 1, 900, 36, 4, 128, 0, 899), (1, 5, 300, 36, 4, 64, 100, 295)])
 @pytest.mark.parametrize("via", ["tile", "split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bodies_agree(dev, rng, B, Sq, Skv, H, KV, hd,
@@ -792,6 +902,66 @@ def test_flash_attention_rejects_mixed_types(dev):
         ops.flash_attention(q, q.bfloat16(), q.bfloat16())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention(q.half(), q.half(), q.half())
+
+
+# ----------------------------------------------------------------------
+# the language models: prefill and decode on flash_attention
+# ----------------------------------------------------------------------
+
+def _lm_run(model, cfg, toks, P, backend):
+    """Prefill ``toks[:, :P]``, then teacher-forced decode steps to the
+    end of ``toks``: float32 logits [steps + 1, B, V] and flash_attention's
+    launches in the prefill and in each step."""
+    from repro_torch.models import transformer as T
+
+    B, S = toks.shape
+    n0 = K.launch_counts()["flash_attention"]
+    last, pre = T.prefill(model, cfg, toks[:, :P], kernel_backend=backend)
+    launches = [K.launch_counts()["flash_attention"] - n0]
+    cache = T.init_cache(cfg, B, S, device=toks.device)
+    for name, kv in pre.items():
+        for t in ("k", "v"):
+            cache[name][t][:, :P] = kv[t]
+    logits = [last.float()]
+    for pos in range(P, S):
+        n0 = K.launch_counts()["flash_attention"]
+        x, cache = T.decode_step(model, cfg, cache, toks[:, pos], pos,
+                                 kernel_backend=backend)
+        launches.append(K.launch_counts()["flash_attention"] - n0)
+        logits.append(x.float())
+    torch.cuda.synchronize()
+    return torch.stack(logits), launches
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "starcoder2-7b", "gemma3-27b",
+                                  "olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_transformer_kernel_path_matches_plain(dev, arch):
+    """A reduced-width model (the reduced configs, random weights from a
+    seeded generator on the card), a 40-token prompt (past starcoder2's 32
+    and gemma3's 16 windows) and 6 decode steps: the kernel path launches
+    flash_attention once a layer in the prefill and twice a layer a step,
+    and its logits sit no further from the float32 plain run (TF32 off)
+    than twice the bf16 plain path's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = T.Transformer(cfg, init_params(T.schema(cfg), gen, dev))
+    toks = torch.randint(0, cfg.vocab, (2, 46), generator=gen, device=dev)
+    ref, _ = _lm_run(model, dataclasses.replace(cfg, compute_dtype="float32"),
+                     toks, 40, "torch")
+    plain, none = _lm_run(model, cfg, toks, 40, "torch")
+    kern, launches = _lm_run(model, cfg, toks, 40, "auto")
+    L = cfg.n_layers
+    assert launches == [L] + [2 * L] * 6 and not any(none)
+    assert bool(torch.isfinite(kern).all())
+    err_kernel = float((kern - ref).abs().max())
+    err_plain = float((plain - ref).abs().max())
+    assert err_kernel <= 2 * err_plain, (err_kernel, err_plain)
 
 
 # ----------------------------------------------------------------------

@@ -11,6 +11,8 @@ to on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``), and
 * sorts and top-k exactly: the same ids and the same values;
 * embedding bags within 1e-6 * the bag's sum of |rows| (/ bag for mean);
 * SpMM within 1e-5 * (|agg| @ |W|) per entry;
+* bfloat16 bags and SpMM as their tests state: the reference's plain
+  path rounds its intermediates to bfloat16, the port only its output;
 * attention within 1e-5 * (P @ |V|) per entry (the softmax weights
   applied to |v|), plus one bfloat16 rounding (2^-7 * |out|) when the
   inputs are bfloat16: each side rounds its float32 result once.
@@ -200,6 +202,28 @@ def test_embedding_bag_matches_reference(rng, V, E, B, bag, combine):
         assert (np.abs(got.numpy() - want) <= 1e-6 * scale).all()
 
 
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+def test_embedding_bag_bf16_matches_reference(rng, combine):
+    """A bfloat16 table returns bfloat16.  The port sums the widened rows
+    in float32 and rounds once; the reference's plain path rounds its sum
+    and its mean's division to bfloat16.  So within 1e-6 * the bag's sum
+    of |rows| (/ bag for mean) plus three bfloat16 roundings of values
+    that sum bounds (3 * 2^-8 of it)."""
+    V, E, B, bag = 300, 16, 19, 7
+    table = torch.from_numpy(rng.normal(size=(V, E)).astype(np.float32)) \
+        .bfloat16()
+    ids = rng.integers(0, V, size=(B, bag)).astype(np.int32)
+    want = np.asarray(_jbag(jnp.asarray(table.float().numpy()).astype(
+        jnp.bfloat16), jnp.asarray(ids), combine).astype(jnp.float32))
+    scale = np.abs(table.float().numpy().astype(np.float64))[ids].sum(1)
+    if combine == "mean":
+        scale /= bag
+    got = ops.embedding_bag(table, torch.from_numpy(ids), combine=combine)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, E)
+    assert (np.abs(got.float().numpy() - want)
+            <= (1e-6 + 3 * 2.0 ** -8) * scale).all()
+
+
 def _spmm_case(rng, N, M, d, f):
     feat = rng.normal(size=(N, d)).astype(np.float32)
     nbrs = rng.integers(-2, N + 30, size=(N, M)).astype(np.int32)
@@ -234,6 +258,52 @@ def test_packed_spmm_matches_reference(rng, N, M, d, f, combine):
         assert got.dtype == torch.float32 and got.shape == (N, f)
         assert (np.abs(got.numpy() - want) <= tol).all()
         assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_packed_spmm_bf16_matches_reference(rng, w_dtype, combine):
+    """bfloat16 features (W in either dtype) return bfloat16.  The port
+    sums and multiplies in float32 and rounds the output once; the
+    reference's plain path rounds its aggregate to bfloat16 (the sum and
+    the mean's division) and, for a bfloat16 W, its output.  So within
+    1e-5 * (|agg| @ |W|), plus 2^-7 * (|agg| @ |W|) for the aggregate's
+    roundings, plus 2^-7 * |want| for the two outputs' roundings."""
+    N, M, d, f = 60, 8, 24, 16
+    feat, nbrs, w = _spmm_case(rng, N, M, d, f)
+    feat_t = torch.from_numpy(feat).bfloat16()
+    w_t = torch.from_numpy(w).to(getattr(torch, w_dtype))
+    feat, w = feat_t.float().numpy(), w_t.float().numpy()
+    want = np.asarray(_jspmm(
+        jnp.asarray(nbrs), jnp.asarray(feat).astype(jnp.bfloat16),
+        jnp.asarray(w).astype(getattr(jnp, w_dtype)), combine)
+        .astype(jnp.float32))
+    weight = _spmm_weight(feat, nbrs, w, combine)
+    tol = (1e-5 + 2.0 ** -7) * weight + 2.0 ** -7 * np.abs(want)
+    got = ops.packed_spmm(torch.from_numpy(nbrs), feat_t, w_t,
+                          combine=combine)
+    assert got.dtype == torch.bfloat16 and got.shape == (N, f)
+    assert (np.abs(got.float().numpy() - want) <= tol).all()
+    assert (got[3] == 0).all()
+
+
+def test_kernel_api_dtypes_are_checked_on_every_device():
+    """float32 and bfloat16 only, on the CPU as on the card."""
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.embedding_bag(torch.zeros((5, 4), dtype=torch.float16), ids)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.packed_spmm(ids, torch.zeros((5, 4), dtype=torch.float64),
+                        torch.zeros((4, 2)))
+    with pytest.raises(ValueError, match="^w: float32 or bfloat16"):
+        ops.packed_spmm(ids, torch.zeros((5, 4)),
+                        torch.zeros((4, 2), dtype=torch.float16))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        segment_matmul.project(torch.zeros((5, 4)), torch.zeros((4, 2)),
+                               out_dtype=torch.float16)
+    y = segment_matmul.project(torch.zeros((5, 4)).bfloat16(),
+                               torch.zeros((4, 2)))
+    assert y.dtype == torch.bfloat16 and y.shape == (5, 2)
 
 
 @pytest.mark.parametrize("N,M,d,f", [(50, 6, 24, 8), (100, 16, 32, 16)])
