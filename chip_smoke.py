@@ -8,8 +8,9 @@ Phases, each printing its own lines:
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel) and print the build time, the registers and spills of the
-   top-k, attention, self-query, int8 row, visited-filter and
-   distance-matrix bodies, and the HMMA count of each tensor-core body
+   top-k, attention, self-query, int8 row, visited-filter,
+   distance-matrix and embedding-bag bodies, and the HMMA count of each
+   tensor-core body
    (``cuobjdump -sass``; one without HMMA fails the run);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (distances within 1e-5 * (qn + vn),
@@ -51,7 +52,10 @@ Phases, each printing its own lines:
    1e-5 * (qn + xn), sorts exactly, embedding bags within 1e-6 * the
    bag's sum of |rows|, SpMM within 1e-5 * (|agg| @ |W|), attention
    within 1e-5 * (P @ |V|) of the float32 oracle plus one bf16 rounding)
-   with its times and bound; then, with every counter at 0, the API's
+   with its times and bound (the bags on both routes of
+   ``embedding_bag.path``, the vector route bit for bit against the lane
+   route, each route's device time and achieved GB/s); then, with every
+   counter at 0, the API's
    path: the exact k-NN of phase 3's first 1,024 queries against the
    whole corpus through ``ops.distance_matrix`` + ``ops.bitonic_topk``
    (recall@10 >= 0.999 against the ground truth), wide_deep's bag field
@@ -73,8 +77,8 @@ Phases, each printing its own lines:
 10. serving, on phase 3's graph: for fp32 and int8, both visited modes,
    B = 10 and 10240, and the stream search with phase 8's live delta, the
    engine's replayed CUDA graph against an eager call of the same search
-   on the card (bit for bit), the median untraced latency of 20 eager
-   calls and of 20 replays, the busy share of one traced replay, and the
+   on the card (bit for bit), the median untraced latency of 10 eager
+   calls and of 10 replays, the busy share of one traced replay, and the
    bytes of the engine's graph pool; a same-shape compaction that must
    capture nothing (its first replays equal an eager search of the new
    generation) and a shape-changing one that must recapture;
@@ -102,7 +106,7 @@ Phases, each printing its own lines:
    seconds of each stage of each shard); on its shards fp32 and int8, both
    visited modes, B = 10 and 10240: each replay equal to an eager call bit
    for bit, recall@10 beside phase 4's and 7's single index, the median
-   of 20 replays, the graph pool's bytes, and the same shards on the
+   of 10 replays, the graph pool's bytes, and the same shards on the
    plain path (recall within 0.01, ids equal on >= 98%); a (1, 2) grid
    over phase 3's own graph answering as phase 10's single-plane replays
    bit for bit; ``db_bf16=True`` (recall beside fp32); phase 8's
@@ -119,18 +123,18 @@ Phases, each printing its own lines:
 13. the pod (``serve/pod.py``) and the serving drivers, with every
    counter at 0: (a) a 1-rank NCCL pod over phase 3's graph, both visited
    modes, B = 10 and 10240, bit for bit against phase 10's single-plane
-   replays (medians of 20 replays beside phase 10's); (b) two ranks on
+   replays (medians of 10 replays beside phase 10's); (b) two ranks on
    the one card over gloo (spawned), each building 2 of the 4 shards of
    2^18 rows, saving the pod artifact (rank 0 writes) and loading it
    back: fp32 / int8 x none / hash at B = 10 and 10240, each replay equal
    to its eager call, both ranks alike and bit for bit the (4, 1) grid
    over the same shards (the artifact loaded in this process), a stream
    round (no deleted id, bit for bit the grid's), the 2-rank reload bit
-   for bit, seconds for build, save and load and medians of 20 replays;
+   for bit, seconds for build, save and load and medians of 10 replays;
    (c) ``python -m repro_torch.launch.serve --n 2**20 --d 128 --router
    replicated:2 --kill-replica 1`` (``lost_futures=0``, weighted recall
    within 0.01 of an index built in this process on the same corpus and
-   batches) and the five ``examples/torch/`` scripts at their CI sizes,
+   batches) and the six ``examples/torch/`` scripts at their CI sizes,
    all subprocesses started together, each exiting 0 with its OK line.
    Every ANN kernel body must launch in (a) and the ranks.
 14. the language models' serving path (``models/transformer.py``), with
@@ -157,7 +161,23 @@ Phases, each printing its own lines:
    dropped scale, a dropped window; reported, not gated); the greedy
    tokens' agreement (not gated); prefill and decode medians (CUDA
    events) beside their bounds, flash_attention's device time in a
-   traced prefill and step, and the peak device memory (``[lm]`` lines).
+   traced prefill and step, and the peak device memory (``[lm]`` lines);
+   at (a)'s shapes flash_attention's prefill layer and decode step are
+   timed beside SDPA on the same inputs.
+15. Wide & Deep's serving path (``models/recsys.py``), with the LM state
+   released and every counter at 0: ``wide_deep`` at full size (49.36 M
+   rows of 32 in fp32, weights from ``init_params`` with a seeded
+   generator on the card), batches from ``CTRStream(seed=0)``.  Each bag
+   field's ``embedding_bag`` at the drill's own ids against its plain
+   version (the bag contract; bit equality reported; at the bulk batch
+   both routes timed beside ``F.embedding_bag``); ``serve_step`` at
+   ``RECSYS_SHAPES``' B = 512 and 262,144 on the kernel path (4 launches
+   a step, by the counter) and on ``kernel_backend="torch"`` with the
+   same weights, within 1e-6 on the probabilities; medians of 20 steps
+   (CUDA events), ``embedding_bag``'s share of a traced step's device
+   time, the step's bound and the peak memory; ``retrieval_step`` over
+   10^6 item vectors (the top-100 equal to the plain path's) and its
+   median (``[recsys]`` lines).
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
@@ -167,8 +187,9 @@ launches, a capture none, and a replay those its capture recorded.  Each
 of the six ANN kernel bodies must have launched in them, and again in
 phase 11's packed path, phase 12's sharded one (with the bf16 body) and
 phase 13's pod.  Phase 9's path must launch each of its five, attention
-and SpMM exactly as often as their routes launch kernels, and phase 14's
-flash_attention as its bodies launch.
+and SpMM exactly as often as their routes launch kernels, phase 14's
+flash_attention as its bodies launch, and phase 15's embedding_bag once
+a bag field a step.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -208,7 +229,9 @@ API_BODIES = ("distance_matrix", "bitonic_sort", "embedding_bag",
 KNN_QUERIES = 1024            # exact k-NN: phase 3's first 1,024 queries
 MESH_SHAPE = (4, 2)           # phase 12's grid: DB shards x query columns
 LAYOUT_PIPE = ("knn", "diversify", "bridges", "layout")
-SERVE_REPEATS = 20            # phase 10: untraced calls a latency median
+# phases 10-13: untraced calls a latency median (a grid's B = 10240
+# replays take 0.4-0.8 s each, so the count is paid in the time limit)
+SERVE_REPEATS = 10
 TOPK_KERNELS = ("warp_topk_kernel", "select_kernel", "cta_sort_kernel")
 # the search hop's kernels (csrc/l2dist.cu's row bodies, csrc/visited.cu)
 HOP_KERNELS = ("gather_rowq_kernel", "gather_row8_kernel",
@@ -768,10 +791,17 @@ def sort_case(R, W, dev, gen):
 
 
 def check_embedding_bag(name, table, ids, combine="mean"):
-    """``ops.embedding_bag`` against its plain version on the widened
-    table, within 1e-6 * the bag's sum of |rows| (plus one rounding of
-    the output, 2^-8 * |out|, for a bf16 table); the bound at the table's
-    own bytes an element."""
+    """``ops.embedding_bag`` (the route ``embedding_bag.path`` picks) and
+    both forced routes: the vector route bit for bit against the lane
+    route (the earlier design, a warp a bag), and
+    each against the plain version on the widened table, within 1e-6 *
+    the bag's sum of |rows| (plus one rounding of the output, 2^-8 *
+    |out|, for a bf16 table); whether they equal the plain version on the
+    table itself bit for bit is reported.  Times: ``ms`` back to back,
+    each route's ``device_ms`` (the calls queued ahead), the plain
+    version's and ``F.embedding_bag``'s; the bound at the table's own
+    bytes an element (each distinct row once), and each route's achieved
+    GB/s over the bound's bytes."""
     import torch
     import torch.nn.functional as F
 
@@ -780,9 +810,14 @@ def check_embedding_bag(name, table, ids, combine="mean"):
     B, bag = ids.shape
     E = table.shape[1]
     bf16 = table.dtype == torch.bfloat16
+    route = embedding_bag.path(table, ids)
 
     def kern():
         return ops.embedding_bag(table, ids, combine=combine)
+
+    def via(r):
+        return lambda: embedding_bag.embedding_bag(table, ids,
+                                                   combine=combine, via=r)
 
     def plain():
         return embedding_bag.embedding_bag_plain(table, ids, combine=combine)
@@ -793,30 +828,63 @@ def check_embedding_bag(name, table, ids, combine="mean"):
         return F.embedding_bag(ids64, table, mode=combine)
 
     out = kern()
+    outs = {r: via(r)() for r in embedding_bag.ROUTES
+            if r == "lane" or route == "vector"}
     # the plain version on the widened table, in float32
     ref = embedding_bag.embedding_bag_plain(table.float(), ids,
                                             combine=combine)
+    same = plain()
     torch.cuda.synchronize()
     scale = table[ids64].float().abs().sum(1) / (
         bag if combine == "mean" else 1)
     tol = 1e-6 * scale + (2.0 ** -8 * ref.abs() if bf16 else 0.0)
-    err = (out.float() - ref).abs()
-    if out.dtype != table.dtype or bool((err > tol).any()) or not bool(
-            torch.isfinite(out).all()):
-        raise AssertionError(f"embedding_bag {name}: over 1e-6*sum|rows|"
-                             + (" + 2^-8|out|" if bf16 else ""))
+    err = max(float((o.float() - ref).abs().max()) for o in outs.values())
+    for r, o in outs.items():
+        if o.dtype != table.dtype or bool(
+                ((o.float() - ref).abs() > tol).any()) or not bool(
+                torch.isfinite(o).all()):
+            raise AssertionError(f"embedding_bag {name} ({r} route): over "
+                                 "1e-6*sum|rows|" + (" + 2^-8|out|" if bf16
+                                                     else ""))
+    if not torch.equal(out, outs[route]) or not all(
+            torch.equal(o, outs["lane"]) for o in outs.values()):
+        raise AssertionError(f"embedding_bag {name}: the routes differ "
+                             "(the vector route must equal the lane route "
+                             "bit for bit)")
     ms = cuda_ms(kern, 20)
-    device_ms = cuda_ms(kern, 20, repeats=3, ahead=True)
+    route_ms = {r: cuda_ms(via(r), 20, repeats=3, ahead=True) for r in outs}
     plain_ms = cuda_ms(plain, 5)
     lib_ms = cuda_ms(library, 5)
     rows = int(torch.unique(ids).numel())   # the rows this batch needs
     el = table.element_size()
-    b_ms, b_by = bound(rows * E * el + B * bag * 4 + B * E * el, B * bag * E)
+    nbytes = rows * E * el + B * bag * 4 + B * E * el
+    b_ms, b_by = bound(nbytes, B * bag * E)
     return dict(shape=name, V=table.shape[0], E=E, B=B, bag=bag,
                 combine=combine, dtype=str(table.dtype).replace("torch.", ""),
-                max_abs_err=float(err.max()), ms=ms,
-                device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                path=route, group=embedding_bag.group(E, table.dtype),
+                max_abs_err=err, ms=ms, device_ms=route_ms[route],
+                route_device_ms=route_ms,
+                route_gb_per_s={r: nbytes / t / 1e6
+                                for r, t in route_ms.items()},
+                bit_equal_plain=bool(torch.equal(out, same)),
+                distinct_rows=rows, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def bag_extra(r: dict) -> str:
+    """The route details of a ``[kernel] embedding_bag`` line."""
+    return (f" (a group of {r['group']} lanes a bag); device_ms "
+            + ", ".join(f"{k}={v:.4f}" for k, v in
+                        r["route_device_ms"].items())
+            + " (lane: the earlier design); achieved "
+            + ", ".join(f"{k} {v:.0f} GB/s" for k, v in
+                        r["route_gb_per_s"].items())
+            + " of 3350"
+            + ("; vector == lane bit for bit" if "vector" in
+               r["route_device_ms"] else "")
+            + f"; == the plain version bit for bit: {r['bit_equal_plain']};"
+            f" {r['distinct_rows']} "
+            "distinct rows")
 
 
 def check_spmm(name, nbrs, feat, w, combine="mean"):
@@ -1246,6 +1314,8 @@ def api_phase(ds, n, d, dev, gen) -> tuple:
                          f"lanes' rows), transform gather "
                          f"{r['gather_traffic_ms']:.4f} ms; no single "
                          "PyTorch call computes it")
+            elif kname.startswith("embedding_bag"):
+                extra = bag_extra(r)
             elif kname == "flash_attention":
                 rate = "bf16" if r["dtype"] == "bfloat16" else "TF32"
                 extra = (f" err/tol={r['err_over_tol']:.3f} (SDPA's "
@@ -2536,7 +2606,7 @@ def mesh_mutations(n: int, d: int):
 
 # --------------------------------------------------------------------------
 # phase 13: the pod (serve/pod.py over torch.distributed) and the serving
-# drivers (the launcher and the five examples)
+# drivers (the launcher and the six examples)
 # --------------------------------------------------------------------------
 
 POD_SHARDS = 4                # (b): phase 12's 4 DB shards, 2 a rank
@@ -2544,14 +2614,15 @@ POD_RANKS = 2
 POD_TIMEOUT = 600             # seconds the two ranks may take in all
 POD_VARIANTS = (("fp32 none", {}), ("fp32 hash", {"visited_filter": "hash"}),
                 ("int8 none", {"quantization": "int8"}))
-# (c): the examples at their CI sizes (scripts/ci.sh); ann_serving at its
-# own default
+# (c): the examples at their CI sizes (scripts/ci.sh); ann_serving and
+# recsys_retrieval (100,000 item vectors) at their own defaults
 EXAMPLES = {"quickstart": ({"REPRO_QUICKSTART_N": "4000"}, "quickstart OK"),
             "ann_serving": ({}, "ann_serving OK"),
             "streaming_ingest": ({"REPRO_STREAMING_N": "3000"},
                                  "streaming_ingest OK"),
             "distributed_search": ({}, "distributed_search OK"),
-            "pod_serving": ({"REPRO_POD_N": "3000"}, "pod serving demo OK")}
+            "pod_serving": ({"REPRO_POD_N": "3000"}, "pod serving demo OK"),
+            "recsys_retrieval": ({}, "recsys_retrieval OK")}
 DRIVER_TIMEOUT = 600
 
 
@@ -2580,7 +2651,7 @@ def pod_rank(rank: int, tmp: str, port: int, n_queries: int,
     """(b)'s rank body (a spawned process): join the gloo pod, build this
     rank's 2 of the 4 shards, save the artifact SPMD and load it back,
     then serve fp32 / int8 x none / hash at B = 10 and ``n_queries``
-    (replay against eager, medians of 20 replays) and a stream round;
+    (replay against eager, medians of 10 replays) and a stream round;
     the answers, seconds and launch counts go to ``tmp``.  ``device``
     is the card (a CPU rehearsal passes "cpu")."""
     sys.path.insert(0, os.path.join(HERE, "src"))
@@ -2697,7 +2768,7 @@ def run_pod_ranks(tmp: str, n_queries: int, device: str) -> None:
 
 
 def start_drivers(n: int, d: int, tmp: str, dev) -> dict:
-    """(c): the launcher's chaos drill at full size and the five examples
+    """(c): the launcher's chaos drill at full size and the six examples
     at their CI sizes, each a subprocess, all started together, on the
     card (a CPU rehearsal passes ``--device cpu``).  A thread a driver
     waits for its exit: :func:`finish_drivers` collects them."""
@@ -2757,7 +2828,7 @@ def pod_phase(ds, cfg, graph, n, d, n_queries, dev, answers,
     10's single-plane replays; (b) two ranks on the card over gloo, each
     with 2 of phase 12's 4 shards of 2^18 rows, against the (4, 1) grid
     over the same shards, and the pod artifact; (c) the launcher's chaos
-    drill at full size and the five examples.  Returns (results, the
+    drill at full size and the six examples.  Returns (results, the
     launches of the pod's path: (a)'s and both ranks')."""
     import tempfile
 
@@ -2920,7 +2991,7 @@ def pod_phase(ds, cfg, graph, n, d, n_queries, dev, answers,
                 f"{k} {v:.3f} ms" for k, v in grid_ms.items()))
         out["seconds"]["b"] = time.perf_counter() - t0
 
-        # ---- (c) the launcher at full size and the five examples (started
+        # ---- (c) the launcher at full size and the six examples (started
         # above)
         t0 = time.perf_counter()
         # the launcher's corpus and batches, served by an index in this
@@ -3086,7 +3157,7 @@ def lm_bounds(cfg, B: int, P: int, steps: int) -> dict:
 
 
 def lm_attention_checks(label, model, cfg, toks, P: int, steps: int,
-                        gen) -> list:
+                        gen, timed: bool = False) -> list:
     """``flash_attention`` at the drill's own shapes, each held to its
     plain version (``ref.attention_ref`` in float32) by
     :func:`check_attention`'s contract (:func:`attention_err_over_tol`
@@ -3095,7 +3166,10 @@ def lm_attention_checks(label, model, cfg, toks, P: int, steps: int,
     over the P + steps slots of the cache), on unit-normal bf16 q/k/v
     (the cache's slots past P hold noise that the causal bound must drop)
     and on the q/k/v of the first layer with that window, computed from
-    the prompt's embeddings (its cache past P zero, as served).  The
+    the prompt's embeddings (its cache past P zero, as served).  With
+    ``timed``, each unit-normal case is also timed (CUDA events, the
+    least of 3 means of 10 calls) beside SDPA on the same inputs and the
+    plain version (a mean of 2 calls, widening included).  The
     launches are comparisons, recorded and not counted."""
     import torch
 
@@ -3141,6 +3215,15 @@ def lm_attention_checks(label, model, cfg, toks, P: int, steps: int,
                     Skv=k.shape[1], q_offset=off, err_over_tol=ratio,
                     body=FA.path(B, q.shape[1], k.shape[1], H, KV, hd, bf),
                     finite=bool(torch.isfinite(out).all())))
+                if timed and inputs == "unit normal":
+                    rows[-1]["ms"] = cuda_ms(
+                        lambda: FA.flash_attention(q, k, v, **kw), 10,
+                        repeats=3)
+                    rows[-1]["sdpa_ms"] = cuda_ms(
+                        lambda: sdpa(q, k, v, w, off), 10, repeats=3)
+                    rows[-1]["plain_ms"] = cuda_ms(
+                        lambda: ref.attention_ref(q.float(), k.float(),
+                                                  v.float(), **kw), 2)
                 del out, want, weight, qf, kf, vf
             del qr, kr, vr, kc, vc
         del x
@@ -3151,6 +3234,13 @@ def lm_attention_checks(label, model, cfg, toks, P: int, steps: int,
             f"window {r['window']} {r['kind']} {r['Sq']}x{r['Skv']} at "
             f"q_offset {r['q_offset']} ({r['body']}), {r['inputs']}: "
             f"{r['err_over_tol']:.3f}" for r in rows))
+    for r in rows:
+        if "ms" in r:
+            log(f"[lm] ({label}) flash_attention {r['kind']} {r['Sq']}x"
+                f"{r['Skv']} at q_offset {r['q_offset']} ({r['body']}), "
+                f"B={B}, {H} heads over {KV} of {hd}, bf16: {r['ms']:.4f} ms;"
+                f" SDPA on the same inputs {r['sdpa_ms']:.4f} ms; the plain "
+                f"version {r['plain_ms']:.4f} ms")
     bad = [r for r in rows if not (r["err_over_tol"] <= 1.0 and r["finite"])]
     if bad:
         raise AssertionError(f"[lm] ({label}) flash_attention over its "
@@ -3252,7 +3342,7 @@ def lm_phase(dev) -> tuple:
             f"B={B}, prompt {P}, {steps} decode steps "
             f"(LMStream seed 0)")
         attn_checks = lm_attention_checks(label, model, cfg, toks, P, steps,
-                                          gen)
+                                          gen, timed=label == "a")
         cfg32 = dc.replace(cfg, compute_dtype="float32")
         ref = lm_serve(model, cfg32, toks, P, steps, "torch")["logits"]
         plain = lm_serve(model, cfg, toks, P, steps, "torch")
@@ -3353,6 +3443,282 @@ def lm_phase(dev) -> tuple:
     if launches["flash_attention"] <= 0:
         raise AssertionError("flash_attention never launched on the LM path")
     return results, launches
+
+
+# --------------------------------------------------------------------------
+# phase 15: Wide & Deep's serving path (models/recsys.py) at full size
+# --------------------------------------------------------------------------
+
+# RECSYS_SHAPES serve_p99 and serve_bulk; retrieval_cand's candidates
+RECSYS_BATCHES = (512, 262_144)
+RECSYS_CANDIDATES = 1_000_000
+RECSYS_REPEATS = 20           # steps a median
+BAG_KERNELS = ("bag_vector_kernel", "bag_lane_kernel")
+
+
+def recsys_bounds(cfg, batch: dict) -> dict:
+    """The least ms of a serve step on the card for this batch: the bytes
+    it must move (each distinct row of every field's table once, the
+    wide buckets it reads, the MLP's weights, the batch in and the
+    probabilities out) at 3.35 TB/s, and the MLP's and the head's
+    products at the fp32 rate (the model serves in float32), the larger
+    of the two."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import recsys as R
+
+    B = batch["dense"].shape[0]
+    E = cfg.embed_dim
+    rows = 0
+    multi = list(cfg.multi_hot_fields)
+    for i in range(cfg.n_sparse):
+        ids = batch["bags"][:, multi.index(i)] if i in multi \
+            else batch["sparse_ids"][:, i]
+        rows += int(np.unique(ids).size)
+    dims = (cfg.n_sparse * E + cfg.n_dense,) + tuple(cfg.mlp) + (1,)
+    weights = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    flops = 2 * B * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    buckets = int(torch.unique(R.wide_indices(
+        cfg, torch.from_numpy(batch["sparse_ids"]))).numel())
+    inputs = sum(batch[k].nbytes for k in ("sparse_ids", "bags", "dense"))
+    nbytes = rows * E * 4 + weights * 4 + buckets * 4 + inputs + B * 4
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / FP32_OPS_PER_S * 1e3
+    return dict(distinct_rows=rows, wide_buckets=buckets, bytes=nbytes,
+                flops=flops,
+                bytes_ms=t_b, ops_ms=t_o, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def event_median_ms(fn, n: int = RECSYS_REPEATS) -> float:
+    """Median of ``n`` calls of ``fn``, each timed by CUDA events."""
+    import statistics
+
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    ev[0].record()
+    for j in range(n):
+        fn()
+        ev[j + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(ev[j].elapsed_time(ev[j + 1])
+                             for j in range(n))
+
+
+def recsys_bag_checks(model, cfg, batches: dict, dev) -> list:
+    """Each bag field's ``embedding_bag`` at the drill's own (skewed) ids,
+    at every batch, against its plain version within the bag contract
+    (1e-6 * the bag's sum of |rows|), bit equality reported; at the bulk
+    batch also timed (the calls queued ahead), both routes, beside
+    ``F.embedding_bag`` and the bound of its distinct rows.  The launches
+    are comparisons, recorded and not counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, embedding_bag as EB
+
+    rows = []
+    with _build.recording():
+        for B, batch in batches.items():
+            bags = batch["bags"].transpose(0, 1).contiguous()
+            for f, field in enumerate(cfg.multi_hot_fields):
+                table = model.tables[f"field_{field}"].detach()
+                ids = bags[f]
+                out = EB.embedding_bag(table, ids)
+                want = EB.embedding_bag_plain(table, ids)
+                scale = table[ids.long()].abs().sum(1) / cfg.bag_size
+                ok = bool(((out - want).abs() <= 1e-6 * scale).all()) \
+                    and bool(torch.isfinite(out).all())
+                r = dict(B=B, field=field, V=table.shape[0],
+                         route=EB.path(table, ids), ok=ok,
+                         bit_equal=bool(torch.equal(out, want)),
+                         max_abs_err=float((out - want).abs().max()))
+                if B == RECSYS_BATCHES[-1]:
+                    ids64 = ids.long()
+                    r["device_ms"] = {v: cuda_ms(
+                        lambda v=v: EB.embedding_bag(table, ids, via=v),
+                        20, repeats=3, ahead=True) for v in EB.ROUTES}
+                    r["library_ms"] = cuda_ms(
+                        lambda: F.embedding_bag(ids64, table, mode="mean"),
+                        5)
+                    n = int(torch.unique(ids).numel())
+                    nbytes = (n + B) * cfg.embed_dim * 4 + ids.numel() * 4
+                    r["distinct_rows"] = n
+                    r["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                    r["gb_per_s"] = nbytes / r["device_ms"][r["route"]] / 1e6
+                rows.append(r)
+                del out, want, scale
+    for r in rows:
+        timing = ""
+        if "device_ms" in r:
+            timing = (f"; device_ms vector={r['device_ms']['vector']:.4f} "
+                      f"lane={r['device_ms']['lane']:.4f}, F.embedding_bag "
+                      f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f}"
+                      f" ms (bytes: {r['distinct_rows']} distinct rows of "
+                      f"{r['B'] * cfg.bag_size}), {r['gb_per_s']:.0f} GB/s")
+        log(f"[recsys] embedding_bag field {r['field']} [{r['V']}, "
+            f"{cfg.embed_dim}] bag {cfg.bag_size} mean B={r['B']} at the "
+            f"drill's ids ({r['route']}): max_abs_err={r['max_abs_err']:.3g}"
+            f" within 1e-6*sum|rows|: {r['ok']}; bit for bit the plain "
+            f"version: {r['bit_equal']}{timing}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"[recsys] embedding_bag over its tolerance at "
+                             f"the drill's ids: {bad}")
+    return rows
+
+
+def recsys_phase(dev) -> tuple:
+    """Phase 15, with the LM state freed and every counter at 0:
+    ``wide_deep`` at full size (49.36 M rows of 32, fp32; weights from
+    ``init_params`` with a seeded generator on the card), batches from
+    ``CTRStream(cfg, B, seed=0)``.  First each bag field's kernel at the
+    drill's ids against its plain version (:func:`recsys_bag_checks`);
+    then ``serve_step`` at B = 512 and 262,144 on the kernel path (4
+    launches a step, by the counter) and on ``kernel_backend="torch"``
+    with the same weights, within 1e-6 on the probabilities; medians of
+    20 steps (CUDA events), ``embedding_bag``'s share of a traced step's
+    device time, the step's bound and the peak memory; then
+    ``retrieval_step`` over 10^6 item vectors (ids equal to the plain
+    path's).  Returns (results, the phase's launch counts)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.kernels import _build, embedding_bag as EB
+    from repro_torch.models import recsys as R
+    from repro_torch.models.module import init_params, param_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # the model is fp32
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("wide-deep")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = R.WideDeep(cfg, init_params(R.schema(cfg), gen, dev))
+    host = {B: next(CTRStream(cfg, B, seed=0)) for B in RECSYS_BATCHES}
+    batches = {B: R.batch_to(b, dev) for B, b in host.items()}
+    torch.cuda.synchronize()
+    out = dict(setup_s=time.perf_counter() - t0,
+               weight_gb=param_bytes(R.schema(cfg)) / 1e9,
+               table_rows=sum(cfg.vocab_sizes))
+    log(f"[recsys] wide_deep: {cfg.n_sparse} fields of {cfg.embed_dim} "
+        f"({out['table_rows']} rows), bag fields {cfg.multi_hot_fields} of "
+        f"{cfg.bag_size}, MLP {cfg.mlp}, {cfg.wide_hash_buckets} wide "
+        f"buckets: {out['weight_gb']:.2f} GB of fp32 weights; set-up "
+        f"(init_params on the card, CTRStream seed 0 at B = "
+        f"{', '.join(map(str, RECSYS_BATCHES))}) {out['setup_s']:.1f} s")
+    out["bag_checks"] = recsys_bag_checks(model, cfg, batches, dev)
+    n_bags = len(cfg.multi_hot_fields)
+    steps = {}
+    for B, batch in batches.items():
+        n0 = K.launch_counts()["embedding_bag"]
+        probs = R.serve_step(model, cfg, batch)
+        torch.cuda.synchronize()
+        launched = K.launch_counts()["embedding_bag"] - n0
+        plain = R.serve_step(model, cfg, batch, kernel_backend="torch")
+        err = float((probs - plain).abs().max())
+        good = probs.shape == (B,) and bool(torch.isfinite(probs).all()) \
+            and bool(((probs >= 0) & (probs <= 1)).all())
+        if launched != n_bags or not good or not err <= 1e-6:
+            raise AssertionError(
+                f"[recsys] serve_step B={B}: embedding_bag launched "
+                f"{launched} (want {n_bags}), probabilities valid {good}, "
+                f"max |kernel - plain| {err} (limit 1e-6)")
+        ms = event_median_ms(lambda: R.serve_step(model, cfg, batch))
+        plain_ms = event_median_ms(lambda: R.serve_step(
+            model, cfg, batch, kernel_backend="torch"))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            R.serve_step(model, cfg, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, top, per = device_time(prof, 5)
+        bag_ms = kernel_us(per, BAG_KERNELS) / 1e3
+        # the step's bags again, timed alone by CUDA events (the
+        # trace can drop kernels: a share from either)
+        bags = batch["bags"].transpose(0, 1).contiguous()
+        with _build.recording():
+            bag_event_ms = sum(cuda_ms(
+                lambda f=f: EB.embedding_bag(
+                    model.tables[f"field_{f}"].detach(), bags[j]), 10,
+                repeats=3, ahead=True)
+                for j, f in enumerate(cfg.multi_hot_fields))
+        del bags
+        b = recsys_bounds(cfg, host[B])
+        steps[B] = r = dict(
+            launches=launched, err_vs_plain=err, bit_equal_plain=bool(
+                torch.equal(probs, plain)), ms=ms, plain_ms=plain_ms,
+            rows_per_s=B / ms * 1e3, traced_wall_ms=wall,
+            traced_busy_ms=busy / 1e3, bag_ms=bag_ms,
+            bag_share=bag_ms / max(busy / 1e3, 1e-9),
+            bag_event_ms=bag_event_ms,
+            bag_event_share=bag_event_ms / max(busy / 1e3, 1e-9), top_ms=top,
+            **b)
+        del probs, plain
+        log(f"[recsys] serve_step B={B}: embedding_bag launched {launched} "
+            f"times (one a bag field); max |kernel - plain path| {err:.3g} "
+            f"(limit 1e-6; bit for bit: {r['bit_equal_plain']}); median of "
+            f"{RECSYS_REPEATS} {ms:.3f} ms ({r['rows_per_s']:.0f} rows/s; "
+            f"plain path {plain_ms:.3f} ms); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}: {b['bytes'] / 1e6:.1f} MB at 3.35 TB/s = "
+            f"{b['bytes_ms']:.4f} ms, {b['distinct_rows']} distinct rows; "
+            f"{b['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s = "
+            f"{b['ops_ms']:.4f} ms); traced: wall {wall:.3f} ms, device "
+            f"{busy / 1e3:.3f} ms, embedding_bag {bag_ms:.4f} ms "
+            f"({r['bag_share']:.1%}"
+            + ("" if bag_ms > 0 else ": the trace holds no embedding_bag "
+               f"kernel, though the counter saw {launched} launches")
+            + f"); the step's {n_bags} bags timed alone "
+            f"{bag_event_ms:.4f} ms "
+            f"({r['bag_event_share']:.1%} of the traced device time); "
+            "costliest "
+            + "; ".join(f"{k[:50]} {t:.3f} ms" for k, t in top))
+    out["serve"] = steps
+    # retrieval: one user against 10^6 item vectors
+    items = torch.randn((RECSYS_CANDIDATES, R.RETRIEVAL_DIM), generator=gen,
+                        device=dev)
+    one = {k: v[:1] for k, v in batches[RECSYS_BATCHES[0]].items()}
+    query = dict(one, item_vectors=items)
+    ids, top = R.retrieval_step(model, cfg, query)
+    ids_p, top_p = R.retrieval_step(model, cfg, query,
+                                    kernel_backend="torch")
+    found = ids.cpu().numpy()
+    if found.shape != (100,) or len(set(found.tolist())) != 100 or not (
+            (found >= 0) & (found < RECSYS_CANDIDATES)).all() \
+            or not torch.equal(ids, ids_p) or not torch.equal(top, top_p) \
+            or not bool((top[:-1] >= top[1:]).all()):
+        raise AssertionError("[recsys] retrieval_step: bad top-100, or "
+                             "unlike the plain path's")
+    ms = event_median_ms(lambda: R.retrieval_step(model, cfg, query))
+    nbytes = items.numel() * 4
+    out["retrieval"] = dict(ms=ms, candidates=RECSYS_CANDIDATES,
+                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    log(f"[recsys] retrieval_step over {RECSYS_CANDIDATES} item vectors of "
+        f"{R.RETRIEVAL_DIM}: the top-100 equal to the plain path's; median "
+        f"of {RECSYS_REPEATS} {ms:.3f} ms (bound "
+        f"{out['retrieval']['bound_ms']:.4f} ms: the item vectors' bytes)")
+    del items, query, model, batches
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    launches = K.launch_counts()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[recsys] phase 15: {out['seconds']:.1f} s, peak device memory "
+        f"{out['peak_gib']:.2f} GiB")
+    log("[launches] phase 15 " + json.dumps(launches))
+    if launches["embedding_bag"] <= 0:
+        raise AssertionError("embedding_bag never launched on the recsys "
+                             "path")
+    return out, launches
 
 
 # --------------------------------------------------------------------------
@@ -3487,7 +3853,8 @@ def main() -> int:
     from repro_torch.ann.quantize import quantize_rows
     from repro_torch.configs.base import ANNConfig
     from repro_torch.data.synthetic import make_clustered, recall_at_k
-    from repro_torch.kernels import (_build, block, flash_attention, l2dist,
+    from repro_torch.kernels import (_build, block, embedding_bag,
+                                     flash_attention, l2dist,
                                      segment_matmul, topk, visited)
 
     t_start = time.perf_counter()
@@ -3520,6 +3887,10 @@ def main() -> int:
     log("[build] block.cu tile kernels, the block's and the matrix's "
         "(registers, spilled bytes) a thread: "
         + json.dumps(record["block_bodies"]))
+    record["bag_bodies"] = embedding_bag.body_attributes()
+    log("[build] embedding_bag.cu kernels, the lane body and the vector "
+        "body at each group width (registers, spilled bytes) a thread: "
+        + json.dumps(record["bag_bodies"]))
     record["spmm_bodies"] = segment_matmul.body_attributes()
     log("[build] segment_matmul.cu kernels, fused, projection and gather "
         "(registers, spilled bytes) a thread: "
@@ -3840,6 +4211,12 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     record["lm"], phase_launches["14"] = lm_phase(dev)
     launches["flash_attention"] += phase_launches["14"]["flash_attention"]
+
+    # ---- phase 15: Wide & Deep's serving path ------------------------------
+    log(f"[recsys] device memory before phase 15 (the LM state released): "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    record["recsys"], phase_launches["15"] = recsys_phase(dev)
+    launches["embedding_bag"] += phase_launches["15"]["embedding_bag"]
 
     # ---- summary -----------------------------------------------------------
     meta = {

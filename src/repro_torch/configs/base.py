@@ -1,5 +1,5 @@
 """Configurations and shape specs for the PyTorch port: the ANN index,
-the language models, and the arch registry.
+the language models, Wide & Deep, and the arch registry.
 
 ``ANNConfig`` carries every field and default of the JAX reference's
 config, so one set of knobs describes an index in either package.  Two
@@ -18,14 +18,15 @@ shard's database (``core/distributed.py``).  As in the reference, only
 the mesh path reads it: a single-device plane ignores it and searches the
 fp32 rows.
 
-``MoEConfig``, ``TransformerConfig`` and ``LM_SHAPES`` are the reference's
-(``src/repro/configs/base.py``) field for field, ``n_params`` and
-``n_active_params`` included.  ``remat``, ``scan_layers`` and ``unroll``
-are kept for parity and have no effect in the port: it runs its layers
-eagerly, one after another, and serves without gradients.  The registry
+``MoEConfig``, ``TransformerConfig``, ``LM_SHAPES``, ``RecsysConfig`` and
+``RECSYS_SHAPES`` are the reference's (``src/repro/configs/base.py``)
+field for field, ``n_params`` and ``n_active_params`` included.
+``remat``, ``scan_layers`` and ``unroll`` are kept for parity and have no
+effect in the port: it runs its layers eagerly, one after another, and
+serves without gradients.  The registry
 (``list_archs``/``get_arch``/``get_reduced``) lists the reference's archs
-and serves those the port has: the five language models and
-``tsdg_paper``; the others raise ``KeyError`` as not ported yet.
+and serves those the port has: the five language models, ``wide_deep``
+and ``tsdg_paper``; the others raise ``KeyError`` as not ported yet.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # train | prefill | decode | build | search
+    kind: str  # train | prefill | decode | serve | retrieval | build | search
     dims: dict
 
 
@@ -48,6 +49,14 @@ LM_SHAPES = {
                             dict(seq_len=32768, global_batch=128)),
     "long_500k": ShapeSpec("long_500k", "decode",
                            dict(seq_len=524288, global_batch=1)),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "train", dict(batch=65536)),
+    "serve_p99": ShapeSpec("serve_p99", "serve", dict(batch=512)),
+    "serve_bulk": ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                dict(batch=1, n_candidates=1_000_000)),
 }
 
 
@@ -233,10 +242,29 @@ class TransformerConfig:
         return self.n_layers * (attn + ff) + emb
 
 
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    n_sparse: int = 40
+    embed_dim: int = 32
+    mlp: tuple = (1024, 512, 256)
+    interaction: str = "concat"
+    n_dense: int = 13
+    # per-field vocabulary sizes (sums to ~49M rows)
+    vocab_sizes: tuple = tuple([10_000_000] * 4 + [1_000_000] * 8
+                               + [100_000] * 12 + [10_000] * 16)
+    multi_hot_fields: tuple = (0, 1, 2, 3)  # bag-style fields
+    bag_size: int = 10
+    wide_hash_buckets: int = 1_000_000
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    family: str = "recsys"
+
+
 def shapes_for(cfg) -> dict:
-    """The shape specs of a config's family (the language models' and the
-    ANN index's are ported)."""
-    shapes = {"lm": LM_SHAPES, "ann": ANN_SHAPES}
+    """The shape specs of a config's family (the language models',
+    Wide & Deep's and the ANN index's are ported)."""
+    shapes = {"lm": LM_SHAPES, "recsys": RECSYS_SHAPES, "ann": ANN_SHAPES}
     if cfg.family not in shapes:
         raise KeyError(f"the {cfg.family!r} family's shapes are not ported "
                        "yet")
@@ -254,7 +282,7 @@ _ARCH_MODULES = (
     "wide_deep", "tsdg_paper",
 )
 PORTED = ("olmoe_1b_7b", "kimi_k2_1t_a32b", "starcoder2_7b", "gemma3_27b",
-          "olmo_1b", "tsdg_paper")
+          "olmo_1b", "wide_deep", "tsdg_paper")
 
 
 def list_archs() -> list:

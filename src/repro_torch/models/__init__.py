@@ -1,3 +1,4 @@
 """The port's models: the language models' transformer (``transformer``)
-over its layers (``layers``), the MoE layer (``moe``) and the parameter
-schema (``module``); ``convert`` carries the reference's weights in."""
+over its layers (``layers``), the MoE layer (``moe``), Wide & Deep
+(``recsys``) and the parameter schema (``module``); ``convert`` carries
+the reference's weights in."""

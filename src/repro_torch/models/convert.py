@@ -1,4 +1,4 @@
-"""Carry the reference's language-model weights into the port.
+"""Carry the reference's weights into the port.
 
 :func:`params_from_reference` takes the reference's ``init_params`` tree
 (``src/repro/models/transformer.py``'s schema: ``embed``, the stacked
@@ -7,15 +7,18 @@ returns the port's :class:`~repro_torch.models.transformer.Transformer`
 with the same bits: the layouts are the same, so each leaf is a copy, and
 each block's parameters are slices of the stacked leaves.  Every leaf of
 the reference maps to exactly one parameter of the port and no parameter
-is left unset; anything else raises.
+is left unset; anything else raises.  :func:`recsys_params_from_reference`
+does the same for Wide & Deep (``src/repro/models/recsys.py``'s schema)
+into the port's :class:`~repro_torch.models.recsys.WideDeep`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import RecsysConfig, TransformerConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.models.module import leaves
 
@@ -41,13 +44,11 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def params_from_reference(tree: dict, cfg: TransformerConfig,
-                          device=None) -> T.Transformer:
-    """The reference's parameter tree (numpy arrays) -> the port's model on
-    ``device`` (None: the CUDA device, or a ``RuntimeError``).  The tree
-    must hold exactly the schema's leaves, at the schema's shapes."""
-    device = resolve_device(device)
-    want = dict(leaves(T.schema(cfg)))
+def _checked(tree: dict, sch: dict, device) -> dict:
+    """The reference's tree as tensors on ``device``, in its nested
+    layout, after checking that it holds exactly the schema's leaves at
+    the schema's shapes."""
+    want = dict(leaves(sch))
     got = dict(leaves(tree))
     if set(got) != set(want):
         raise ValueError(f"leaves missing {sorted(set(want) - set(got))}, "
@@ -56,11 +57,36 @@ def params_from_reference(tree: dict, cfg: TransformerConfig,
         if tuple(np.shape(got[path])) != tuple(spec.shape):
             raise ValueError(f"{path}: shape {np.shape(got[path])}, the "
                              f"schema's {spec.shape}")
-    model = T.Transformer(cfg, _unflatten(
-        {path: _tensor(a, device) for path, a in got.items()}))
+    return _unflatten({path: _tensor(a, device) for path, a in got.items()})
+
+
+def params_from_reference(tree: dict, cfg: TransformerConfig,
+                          device=None) -> T.Transformer:
+    """The reference's parameter tree (numpy arrays) -> the port's model on
+    ``device`` (None: the CUDA device, or a ``RuntimeError``).  The tree
+    must hold exactly the schema's leaves, at the schema's shapes."""
+    device = resolve_device(device)
+    sch = T.schema(cfg)
+    model = T.Transformer(cfg, _checked(tree, sch, device))
     n_params = sum(1 for _ in model.parameters())
     n_leaves = sum(cfg.n_layers if path.startswith("blocks.") else 1
-                   for path in want)
+                   for path, _ in leaves(sch))
     if n_params != n_leaves:
         raise ValueError(f"{n_params} parameters for {n_leaves} leaf slices")
+    return model
+
+
+def recsys_params_from_reference(tree: dict, cfg: RecsysConfig,
+                                 device=None) -> R.WideDeep:
+    """The reference's Wide & Deep parameter tree (numpy arrays) -> the
+    port's :class:`~repro_torch.models.recsys.WideDeep` on ``device``
+    (None: the CUDA device, or a ``RuntimeError``), with the checks of
+    :func:`params_from_reference`."""
+    device = resolve_device(device)
+    sch = R.schema(cfg)
+    model = R.WideDeep(cfg, _checked(tree, sch, device))
+    n_params = sum(1 for _ in model.parameters())
+    n_leaves = sum(1 for _ in leaves(sch))
+    if n_params != n_leaves:
+        raise ValueError(f"{n_params} parameters for {n_leaves} leaves")
     return model

@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.configs.base import KERNEL_BACKENDS
 from repro_torch.device import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -41,6 +42,18 @@ class ParamSpec:
         if len(self.shape) != len(self.logical_axes):
             raise ValueError(f"shape {self.shape} vs logical axes "
                              f"{self.logical_axes}")
+
+
+def use_kernel(kernel_backend: str, device) -> bool:
+    """Whether a model launches the hand-written kernels: ``"auto"`` on a
+    CUDA tensor, ``"cuda"`` always (a CPU tensor raises), ``"torch"``
+    never."""
+    if kernel_backend not in KERNEL_BACKENDS:
+        raise ValueError(f"kernel_backend={kernel_backend!r} must be one of "
+                         f"{KERNEL_BACKENDS}")
+    if kernel_backend == "cuda" and device.type != "cuda":
+        raise ValueError("kernel_backend='cuda' needs CUDA tensors")
+    return kernel_backend != "torch" and device.type == "cuda"
 
 
 def is_param_spec(x) -> bool:

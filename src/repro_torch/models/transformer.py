@@ -41,12 +41,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import KERNEL_BACKENDS, TransformerConfig
+from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.module import DTYPES, ParamSpec
+from repro_torch.models.module import use_kernel as _use_kernel
 
 # the leaves of a block cast to the compute dtype (the norms' scales are
 # read as they are, the reference's rms_norm widens them itself)
@@ -212,18 +213,6 @@ def _slice(blocks: dict, i: int) -> dict:
 # --------------------------------------------------------------------------
 # blocks
 # --------------------------------------------------------------------------
-
-def _use_kernel(kernel_backend: str, device) -> bool:
-    """Whether attention launches the hand-written kernel: ``"auto"`` on a
-    CUDA tensor, ``"cuda"`` always (a CPU tensor raises), ``"torch"``
-    never."""
-    if kernel_backend not in KERNEL_BACKENDS:
-        raise ValueError(f"kernel_backend={kernel_backend!r} must be one of "
-                         f"{KERNEL_BACKENDS}")
-    if kernel_backend == "cuda" and device.type != "cuda":
-        raise ValueError("kernel_backend='cuda' needs CUDA tensors")
-    return kernel_backend != "torch" and device.type == "cuda"
-
 
 def _norm(cfg, x, scale):
     if cfg.nonparametric_ln:

@@ -619,9 +619,151 @@ def test_embedding_bag_bf16_matches_plain(dev, rng, V, E, B, bag, combine):
         table, ids, combine=combine))
 
 
+_BAG_CASES = [(1, 1), (10, 512), (17, 333), (40, 70_000)]
+
+
+@pytest.mark.parametrize("E", [8, 16, 24, 32, 40, 64, 128, 300])
+@pytest.mark.parametrize("bag,B", _BAG_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+def test_embedding_bag_vector_equals_lane(dev, rng, E, bag, B, dtype,
+                                          combine):
+    """The vector route bit for bit against the lane route and the plain
+    version (the same adds in the same order), one launch a call, over
+    rows of 1-75 pieces (E = 300 in float32 walks its row 32 pieces at a
+    time), bags longer than the 8 row loads a lane issues at once, and
+    batches past one pass of the persistent grid.  Rows that are not a
+    whole number of 16-byte pieces take the lane route, and forcing the
+    vector route on them raises."""
+    V = 1000
+    table, ids = _on(dev, rng.normal(size=(V, E)).astype(np.float32),
+                     rng.integers(0, V, size=(B, bag)).astype(np.int32))
+    table = table.to(dtype)
+    plain = embedding_bag.embedding_bag_plain(table, ids, combine=combine)
+    n0 = K.launch_counts()["embedding_bag"]
+    lane = embedding_bag.embedding_bag(table, ids, combine=combine,
+                                       via="lane")
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] == n0 + 1
+    assert torch.equal(lane, plain)
+    if (E * table.element_size()) % 16:
+        assert embedding_bag.path(table, ids) == "lane"
+        with pytest.raises(ValueError, match="16 bytes"):
+            embedding_bag.embedding_bag(table, ids, via="vector")
+        return
+    assert embedding_bag.path(table, ids) == "vector"
+    vec = embedding_bag.embedding_bag(table, ids, combine=combine,
+                                      via="vector")
+    auto = ops.embedding_bag(table, ids, combine=combine)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] == n0 + 3
+    assert vec.dtype == dtype and vec.shape == (B, E)
+    assert torch.equal(vec, lane) and torch.equal(auto, vec)
+    want = embedding_bag.embedding_bag_plain(table.float(), ids,
+                                             combine=combine)
+    scale = table.float().abs()[ids.long()].sum(1) / (
+        bag if combine == "mean" else 1)
+    tol = 1e-6 * scale + (2.0 ** -8 * want.abs()
+                          if dtype == torch.bfloat16 else 0.0)
+    assert ((vec.float() - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("via", ["vector", "lane"])
+def test_embedding_bag_clamps_ids_outside_the_table(dev, rng, dtype, via):
+    """Ids below 0 read row 0 and ids at or past V row V - 1, on both
+    routes, as the plain version clamps them."""
+    V, E, B, bag = 300, 32, 1000, 10
+    table, ids = _on(dev, rng.normal(size=(V, E)).astype(np.float32),
+                     rng.integers(-50, V + 50, size=(B, bag)).astype(
+                         np.int32))
+    table = table.to(dtype)
+    ids[0] = torch.tensor([-2 ** 31, 2 ** 31 - 1, V, -1, 0, V - 1, 5, 6, 7,
+                           8], dtype=torch.int32)
+    out = embedding_bag.embedding_bag(table, ids, via=via)
+    assert torch.equal(out, embedding_bag.embedding_bag_plain(table, ids))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_unaligned_table_takes_the_lane_route(dev, rng,
+                                                            dtype):
+    """A table one element off its allocation is not 16-byte aligned: it
+    takes the lane route, one launch, and the vector route refuses it."""
+    V, E, B, bag = 500, 32, 700, 10
+    base = torch.from_numpy(rng.normal(size=V * E + 1).astype(
+        np.float32)).to(dev).to(dtype)
+    table = base[1:].view(V, E)
+    ids = _on(dev, rng.integers(0, V, size=(B, bag)).astype(np.int32))[0]
+    assert table.is_contiguous() and table.data_ptr() % 16
+    assert embedding_bag.path(table, ids) == "lane"
+    assert embedding_bag.path(table.clone(), ids) == "vector"
+    n0 = K.launch_counts()["embedding_bag"]
+    out = embedding_bag.embedding_bag(table, ids)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] == n0 + 1
+    assert torch.equal(out, embedding_bag.embedding_bag_plain(table, ids))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        embedding_bag.embedding_bag(table, ids, via="vector")
+
+
+@pytest.mark.parametrize("E,dtype,route", [
+    (32, torch.float32, "vector"), (4, torch.float32, "vector"),
+    (30, torch.float32, "lane"), (300, torch.float32, "vector"),
+    (8, torch.bfloat16, "vector"), (12, torch.bfloat16, "lane"),
+    (300, torch.bfloat16, "lane"), (32, torch.bfloat16, "vector")])
+def test_embedding_bag_path_names_the_route(dev, E, dtype, route):
+    table = torch.zeros((10, E), dtype=dtype, device=dev)
+    ids = torch.zeros((3, 2), dtype=torch.int32, device=dev)
+    assert embedding_bag.path(table, ids) == route
+    with pytest.raises(ValueError, match="via"):
+        embedding_bag.embedding_bag(table, ids, via="warp")
+
+
+@pytest.mark.parametrize("full_width", [False, True])
+def test_wide_deep_kernel_path_matches_plain(dev, full_width):
+    """Wide & Deep's serve step on the card: the reduced config, and the
+    full config's widths (40 fields of 32, 4 bag fields of 10, the
+    1024-512-256 MLP) over vocabularies of 5,000 rows.  The kernel path
+    launches embedding_bag once a bag field a step and its probabilities
+    equal the plain path's (kernel_backend="torch", the kernel's plain
+    version: the same adds); retrieval_step's ids too."""
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.models import recsys as R
+    from repro_torch.models.module import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("wide-deep")
+    if full_width:
+        cfg = dataclasses.replace(get_arch("wide-deep"),
+                                  vocab_sizes=(5000,) * 40)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = R.WideDeep(cfg, init_params(R.schema(cfg), gen, dev))
+    batch = R.batch_to(next(CTRStream(cfg, 2048, seed=0)), dev)
+    n0 = K.launch_counts()["embedding_bag"]
+    kern = R.serve_step(model, cfg, batch)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] - n0 == len(
+        cfg.multi_hot_fields)
+    plain = R.serve_step(model, cfg, batch, kernel_backend="torch")
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] - n0 == len(
+        cfg.multi_hot_fields)
+    assert bool(torch.isfinite(kern).all())
+    assert float((kern - plain).abs().max()) <= 1e-6
+    one = {k: v[:1] for k, v in batch.items()}
+    items = torch.randn((50_000, R.RETRIEVAL_DIM), generator=gen, device=dev)
+    ids_k, top_k = R.retrieval_step(model, cfg, dict(one, item_vectors=items))
+    ids_p, top_p = R.retrieval_step(model, cfg, dict(one, item_vectors=items),
+                                    kernel_backend="torch")
+    assert torch.equal(top_k, top_p) and torch.equal(ids_k, ids_p)
+
+
 def test_embedding_bag_bodies_fit_without_spills(dev):
-    """The card's own count for embedding_bag.cu's two bodies: no spill
-    to local memory, at most 255 registers."""
+    """The card's own count for embedding_bag.cu's bodies (the lane and
+    every vector body): no spill to local memory, at most 255
+    registers."""
     attrs = embedding_bag.body_attributes()
     assert list(attrs) == embedding_bag.BODIES
     for name, (regs, local) in attrs.items():

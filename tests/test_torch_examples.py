@@ -1,7 +1,8 @@
-"""The port's five ANN examples (``examples/torch/``) on the CPU, each a
-subprocess at a small size with ``--device cpu`` and torch on one thread:
-each exits 0 with its final OK line.  The five start together (a module
-fixture) and each test reads its own run.
+"""The port's six examples (``examples/torch/``: five ANN drivers and the
+Wide & Deep retrieval) on the CPU, each a subprocess at a small size with
+``--device cpu`` and torch on one thread: each exits 0 with its final OK
+line.  The six start together (a module fixture) and each test reads its
+own run.
 """
 import os
 import subprocess
@@ -16,6 +17,7 @@ EXAMPLES = {
     "streaming_ingest": ("REPRO_STREAMING_N", "streaming_ingest OK"),
     "distributed_search": ("REPRO_DISTRIBUTED_N", "distributed_search OK"),
     "pod_serving": ("REPRO_POD_N", "pod serving demo OK"),
+    "recsys_retrieval": ("REPRO_RECSYS_N", "recsys_retrieval OK"),
 }
 SIZE = {"distributed_search": "2048"}    # a multiple of the grid's 4 shards
 TIMEOUT = 300
