@@ -178,6 +178,28 @@ Phases, each printing its own lines:
    time, the step's bound and the peak memory; ``retrieval_step`` over
    10^6 item vectors (the top-100 equal to the plain path's) and its
    median (``[recsys]`` lines).
+16. the graph family (``models/gnn.py``, ``models/mace.py``), with the
+   recsys state released and every counter at 0, weights from
+   ``init_params`` with a seeded generator on the card and every
+   zero-init leaf drawn too: (a) ``graphsage_reddit`` at ``minibatch_lg``'s
+   full size: the host graph ``make_community_graph`` (232,965 nodes,
+   114,615,892 edges, d_feat 602, 41 classes), ``SampledStream`` (1,024
+   seeds, fanout (15, 10), seed 0) drawing 3 batches of N = 169,984 with
+   their [N, 15] neighbour matrix; each forward on the kernel path
+   (``packed_spmm`` twice, once a layer, by the counter; its repeat bit
+   for bit) and on ``kernel_backend="torch"`` (within 1e-5 of the largest
+   |logit|); batch 0 also against the float64 run of the edge list on the
+   CPU (``err_card <= 2 * err_cpu32 + 4e-6 * scale``), which a planted
+   ``combine="sum"`` must fail; ``packed_spmm`` alone at the path's two
+   call shapes against its plain version (the SpMM contract); the
+   sampling ms, the copy to the card, the median of 20 forwards (CUDA
+   events), a traced forward's device time and ``packed_spmm``'s share,
+   the bound and the peak memory; (b) ``gin_tu`` and ``gatedgcn`` at
+   ``molecule`` and the three GNNs at ``full_graph_sm`` (the edge list),
+   each against the float64 run; (c) ``mace`` at ``molecule``: the
+   float64 gate, a proper rotation and a translation on the card within
+   1e-5 of the largest |energy|, the median forward and the peak memory
+   (``[gnn]`` lines).
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
@@ -188,8 +210,8 @@ of the six ANN kernel bodies must have launched in them, and again in
 phase 11's packed path, phase 12's sharded one (with the bf16 body) and
 phase 13's pod.  Phase 9's path must launch each of its five, attention
 and SpMM exactly as often as their routes launch kernels, phase 14's
-flash_attention as its bodies launch, and phase 15's embedding_bag once
-a bag field a step.
+flash_attention as its bodies launch, phase 15's embedding_bag once
+a bag field a step, and phase 16's packed_spmm once a GraphSAGE layer.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -897,7 +919,8 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
     transform route's projection is timed beside ``torch.matmul`` (TF32
     off), and its gather alone.  ``bound_ms`` is the function's (its
     inputs read once, its operations at the rate of the route's product:
-    TF32 tensor cores for "transform", fp32 for "fused").  Each route's
+    TF32 tensor cores for "transform", fp32 for "fused"; the rows with
+    no valid lane, whose output is 0, cost no operations).  Each route's
     floor and HBM-traffic estimate come from ``segment_matmul.route_costs``
     over the valid lanes: the floor reads each distinct row of feat or Y
     once, the estimate every valid lane's row from HBM (no L2 hits), which
@@ -959,9 +982,11 @@ def check_spmm(name, nbrs, feat, w, combine="mean"):
     valid = nbrs < Nf
     n_valid = int(valid.sum())
     rows = int(torch.unique(nbrs[valid]).numel())
+    filled = int(valid.any(1).sum())   # a row with no lane is 0: no work
     nbytes = (N * M * 4 + rows * d * el + d * f * w.element_size()
               + N * f * el)
-    flops = 2 * N * d * f + n_valid * d + (N * d if combine == "mean" else 0)
+    flops = 2 * filled * d * f + n_valid * d \
+        + (filled * d if combine == "mean" else 0)
     if route == "transform":   # the product on tensor cores in 3xTF32
         bounds = tensor_bounds(nbytes, flops, 2 * Nf * d * f, False)
     else:
@@ -3722,6 +3747,438 @@ def recsys_phase(dev) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# phase 16: the graph family (models/gnn.py, models/mace.py)
+# --------------------------------------------------------------------------
+
+# GNN_SHAPES minibatch_lg (Reddit): the host graph's edges, its classes
+# (GNN_N_CLASSES), the sampler's seeds and fanout (the reference's step
+# samples with the shape's fanout, not the config's sample_sizes)
+GNN_EDGES, GNN_CLASSES = 114_615_892, 41
+GNN_BATCH_NODES, GNN_FANOUTS = 1024, (15, 10)
+GNN_BATCHES = 3               # sampled batches driven through the model
+GNN_REPEATS = 20              # forwards a median
+# the float64 gates: err_card <= 2 * err_cpu32 + GNN_EPS * scale, scale
+# the largest |output| of the float64 run
+GNN_EPS = 4e-6
+GNN_PLAIN_TOL = 1e-5          # kernel path against the card's plain path
+MACE_ROTATION_TOL = 1e-5      # |E(x Q^T + t) - E(x)| <= tol * max |E(x)|
+SPMM_KERNELS = ("spmm_kernel", "project_kernel", "gather_kernel")
+
+
+def init_all(schema, gen, dev):
+    """``init_params`` on the card from ``gen``, then every zero-init leaf
+    (biases, LN scales, GIN's eps, MACE's readout head) drawn at std 0.1,
+    so that each leaf moves the output the gates read."""
+    import torch
+
+    from repro_torch.models.module import init_params, leaves, std
+
+    tree = init_params(schema, gen, dev)
+    for path, spec in leaves(schema):
+        node = tree
+        *parents, name = path.split(".")
+        for key in parents:
+            node = node[key]
+        if std(spec) == 0:
+            node[name] = 0.1 * torch.randn(spec.shape, generator=gen,
+                                           device=dev)
+    return tree
+
+
+def moved(tree, device, float_dtype=None):
+    """A copy of a nested dict of tensors on ``device``, its floating
+    tensors in ``float_dtype`` (if given)."""
+    if isinstance(tree, dict):
+        return {k: moved(v, device, float_dtype) for k, v in tree.items()}
+    t = tree.detach().to(device)
+    if float_dtype is not None and t.is_floating_point():
+        t = t.to(float_dtype)
+    return t
+
+
+def gate64(card, cpu32, ref64) -> dict:
+    """The float64 gate: the card's output no further from the float64 run
+    on the CPU than twice the CPU's float32 run, plus GNN_EPS times the
+    float64 run's largest |output|."""
+    import torch
+
+    scale = float(ref64.abs().max())
+    err = float((card.cpu().double() - ref64).abs().max())
+    err32 = float((cpu32.double() - ref64).abs().max())
+    limit = 2 * err32 + GNN_EPS * scale
+    return dict(err_card=err, err_cpu32=err32, scale=scale, limit=limit,
+                ok=bool(torch.isfinite(card).all()) and err <= limit)
+
+
+def gate_text(g: dict) -> str:
+    return (f"max |card - float64| {g['err_card']:.3g} (CPU float32 "
+            f"{g['err_cpu32']:.3g}; limit 2 x that + {GNN_EPS:g} x scale "
+            f"{g['scale']:.4g} = {g['limit']:.3g}): "
+            + ("ok" if g["ok"] else "FAILED"))
+
+
+def cpu_runs(make, tree, batch: dict):
+    """The model ``make(tree)`` on the CPU in float32 and in float64 (TF32
+    plays no part there) on ``batch`` (tensors on the CPU): (float32
+    output, float64 output).  The float64 run drops ``"neighbors"``: the
+    packed_spmm route aggregates in float32, the edge list in the
+    batch's dtype."""
+    import torch
+
+    cpu = torch.device("cpu")
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items() if k != "neighbors"}
+    return (make(moved(tree, cpu))(batch),
+            make(moved(tree, cpu, torch.float64))(b64))
+
+
+def sage_bounds(cfg, batch: dict, n_classes: int) -> dict:
+    """The least ms of a GraphSAGE forward on this batch: its inputs (the
+    features, the neighbour matrix, the weights) read once and the logits
+    written once at 3.35 TB/s, and its products at the fp32 rate: the
+    encoder, each layer's self product over every node and neighbour
+    product over the rows with a child (the others are 0), the lanes'
+    adds, the decoder; the larger of the two."""
+    import numpy as np
+
+    N, F = batch["node_feat"].shape
+    nbrs = batch["neighbors"]
+    d, L = cfg.d_hidden, cfg.n_layers
+    lanes = int((nbrs < N).sum())
+    rows = int((nbrs < N).any(1).sum())
+    weights = F * d + d + L * (2 * d * d + d) + d * n_classes + n_classes
+    nbytes = batch["node_feat"].nbytes + nbrs.nbytes + 4 * weights \
+        + 4 * N * n_classes
+    flops = 2 * N * F * d + L * (2 * N * d * d + 2 * rows * d * d
+                                 + lanes * d) + 2 * N * d * n_classes
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / FP32_OPS_PER_S * 1e3
+    return dict(bytes=int(nbytes), flops=int(flops), rows_with_children=rows,
+                lanes=lanes, bytes_ms=t_b, ops_ms=t_o, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                mean_lanes=float(np.mean(nbrs < N)))
+
+
+def layer_inputs(model, cfg, batch) -> list:
+    """(neighbors, h, w_nbr) of each ``packed_spmm`` call of one forward,
+    read as the forward makes them (its launches recorded, not
+    counted)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import gnn as G
+
+    calls = []
+    real = G._sm.packed_spmm
+
+    def spy(nbrs, h, w, **kw):
+        calls.append((nbrs, h, w))
+        return real(nbrs, h, w, **kw)
+
+    G._sm.packed_spmm = spy
+    try:
+        with _build.recording():
+            G.forward(model, cfg, batch)
+    finally:
+        G._sm.packed_spmm = real
+    return calls
+
+
+def sage_drill(dev, gen) -> tuple:
+    """(a): ``graphsage_reddit`` at ``minibatch_lg``, full size.  Returns
+    (results, packed_spmm's rows at the path's call shapes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import make_community_graph
+    from repro_torch.data.sampler import SampledStream
+    from repro_torch.kernels import _build
+    from repro_torch.models import gnn as G
+
+    cfg = get_arch("graphsage-reddit")
+    out: dict = {}
+    t0 = time.perf_counter()
+    graph = make_community_graph(GNN_NODES, GNN_EDGES, GNN_FEAT,
+                                 n_classes=GNN_CLASSES, seed=0)
+    out["graph_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = SampledStream(graph, GNN_BATCH_NODES, GNN_FANOUTS, seed=0)
+    out["csr_s"] = time.perf_counter() - t0
+    log(f"[gnn] (a) host graph make_community_graph({GNN_NODES} nodes, "
+        f"{GNN_EDGES} edges, d_feat {GNN_FEAT}, {GNN_CLASSES} classes): "
+        f"{out['graph_s']:.1f} s ({graph['node_feat'].nbytes / 1e6:.0f} MB "
+        f"of features, {(graph['edge_src'].nbytes + graph['edge_dst'].nbytes) / 1e6:.0f}"
+        f" MB of edges); the sampler's CSR {out['csr_s']:.1f} s")
+    schema = G.schema(cfg, GNN_FEAT, GNN_CLASSES)
+    tree = init_all(schema, gen, dev)
+    model = G.GNN(cfg, tree)
+    n_layers = cfg.n_layers
+    rows, spmm_rows = [], []
+    for j in range(GNN_BATCHES):
+        t0 = time.perf_counter()
+        host = next(stream)
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = G.batch_to(host, dev)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) * 1e3
+        N, M = batch["neighbors"].shape
+        n0 = K.launch_counts()["packed_spmm"]
+        logits = G.forward(model, cfg, batch)
+        torch.cuda.synchronize()
+        launched = K.launch_counts()["packed_spmm"] - n0
+        again = G.forward(model, cfg, batch)
+        torch.cuda.synchronize()
+        launched_again = K.launch_counts()["packed_spmm"] - n0 - launched
+        with _build.recording():
+            plain = G.forward(model, cfg, batch, kernel_backend="torch")
+        scale = float(plain.abs().max())
+        r = dict(batch=j, N=N, M=M, E=int(batch["edge_src"].shape[0]),
+                 sample_ms=sample_ms, h2d_ms=h2d_ms, launches=launched,
+                 bit_equal_repeat=bool(torch.equal(logits, again)),
+                 err_vs_plain=float((logits - plain).abs().max()),
+                 plain_scale=scale,
+                 shape_ok=tuple(logits.shape) == (N, GNN_CLASSES))
+        r["plain_ok"] = r["err_vs_plain"] <= GNN_PLAIN_TOL * scale
+        if j == 0:
+            out32, out64 = cpu_runs(lambda t: G.GNN(cfg, t), tree,
+                                    G.batch_to(host, "cpu"))
+            r["kernel_vs_float64"] = gate64(logits, out32, out64)
+            r["plain_vs_float64"] = gate64(plain, out32, out64)
+            with _build.recording():   # the planted fault: sum, not mean
+                wrong = G.forward(model, dataclasses.replace(
+                    cfg, aggregator="sum"), batch)
+            r["planted_sum"] = gate64(wrong, out32, out64)
+            del wrong, out32, out64
+            for i, (nbrs, h, w) in enumerate(layer_inputs(model, cfg,
+                                                          batch)):
+                name = (f"graphsage minibatch_lg layer {i}: N={N} M={M} "
+                        f"[{h.shape[0]}, {h.shape[1]}] @ [{w.shape[0]}, "
+                        f"{w.shape[1]}] mean")
+                with _build.recording():
+                    spmm_rows.append(check_spmm(name, nbrs, h, w))
+            r["bounds"] = sage_bounds(cfg, host, GNN_CLASSES)
+        rows.append(r)
+        del plain, again
+        log(f"[gnn] (a) graphsage_reddit minibatch_lg batch {j}: N={N} "
+            f"(M={M}), E={r['E']}; sampling {sample_ms:.1f} ms, host to "
+            f"device {h2d_ms:.1f} ms; packed_spmm launched {launched} "
+            f"times a forward (want {n_layers}), {launched_again} on the "
+            f"repeat; the repeat bit for bit: {r['bit_equal_repeat']}; "
+            f"max |kernel - plain path| {r['err_vs_plain']:.3g} (limit "
+            f"{GNN_PLAIN_TOL:g} x {scale:.4g})")
+        if j == 0:
+            log("[gnn] (a) batch 0, the CPU's float64 run of the edge list "
+                "as the reference: kernel path "
+                + gate_text(r["kernel_vs_float64"]) + "; plain path on the "
+                "card " + gate_text(r["plain_vs_float64"]))
+            log("[gnn] (a) planted fault, combine=\"sum\" in place of "
+                "\"mean\": " + gate_text(r["planted_sum"])
+                + (" -- the gate fails it, as it must"
+                   if not r["planted_sum"]["ok"] else ""))
+            for s in spmm_rows:
+                log_kernel("packed_spmm", s)
+        bad = [k for k, ok in (
+            ("launches", launched == n_layers
+             and launched_again == n_layers),
+            ("repeat", r["bit_equal_repeat"]), ("shape", r["shape_ok"]),
+            ("plain", r["plain_ok"]),
+            ("float64", j > 0 or (r["kernel_vs_float64"]["ok"]
+                                  and r["plain_vs_float64"]["ok"])),
+            ("planted", j > 0 or not r["planted_sum"]["ok"])) if not ok]
+        if bad:
+            raise AssertionError(f"[gnn] (a) batch {j} failed: {bad} {r}")
+        if j < GNN_BATCHES - 1:
+            del batch, logits
+    # timing on the last batch, resident on the card (launches recorded)
+    with _build.recording():
+        ms = event_median_ms(lambda: G.forward(model, cfg, batch),
+                             GNN_REPEATS)
+        plain_ms = event_median_ms(lambda: G.forward(
+            model, cfg, batch, kernel_backend="torch"), GNN_REPEATS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            G.forward(model, cfg, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    busy, top, per = device_time(prof, 6)
+    spmm_ms = kernel_us(per, SPMM_KERNELS) / 1e3
+    alone_ms = sum(s["device_ms"] for s in spmm_rows)
+    # without the kernel in the trace: the calls timed alone, over the
+    # traced device time, or over the median forward without a trace
+    share = (spmm_ms or alone_ms) / (busy / 1e3 if busy > 0 else ms)
+    b = rows[0]["bounds"]
+    out.update(batches=rows, ms=ms, plain_ms=plain_ms,
+               nodes_per_s=rows[-1]["N"] / ms * 1e3, traced_wall_ms=wall,
+               traced_busy_ms=busy / 1e3, spmm_traced_ms=spmm_ms,
+               spmm_alone_ms=alone_ms, spmm_share=share, top_ms=top,
+               **{f"bound_{k}": v for k, v in b.items()})
+    log(f"[gnn] (a) forward at minibatch_lg (N={rows[-1]['N']}), median of "
+        f"{GNN_REPEATS} {ms:.3f} ms ({out['nodes_per_s']:.0f} nodes/s; "
+        f"plain path {plain_ms:.3f} ms); bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {b['bytes'] / 1e6:.1f} MB at 3.35 TB/s = "
+        f"{b['bytes_ms']:.4f} ms; {b['flops'] / 1e9:.2f} GFLOP at 67 "
+        f"TFLOP/s = {b['ops_ms']:.4f} ms; {b['rows_with_children']} rows "
+        f"with a child, {b['lanes']} lanes); traced: wall {wall:.3f} ms, "
+        f"device {busy / 1e3:.3f} ms, packed_spmm {spmm_ms:.4f} ms "
+        + (f"({share:.1%} of the device time)" if spmm_ms > 0 else
+           f"(the {len(spmm_rows)} calls timed alone {alone_ms:.4f} ms: "
+           f"{share:.1%} of the "
+           + ("traced device time)" if busy > 0 else "median forward)"))
+        + "; costliest "
+        + "; ".join(f"{k[:50]} {t:.3f} ms" for k, t in top))
+    if spmm_ms <= 0:
+        log("[gnn] FINDING: the trace holds no packed_spmm kernel"
+            + ("" if busy > 0 else " and no device event")
+            + " though the counter saw its launches; the share above is "
+            "from the kernel timed alone")
+    del model, batch, logits, graph, stream
+    return out, spmm_rows
+
+
+def small_gnn_drills(dev, gen) -> dict:
+    """(b): ``gin_tu`` and ``gatedgcn`` at ``molecule`` (128 graphs of 30
+    nodes and 64 edges, d_feat 16, 8 classes, mean-pooled) and all three
+    GNNs at ``full_graph_sm`` (2,708 nodes, 10,556 edges, d_feat 1,433,
+    16 classes: the edge list), each against the float64 run on the CPU
+    (:func:`gate64`), with the median forward ms."""
+    import torch
+
+    from repro_torch.configs import GNN_N_CLASSES, GNN_SHAPES, get_arch
+    from repro_torch.data.graphs import (make_community_graph,
+                                         molecule_batch_for_gnn)
+    from repro_torch.models import gnn as G
+
+    mol, full = GNN_SHAPES["molecule"].dims, GNN_SHAPES["full_graph_sm"].dims
+    graphs = {
+        "molecule": molecule_batch_for_gnn(
+            mol["batch"], mol["n_nodes"], mol["n_edges"],
+            n_classes=GNN_N_CLASSES["molecule"], seed=0),
+        "full_graph_sm": make_community_graph(
+            full["n_nodes"], full["n_edges"], full["d_feat"],
+            n_classes=GNN_N_CLASSES["full_graph_sm"], seed=0)}
+    out = {}
+    for arch, shape in (("gin-tu", "molecule"), ("gatedgcn", "molecule"),
+                        ("gin-tu", "full_graph_sm"),
+                        ("gatedgcn", "full_graph_sm"),
+                        ("graphsage-reddit", "full_graph_sm")):
+        cfg = get_arch(arch)
+        host = graphs[shape]
+        d_feat, n_classes = host["node_feat"].shape[1], GNN_N_CLASSES[shape]
+        tree = init_all(G.schema(cfg, d_feat, n_classes), gen, dev)
+        model = G.GNN(cfg, tree)
+        batch = G.batch_to(host, dev)
+        logits = model(batch)
+        out32, out64 = cpu_runs(lambda t: G.GNN(cfg, t), tree,
+                                G.batch_to(host, "cpu"))
+        g = gate64(logits, out32, out64)
+        ms = event_median_ms(lambda: model(batch), GNN_REPEATS)
+        out[f"{arch} {shape}"] = r = dict(
+            gate=g, ms=ms, logits=list(logits.shape), layers=cfg.n_layers,
+            d_hidden=cfg.d_hidden)
+        log(f"[gnn] (b) {arch} ({cfg.n_layers} layers, d {cfg.d_hidden}) at "
+            f"{shape} (logits {r['logits']}): " + gate_text(g)
+            + f"; median of {GNN_REPEATS} forwards {ms:.3f} ms")
+        if not g["ok"]:
+            raise AssertionError(f"[gnn] (b) {arch} at {shape}: {g}")
+    return out
+
+
+def mace_drill(dev, gen) -> dict:
+    """(c): ``mace`` at ``molecule`` (128 molecules of 30 atoms, 64 edges
+    each: N = 3,840, E = 8,192), the energies against the float64 run on
+    the CPU (:func:`gate64`); a random proper rotation and a translation
+    on the card within MACE_ROTATION_TOL; the median forward ms and the
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.data.graphs import make_molecules
+    from repro_torch.models import mace as MC
+    from repro_torch.models.module import batch_to
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("mace")
+    dims = GNN_SHAPES["molecule"].dims
+    host = make_molecules(dims["batch"], dims["n_nodes"], dims["n_edges"],
+                          seed=0)
+    tree = init_all(MC.schema(cfg), gen, dev)
+    model = MC.MACE(cfg, tree)
+
+    batch = batch_to(host, dev)
+    energies = model(batch)
+    out32, out64 = cpu_runs(lambda t: MC.MACE(cfg, t), tree,
+                            batch_to(host, "cpu"))
+    g = gate64(energies, out32, out64)
+    Q, _ = np.linalg.qr(np.random.default_rng(16).normal(size=(3, 3)))
+    if np.linalg.det(Q) < 0:
+        Q[:, 0] *= -1
+    moved_pos = (host["positions"] @ Q.T + [10.0, -3.0, 7.0]).astype(
+        np.float32)
+    rotated = model(dict(batch, positions=torch.from_numpy(moved_pos).to(
+        dev)))
+    scale = float(energies.abs().max())
+    rot_err = float((rotated - energies).abs().max())
+    rot_ok = rot_err <= MACE_ROTATION_TOL * scale
+    ms = event_median_ms(lambda: model(batch), GNN_REPEATS)
+    out = dict(gate=g, rotation_err=rot_err, rotation_scale=scale,
+               rotation_ok=rot_ok, ms=ms, N=int(batch["positions"].shape[0]),
+               E=int(batch["edge_src"].shape[0]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[gnn] (c) mace (C {cfg.d_hidden}, l_max {cfg.l_max}, nu "
+        f"{cfg.correlation_order}, {cfg.n_rbf} rbf, {cfg.n_layers} layers) "
+        f"at molecule, N={out['N']} E={out['E']}: energies "
+        + gate_text(g) + f"; a proper rotation and a translation on the "
+        f"card move them by {rot_err:.3g} (limit {MACE_ROTATION_TOL:g} x "
+        f"{scale:.4g}): " + ("ok" if rot_ok else "FAILED")
+        + f"; median of {GNN_REPEATS} forwards {ms:.3f} ms; peak device "
+        f"memory {out['peak_gib']:.2f} GiB")
+    if not (g["ok"] and rot_ok):
+        raise AssertionError(f"[gnn] (c) mace failed: {out}")
+    return out
+
+
+def gnn_phase(dev) -> tuple:
+    """Phase 16, with the recsys state freed and every counter at 0: (a)
+    GraphSAGE at minibatch_lg's full size on ``packed_spmm``, (b) GIN and
+    GatedGCN at molecule and the three GNNs at full_graph_sm, (c) MACE at
+    molecule.  Returns (results, the phase's launch counts, packed_spmm's
+    rows at the path's call shapes)."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # the models are fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out, spmm_rows = sage_drill(dev, gen)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    out["small"] = small_gnn_drills(dev, gen)
+    out["mace"] = mace_drill(dev, gen)
+    torch.cuda.empty_cache()
+    launches = K.launch_counts()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[gnn] phase 16: {out['seconds']:.1f} s, peak device memory of "
+        f"(a) {out['peak_gib']:.2f} GiB")
+    log("[launches] phase 16 " + json.dumps(launches))
+    # two forwards a batch (and its repeat), one launch a layer of two
+    want = GNN_BATCHES * 2 * 2
+    if launches["packed_spmm"] != want:
+        raise AssertionError(f"packed_spmm launched {launches['packed_spmm']}"
+                             f" times on the GraphSAGE path, want {want}")
+    return out, launches, spmm_rows
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the device time goes, and the k-NN graph's quality
 # --------------------------------------------------------------------------
 
@@ -4218,6 +4675,13 @@ def main() -> int:
     record["recsys"], phase_launches["15"] = recsys_phase(dev)
     launches["embedding_bag"] += phase_launches["15"]["embedding_bag"]
 
+    # ---- phase 16: the graph family -----------------------------------------
+    log(f"[gnn] device memory before phase 16 (the recsys state released): "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    record["gnn"], phase_launches["16"], gnn_spmm = gnn_phase(dev)
+    launches["packed_spmm"] += phase_launches["16"]["packed_spmm"]
+    shapes["packed_spmm"] = gnn_spmm + shapes["packed_spmm"]
+
     # ---- summary -----------------------------------------------------------
     meta = {
         "gather_distances": ("src/repro_torch/kernels/csrc/l2dist.cu",
@@ -4250,7 +4714,7 @@ def main() -> int:
                           api_main["embedding_bag"]),
         "packed_spmm": ("src/repro_torch/kernels/csrc/segment_matmul.cu",
                         "src/repro/kernels/segment_matmul.py:51",
-                        api_main["packed_spmm"]),
+                        gnn_spmm[0]["shape"]),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:71",
                             api_main["flash_attention"]),

@@ -18,15 +18,19 @@ shard's database (``core/distributed.py``).  As in the reference, only
 the mesh path reads it: a single-device plane ignores it and searches the
 fp32 rows.
 
-``MoEConfig``, ``TransformerConfig``, ``LM_SHAPES``, ``RecsysConfig`` and
-``RECSYS_SHAPES`` are the reference's (``src/repro/configs/base.py``)
-field for field, ``n_params`` and ``n_active_params`` included.
+``MoEConfig``, ``TransformerConfig``, ``LM_SHAPES``, ``GNNConfig``,
+``GNN_SHAPES``, ``RecsysConfig`` and ``RECSYS_SHAPES`` are the
+reference's (``src/repro/configs/base.py``) field for field,
+``n_params`` and ``n_active_params`` included; ``GNN_N_CLASSES`` is the
+reference's class count of each graph shape
+(``src/repro/launch/steps.py``).
 ``remat``, ``scan_layers`` and ``unroll`` are kept for parity and have no
 effect in the port: it runs its layers eagerly, one after another, and
 serves without gradients.  The registry
 (``list_archs``/``get_arch``/``get_reduced``) lists the reference's archs
-and serves those the port has: the five language models, ``wide_deep``
-and ``tsdg_paper``; the others raise ``KeyError`` as not ported yet.
+and serves every one of them: the five language models, the four graph
+models (``gin_tu``, ``gatedgcn``, ``graphsage_reddit``, ``mace``),
+``wide_deep`` and ``tsdg_paper``.
 """
 from __future__ import annotations
 
@@ -50,6 +54,24 @@ LM_SHAPES = {
     "long_500k": ShapeSpec("long_500k", "decode",
                            dict(seq_len=524288, global_batch=1)),
 }
+
+GNN_SHAPES = {
+    "full_graph_sm": ShapeSpec("full_graph_sm", "train",
+                               dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
+    "minibatch_lg": ShapeSpec("minibatch_lg", "train",
+                              dict(n_nodes=232965, n_edges=114615892,
+                                   batch_nodes=1024, fanout=(15, 10),
+                                   d_feat=602)),
+    "ogb_products": ShapeSpec("ogb_products", "train",
+                              dict(n_nodes=2449029, n_edges=61859140,
+                                   d_feat=100)),
+    "molecule": ShapeSpec("molecule", "train",
+                          dict(n_nodes=30, n_edges=64, batch=128)),
+}
+
+# the classes of each graph shape's node or graph labels
+GNN_N_CLASSES = {"full_graph_sm": 16, "minibatch_lg": 41,
+                 "ogb_products": 47, "molecule": 8}
 
 RECSYS_SHAPES = {
     "train_batch": ShapeSpec("train_batch", "train", dict(batch=65536)),
@@ -243,6 +265,27 @@ class TransformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    kind: str                 # gin | gatedgcn | mace | graphsage
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"   # sum | mean | max | gated
+    learnable_eps: bool = False
+    sample_sizes: tuple = ()  # graphsage fanouts
+    # MACE extras
+    l_max: int = 2
+    correlation_order: int = 3
+    n_rbf: int = 8
+    r_cut: float = 5.0
+    n_species: int = 10
+    n_classes: int = 64
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    family: str = "gnn"
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     n_sparse: int = 40
@@ -262,27 +305,21 @@ class RecsysConfig:
 
 
 def shapes_for(cfg) -> dict:
-    """The shape specs of a config's family (the language models',
-    Wide & Deep's and the ANN index's are ported)."""
-    shapes = {"lm": LM_SHAPES, "recsys": RECSYS_SHAPES, "ann": ANN_SHAPES}
-    if cfg.family not in shapes:
-        raise KeyError(f"the {cfg.family!r} family's shapes are not ported "
-                       "yet")
-    return shapes[cfg.family]
+    """The shape specs of a config's family."""
+    return {"lm": LM_SHAPES, "gnn": GNN_SHAPES,
+            "recsys": RECSYS_SHAPES, "ann": ANN_SHAPES}[cfg.family]
 
 
 # --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
 
-# the reference's archs, in its order; the port has the modules of PORTED
+# the reference's archs, in its order
 _ARCH_MODULES = (
     "olmoe_1b_7b", "kimi_k2_1t_a32b", "starcoder2_7b", "gemma3_27b",
     "olmo_1b", "gin_tu", "gatedgcn", "mace", "graphsage_reddit",
     "wide_deep", "tsdg_paper",
 )
-PORTED = ("olmoe_1b_7b", "kimi_k2_1t_a32b", "starcoder2_7b", "gemma3_27b",
-          "olmo_1b", "wide_deep", "tsdg_paper")
 
 
 def list_archs() -> list:
@@ -300,9 +337,6 @@ def _arch_module(arch_id: str):
             if close else ""
         raise KeyError(
             f"unknown arch {arch_id!r}{hint}; known: {list_archs()}")
-    if mod_name not in PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; the port has "
-                       f"{[m.replace('_', '-') for m in PORTED]}")
     import importlib
 
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

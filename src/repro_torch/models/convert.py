@@ -9,15 +9,22 @@ each block's parameters are slices of the stacked leaves.  Every leaf of
 the reference maps to exactly one parameter of the port and no parameter
 is left unset; anything else raises.  :func:`recsys_params_from_reference`
 does the same for Wide & Deep (``src/repro/models/recsys.py``'s schema)
-into the port's :class:`~repro_torch.models.recsys.WideDeep`.
+into the port's :class:`~repro_torch.models.recsys.WideDeep`,
+:func:`gnn_params_from_reference` for GIN, GatedGCN and GraphSAGE
+(``src/repro/models/gnn.py``) into :class:`~repro_torch.models.gnn.GNN`
+and :func:`mace_params_from_reference` for MACE
+(``src/repro/models/mace.py``) into :class:`~repro_torch.models.mace.MACE`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import RecsysConfig, TransformerConfig
+from repro_torch.configs.base import (GNNConfig, RecsysConfig,
+                                      TransformerConfig)
 from repro_torch.device import resolve_device
+from repro_torch.models import gnn as G
+from repro_torch.models import mace as MC
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.models.module import leaves
@@ -76,17 +83,41 @@ def params_from_reference(tree: dict, cfg: TransformerConfig,
     return model
 
 
+def _tree_model(cls, cfg, tree: dict, sch: dict, device):
+    model = cls(cfg, _checked(tree, sch, device))
+    n_params = sum(1 for _ in model.parameters())
+    n_leaves = sum(1 for _ in leaves(sch))
+    if n_params != n_leaves:
+        raise ValueError(f"{n_params} parameters for {n_leaves} leaves")
+    return model
+
+
 def recsys_params_from_reference(tree: dict, cfg: RecsysConfig,
                                  device=None) -> R.WideDeep:
     """The reference's Wide & Deep parameter tree (numpy arrays) -> the
     port's :class:`~repro_torch.models.recsys.WideDeep` on ``device``
     (None: the CUDA device, or a ``RuntimeError``), with the checks of
     :func:`params_from_reference`."""
-    device = resolve_device(device)
-    sch = R.schema(cfg)
-    model = R.WideDeep(cfg, _checked(tree, sch, device))
-    n_params = sum(1 for _ in model.parameters())
-    n_leaves = sum(1 for _ in leaves(sch))
-    if n_params != n_leaves:
-        raise ValueError(f"{n_params} parameters for {n_leaves} leaves")
-    return model
+    return _tree_model(R.WideDeep, cfg, tree, R.schema(cfg),
+                       resolve_device(device))
+
+
+def gnn_params_from_reference(tree: dict, cfg: GNNConfig, d_feat: int,
+                              n_classes: int, device=None) -> G.GNN:
+    """The reference's GIN, GatedGCN or GraphSAGE parameter tree (numpy
+    arrays; ``schema(cfg, d_feat, n_classes)``) -> the port's
+    :class:`~repro_torch.models.gnn.GNN` on ``device`` (None: the CUDA
+    device, or a ``RuntimeError``), with the checks of
+    :func:`params_from_reference`."""
+    return _tree_model(G.GNN, cfg, tree, G.schema(cfg, d_feat, n_classes),
+                       resolve_device(device))
+
+
+def mace_params_from_reference(tree: dict, cfg: GNNConfig,
+                               device=None) -> MC.MACE:
+    """The reference's MACE parameter tree (numpy arrays) -> the port's
+    :class:`~repro_torch.models.mace.MACE` on ``device`` (None: the CUDA
+    device, or a ``RuntimeError``), with the checks of
+    :func:`params_from_reference`."""
+    return _tree_model(MC.MACE, cfg, tree, MC.schema(cfg),
+                       resolve_device(device))

@@ -21,6 +21,7 @@ import math
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import KERNEL_BACKENDS
 from repro_torch.device import resolve_device
@@ -54,6 +55,41 @@ def use_kernel(kernel_backend: str, device) -> bool:
     if kernel_backend == "cuda" and device.type != "cuda":
         raise ValueError("kernel_backend='cuda' needs CUDA tensors")
     return kernel_backend != "torch" and device.type == "cuda"
+
+
+class TreeModule(nn.Module):
+    """A nested dict of tensors as a module: each dict a submodule, each
+    tensor a parameter (no gradients) under its own key, so the module's
+    parameter names are the tree's dotted leaf paths.  :meth:`tree` gives
+    the nested dict back, holding the parameters themselves."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key in sorted(tree):
+            value = tree[key]
+            if isinstance(value, dict):
+                self.add_module(key, TreeModule(value))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(value, requires_grad=False))
+
+    def tree(self) -> dict:
+        out = {k: p for k, p in self.named_parameters(recurse=False)}
+        out.update((k, m.tree()) for k, m in self.named_children())
+        return out
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A batch of numpy arrays (a data stream's) as tensors on
+    ``device``."""
+    return {k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+def as_tree(params) -> dict:
+    """A model's parameters as a nested dict: a :class:`TreeModule`'s
+    :meth:`~TreeModule.tree`, or the dict itself."""
+    return params.tree() if isinstance(params, TreeModule) else params
 
 
 def is_param_spec(x) -> bool:

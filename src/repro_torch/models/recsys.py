@@ -34,7 +34,8 @@ from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels import embedding_bag as _eb
-from repro_torch.models.module import ParamSpec, use_kernel
+from repro_torch.models.module import (  # noqa: F401
+    ParamSpec, batch_to, use_kernel)
 
 RETRIEVAL_DIM = 64
 # the wide branch's multiplicative hash (Knuth's 2^32 / golden ratio)
@@ -99,13 +100,6 @@ def _get(params, name):
     """A leaf or group of the module or of a nested dict alike."""
     return params[name] if isinstance(params, dict) else getattr(params,
                                                                  name)
-
-
-def batch_to(batch: dict, device) -> dict:
-    """A batch of numpy arrays (``CTRStream``'s) as tensors on
-    ``device``."""
-    return {k: torch.as_tensor(np.asarray(v), device=device)
-            for k, v in batch.items()}
 
 
 # --------------------------------------------------------------------------

@@ -1466,3 +1466,106 @@ def test_pod_replay_equals_eager_on_the_card(served, mesh_parts, quant,
         np.testing.assert_array_equal(ids, g[0])
         np.testing.assert_array_equal(dists, g[1])
     assert pod.stats.compiles == 2 and pod.stats.bucket_hits == 2
+
+
+# ----------------------------------------------------------------------
+# the graph family: GraphSAGE's neighbour mean on packed_spmm
+# ----------------------------------------------------------------------
+
+def _sage(dev, full=False):
+    """GraphSAGE (reduced, or graphsage_reddit's widths) with every leaf
+    drawn from a seeded generator on the card (biases non-zero), and a
+    ``SampledStream`` batch (16 seeds, fanout (15, 10)) of a community
+    graph, on the card."""
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.data.graphs import make_community_graph
+    from repro_torch.data.sampler import SampledStream
+    from repro_torch.models import gnn as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = (get_arch if full else get_reduced)("graphsage-reddit")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = G.GNN(cfg, _init_all(G.schema(cfg, 24, 6), gen, dev))
+    graph = make_community_graph(3000, 30000, 24, n_classes=6, seed=1)
+    batch = G.batch_to(next(SampledStream(graph, 16, (15, 10), seed=2)),
+                       dev)
+    return cfg, model, batch
+
+
+def _init_all(sch, gen, dev):
+    """``init_params`` with every leaf, the zero-init ones too, drawn at
+    std 0.1 or the leaf's own."""
+    from repro_torch.models.module import init_params, leaves, std
+
+    tree = init_params(sch, gen, dev)
+    for path, spec in leaves(sch):
+        node = tree
+        *parents, name = path.split(".")
+        for key in parents:
+            node = node[key]
+        if std(spec) == 0:
+            node[name] = 0.1 * torch.randn(spec.shape, generator=gen,
+                                           device=dev)
+    return tree
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("aggregator", ["mean", "sum"])
+def test_graphsage_kernel_path_matches_plain(dev, full, aggregator):
+    """The kernel path launches ``packed_spmm`` once a layer ("fused" at
+    d = f) and its logits are within 1e-5 of the largest |logit| of the
+    plain path's (``kernel_backend="torch"``) and of the edge list's."""
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.models import gnn as G
+
+    cfg, model, batch = _sage(dev, full)
+    cfg = dataclasses.replace(cfg, aggregator=aggregator)
+    N, M = batch["neighbors"].shape
+    d = cfg.d_hidden
+    assert sm.path(N, M, N, d, d) == "fused"
+    n0 = K.launch_counts()["packed_spmm"]
+    out = G.forward(model, cfg, batch)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["packed_spmm"] - n0 == cfg.n_layers
+    plain = G.forward(model, cfg, batch, kernel_backend="torch")
+    edge = G.forward(model, cfg, {k: v for k, v in batch.items()
+                                  if k != "neighbors"})
+    assert K.launch_counts()["packed_spmm"] - n0 == cfg.n_layers
+    scale = float(plain.abs().max())
+    assert bool(torch.isfinite(out).all())
+    assert float((out - plain).abs().max()) <= 1e-5 * scale
+    assert float((out - edge).abs().max()) <= 1e-5 * scale
+
+
+def test_graphsage_kernel_route_repeats_bitwise(dev):
+    """Each output row owns its lanes (no atomics), so the kernel path
+    gives the same bits on every call."""
+    from repro_torch.models import gnn as G
+
+    cfg, model, batch = _sage(dev, True)
+    first = G.forward(model, cfg, batch)
+    for _ in range(3):
+        assert torch.equal(G.forward(model, cfg, batch), first)
+
+
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+def test_packed_spmm_sentinel_rows_give_zero(dev, combine):
+    """Rows whose lanes are all the sentinel (a sampled subgraph's last
+    layer) give exactly 0, the reference's s / max(cnt, 1), on both
+    routes."""
+    from repro_torch.data.sampler import fanout_neighbors
+
+    nbrs = torch.from_numpy(fanout_neighbors(16, (15, 10))).to(dev)
+    N = nbrs.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    h = torch.randn((N, 128), generator=gen, device=dev)
+    w = torch.randn((128, 128), generator=gen, device=dev)
+    empty = (nbrs == N).all(1)
+    assert int(empty.sum()) == N - 16 - 16 * 15
+    for via in segment_matmul.ROUTES:
+        out = segment_matmul.packed_spmm(nbrs, h, w, combine=combine,
+                                         via=via)
+        assert bool((out[empty] == 0).all()), via
+        assert bool((out[~empty] != 0).any()), via

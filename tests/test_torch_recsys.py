@@ -94,9 +94,16 @@ def test_configs_equal_reference():
 
 @pytest.mark.parametrize("arch", ["gin-tu", "gatedgcn", "mace",
                                   "graphsage-reddit"])
-def test_unported_archs_still_raise(arch):
-    with pytest.raises(KeyError, match="not ported yet"):
-        C.get_arch(arch)
+def test_graph_archs_resolve_to_the_reference(arch):
+    """The graph family, once unported, resolves to the reference's
+    configs and shapes."""
+    for getter in ("get_arch", "get_reduced"):
+        got = getattr(C, getter)(arch)
+        assert dataclasses.asdict(got) == dataclasses.asdict(
+            getattr(jbase, getter)(arch)), getter
+    assert {k: (s.kind, s.dims) for k, s in C.shapes_for(
+        C.get_arch(arch)).items()} == {k: (s.kind, s.dims) for k, s in
+                                       jbase.GNN_SHAPES.items()}
 
 
 @pytest.mark.parametrize("full", [False, True])
