@@ -200,6 +200,29 @@ Phases, each printing its own lines:
    float64 gate, a proper rotation and a translation on the card within
    1e-5 of the largest |energy|, the median forward and the peak memory
    (``[gnn]`` lines).
+17. LM training (``models/transformer.py`` ``loss_fn``, ``optim/``,
+   ``train/``), with phase 16's state released: (a) the hand-written
+   backward of attention (``flash_attention_bwd``) alone on unit-normal
+   inputs at OLMo-1B's layer [4, 2048, 16 x 128] causal (bf16 and
+   float32), gemma3-27b's local layer (32 q heads over 16, window 1,024)
+   and starcoder2-7b's G = 9, against the float64 autograd of
+   ``attention_ref``: each of dq, dk, dv within twice the float32 plain
+   version's largest error plus 2^-8 * |g| for a bf16 output; a planted
+   fault (dq without its scale) must fail that; its ms, bound, plain ms
+   and SDPA's backward; (b) ``olmo_1b`` at full width (16 layers, B = 4 x
+   2,048, bf16, remat, AdamW as the launcher sets it): the gradient
+   tree's and each token's loss's global relative error against the
+   float32 plain run within twice the bf16 plain path's (its launches
+   counted apart); 12 steps through ``Trainer.run`` (the mean loss of the
+   last 3 below the first), the median step by CUDA events, tokens/s, the
+   bound and the peak memory, with every counter at 0 just before them
+   and read just after (flash_attention and flash_attention_bwd 2L
+   launches a step each); a traced step in a fresh process (``tools/train_trace.py``):
+   the busy share and the two attention kernels' shares; (c) a
+   checkpoint round trip at full width cut to 2 layers (6 steps, save,
+   restore, 6 steps == 12 steps bit for bit), the launcher on
+   ``kimi-k2-1t-a32b --reduced`` and ``examples/torch/train_lm.py`` as
+   subprocesses (``[train]`` lines).
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
@@ -211,7 +234,10 @@ phase 11's packed path, phase 12's sharded one (with the bf16 body) and
 phase 13's pod.  Phase 9's path must launch each of its five, attention
 and SpMM exactly as often as their routes launch kernels, phase 14's
 flash_attention as its bodies launch, phase 15's embedding_bag once
-a bag field a step, and phase 16's packed_spmm once a GraphSAGE layer.
+a bag field a step, phase 16's packed_spmm once a GraphSAGE layer, and
+phase 17's flash_attention twice a layer a training step (the forward and
+remat's recomputation) and flash_attention_bwd twice a layer (its two
+passes).
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -4179,6 +4205,544 @@ def gnn_phase(dev) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# phase 17: LM training (models/transformer.py loss_fn, optim/, train/) on
+# flash_attention forward and its hand-written backward
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "olmo-1b"
+TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 12
+TRAIN_CKPT_LAYERS, TRAIN_CKPT_STEPS = 2, 6
+TRAIN_TIMEOUT = 300           # seconds a subprocess of the phase may take
+BWD_KERNELS = ("dq_kernel", "dkv_kernel")
+# the backward kernel alone, on unit-normal q, k, v and dout: (label, B,
+# S, H, KV, hd, window, dtypes, timed): the drill's layer; gemma3-27b's
+# local layer (32 q heads over 16 KV heads, window 1,024); starcoder2-7b's
+# G = 9 (36 over 4) under its 4,096 window
+BWD_CASES = (("olmo_1b layer", 4, 2048, 16, 16, 128, 0,
+              ("bfloat16", "float32"), True),
+             ("gemma3_27b local", 2, 2048, 32, 16, 128, 1024,
+              ("bfloat16",), False),
+             ("starcoder2_7b G=9", 1, 2048, 36, 4, 128, 4096,
+              ("bfloat16",), False))
+
+
+def bwd_over_tol(got, ref64, err_plain: float) -> float:
+    """The largest (|got - ref| - 2^-8 |ref| for a bf16 output) / (2
+    err_plain) over the elements: <= 1 is the backward's contract (twice
+    the float32 plain version's largest error against the float64
+    oracle, plus one rounding of a bf16 output)."""
+    import torch
+
+    excess = (got.double() - ref64).abs()
+    if got.dtype == torch.bfloat16:
+        excess = excess - 2.0 ** -8 * ref64.abs()
+    return float(excess.max()) / (2 * err_plain)
+
+
+def sdpa_bwd(q, k, v, dout, window):
+    """SDPA's backward on the same inputs, the yardstick (never called by
+    the port): a closure taking ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` (causal flag, or a boolean mask for
+    a window shorter than the sequence)."""
+    import torch
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        out = sdpa(qt.transpose(1, 2), kt.transpose(1, 2),
+                   vt.transpose(1, 2), window if window < q.shape[1] else 0,
+                   0)
+    do = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
+                                       retain_graph=True)
+
+
+def check_attention_bwd(label, B, S, H, KV, hd, window, dtype, timed, dev,
+                        gen) -> dict:
+    """(a): ``flash_attention_bwd`` on unit-normal inputs against the
+    float64 autograd of ``ref.attention_ref`` (the oracle) within
+    :func:`bwd_over_tol`, beside its plain version in float32; a planted
+    fault (dq without its 1/sqrt(hd) scale) must fail the same contract.
+    With ``timed``: the kernel's ms, the plain version's and SDPA's
+    backward's.  The launches are comparisons, recorded and not counted."""
+    import torch
+
+    from repro_torch.kernels import _build, flash_attention as FA, ref
+
+    dt = getattr(torch, dtype)
+    q, dout = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
+               for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    kw = dict(window=window)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    out64 = ref.attention_ref(*leaves, **kw)
+    ref64 = torch.autograd.grad(out64, leaves, dout.double())
+    del out64, leaves
+    plain = FA.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                         dout.float(), **kw)
+    err_plain = [float((p.double() - r).abs().max())
+                 for p, r in zip(plain, ref64)]
+    with _build.recording():
+        kern = FA.flash_attention_bwd(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    fault = (kern[0].float() * hd ** 0.5).to(dt)
+    ratios = [bwd_over_tol(g, r, e) for g, r, e in zip(kern, ref64,
+                                                        err_plain)]
+    fault_ratio = bwd_over_tol(fault, ref64[0], err_plain[0])
+    r = dict(shape=f"{label} [{B}, {S}, {H} over {KV} x {hd}] "
+             f"{'window ' + str(window) if window else 'causal'} {dtype}",
+             dtype=dtype, err_plain=err_plain, err_over_tol=ratios,
+             fault_err_over_tol=fault_ratio,
+             finite=all(bool(torch.isfinite(g).all()) for g in kern),
+             max_abs_err=max(float((g.float() - p).abs().max())
+                             for g, p in zip(kern, plain)))
+    del ref64, plain, kern, fault
+    torch.cuda.empty_cache()
+    pairs = visible_pairs(S, S, window, 0) * B * H
+    flops = 10 * hd * pairs
+    nbytes = (3 * B * S * H + 4 * B * S * KV) * hd * q.element_size()
+    bf16 = dt == torch.bfloat16
+    r["bound_ms"], r["bound_by"] = bound(
+        nbytes, flops, BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+    r["gflop"] = flops / 1e9
+    r["ms"] = r["plain_ms"] = r["library_ms"] = None
+    if timed:
+        with _build.recording():
+            r["ms"] = cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, dout,
+                                                             **kw), 3)
+        r["plain_ms"] = cuda_ms(lambda: FA.flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), dout.float(), **kw), 1)
+        r["library_ms"] = cuda_ms(sdpa_bwd(q, k, v, dout, window), 5)
+        torch.cuda.empty_cache()
+    return r
+
+
+def token_nll(params, cfg, tokens, backend: str):
+    """Each token's loss, logsumexp(logits) - the gold logit in float32,
+    from one forward without gradients (its launches recorded, not
+    counted)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad(), _build.recording():
+        logits, _ = T.train_forward(params, cfg, tokens[:, :-1],
+                                    kernel_backend=backend)
+        logits = logits.float()
+        gold = torch.gather(logits, -1, tokens[:, 1:, None].long())[..., 0]
+        return torch.logsumexp(logits, -1) - gold
+
+
+def train_bounds(cfg, B: int, S: int) -> dict:
+    """The least ms of a training step on the card: 8 operations a token
+    for each parameter of the checkpointed layers (forward, backward and
+    remat's second forward of the products), 6 for each of the head's V d
+    (outside the layers, so not recomputed), none for the embedding (a
+    gather), plus attention's 4 hd (forward, twice) and 10 hd (backward)
+    a visible pair, at 989 TFLOP/s bf16."""
+    from repro_torch.models import transformer as T
+
+    hd, H = cfg.resolved_head_dim, cfg.n_heads
+    pairs = sum(visible_pairs(S, S, int(w), 0)
+                for w in T.layer_windows(cfg)) * B * H
+    vd = cfg.vocab * cfg.d_model
+    layers = cfg.n_active_params() - vd * (1 if cfg.tie_embeddings else 2)
+    flops = (8 * layers + 6 * vd) * B * S + (2 * 4 + 10) * hd * pairs
+    return dict(step_tflop=flops / 1e12,
+                step_bound_ms=flops / BF16_OPS_PER_S * 1e3)
+
+
+def train_gate(cfg, params, batch) -> dict:
+    """(b)'s gate: the loss and the gradient tree at the same weights and
+    batch on the kernel path, on ``kernel_backend="torch"`` in bf16 and on
+    the float32 plain reference (TF32 off).  Errors against the reference:
+    the global relative error of the gradient tree, and of each token's
+    loss (the mean, one scalar, is reported beside it: a sum of signed
+    errors can cancel by chance).  Returns the errors and the kernel
+    run's launches."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.trainer import _grads_of
+
+    cfg32 = dc.replace(cfg, compute_dtype="float32")
+    toks = batch["tokens"]
+
+    def grads(c, backend):
+        g, m = _grads_of(lambda p, b: T.loss_fn(p, c, b,
+                                                kernel_backend=backend),
+                         params, batch)
+        return tree_leaves(g), float(m["loss"])
+
+    g32, l32 = grads(cfg32, "torch")
+    nll32 = token_nll(params, cfg32, toks, "torch")
+    norm = sum(float(x.double().square().sum()) for x in g32) ** 0.5
+    out = {"loss_ref": l32}
+    for name, c, backend in (("plain", cfg, "torch"), ("kernel", cfg,
+                                                        "auto")):
+        n0 = K.launch_counts()
+        g, loss = grads(c, backend)
+        torch.cuda.synchronize()
+        n1 = K.launch_counts()
+        out[f"launches_{name}"] = {k: n1[k] - n0[k] for k in n1}
+        out[f"grad_err_{name}"] = sum(
+            float((a.double() - b.double()).square().sum())
+            for a, b in zip(g, g32)) ** 0.5 / norm
+        out[f"finite_{name}"] = all(bool(torch.isfinite(x).all()) for x in g)
+        del g
+        nll = token_nll(params, c, toks, backend)
+        out[f"token_err_{name}"] = float((nll - nll32).norm() / nll32.norm())
+        out[f"loss_err_{name}"] = abs(loss - l32)
+        del nll
+    del g32, nll32
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_train_trace(dev):
+    """The traced step in a fresh process (``tools/train_trace.py``; the
+    smoke's late traces lose device events), started early: it imports
+    on the host, then waits for :func:`finish_train_trace` before it
+    touches the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    where = [] if dev.type == "cuda" else ["--device", "cpu"]
+    return subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "tools", "train_trace.py"),
+         "--wait", *where], env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_train_trace(p) -> dict:
+    """Let the traced step run; its output goes to
+    ``chiprun_out/smoke_train_trace.log``.  Returns its JSON line."""
+    try:
+        out, err = p.communicate("go\n", timeout=TRAIN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        raise
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "smoke_train_trace.log"), "w") as f:
+        f.write(out + err)
+    if p.returncode != 0:
+        raise AssertionError(f"[train] the traced step exited "
+                             f"{p.returncode}: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def start_train_drivers(tmp: str, dev) -> dict:
+    """(c)'s entry points, each a subprocess on the card (a CPU rehearsal
+    passes ``--device cpu``), started together: the launcher on
+    ``kimi-k2-1t-a32b --reduced`` (Adafactor) and
+    ``examples/torch/train_lm.py`` at a CI size."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    where = [] if dev.type == "cuda" else ["--device", "cpu"]
+    cmds = {
+        "launch.train": [sys.executable, "-m", "repro_torch.launch.train",
+                         "--arch", "kimi-k2-1t-a32b", "--reduced",
+                         "--steps", "3", "--batch", "4", "--seq", "64",
+                         "--ckpt-dir", os.path.join(tmp, "launch"), *where],
+        "train_lm": [sys.executable, os.path.join(HERE, "examples", "torch",
+                                                  "train_lm.py"),
+                     "--steps", "2", "--d-model", "64", "--layers", "2",
+                     "--seq", "64", "--batch", "8",
+                     "--ckpt", os.path.join(tmp, "example"), *where]}
+    runs = {"procs": {}, "threads": [], "out": {},
+            "started": time.perf_counter()}
+
+    def wait(name, p):
+        text = p.communicate()[0]
+        runs["out"][name] = (p.returncode, text,
+                             time.perf_counter() - runs["started"])
+
+    for name, cmd in cmds.items():
+        p = runs["procs"][name] = subprocess.Popen(
+            cmd, cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        t = threading.Thread(target=wait, args=(name, p), daemon=True)
+        t.start()
+        runs["threads"].append(t)
+    return runs
+
+
+def checkpoint_drill(dev, tmp: str) -> dict:
+    """(c): ``olmo_1b`` at full width cut to 2 layers, B = 4 x 2,048: 12
+    uninterrupted steps, against 6 steps, a save, a restore into a fresh
+    ``Trainer``'s state and 6 more; every parameter and optimizer leaf
+    bit for bit.  Save and load seconds (host clock, the files in the
+    page cache) and bytes."""
+    import dataclasses as dc
+    import itertools
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import OptimizerConfig
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = dc.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_CKPT_LAYERS)
+    n = TRAIN_CKPT_STEPS
+
+    def trainer(steps):
+        return Trainer(
+            schema=T.schema(cfg), loss_fn=lambda p, b: T.loss_fn(p, cfg, b),
+            opt_cfg=OptimizerConfig(lr=3e-4, warmup_steps=5,
+                                    total_steps=2 * n),
+            train_cfg=TrainConfig(steps=steps, log_every=0, ckpt_every=0),
+            device=dev)
+
+    def data(skip=0):
+        return itertools.islice(LMStream(cfg.vocab, TRAIN_SEQ, TRAIN_B,
+                                         seed=0), skip, None)
+
+    full, _ = trainer(2 * n).run(data())
+    full = [x.clone() for x in tree_leaves(full)]
+    torch.cuda.empty_cache()
+    half, _ = trainer(n).run(data())
+    d = os.path.join(tmp, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(half, n, d)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(d)
+    del half
+    torch.cuda.empty_cache()
+    tr = trainer(n)
+    t0 = time.perf_counter()
+    state, step = ckpt.restore(d, tr.init_state())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resumed, _ = tr.run(data(skip=n), state=state)
+    equal = step == n and all(
+        torch.equal(a, b) for a, b in zip(full, tree_leaves(resumed)))
+    del full, resumed, state
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, steps=2 * n, save_s=save_s,
+                load_s=load_s, bytes=nbytes, bitwise_equal=equal)
+
+
+def train_phase(dev) -> tuple:
+    """Phase 17, with phase 16's state released: (a) the backward kernel
+    alone at the drill's layer (bf16 and float32), gemma3-27b's local
+    layer and starcoder2-7b's G = 9 against the float64 oracle, and a
+    planted fault; (b) ``olmo_1b`` at full width (16 layers, B = 4 x
+    2,048, bf16, remat, AdamW as the launcher sets it; weights from
+    ``init_params`` with a seeded generator on the card): the gate over
+    the gradient tree and each token's loss against the float32 plain
+    run (its launches counted apart), then 12 steps through
+    ``Trainer.run`` (loss falling, median step by CUDA events, peak
+    memory) with every counter at 0 just before them and read just
+    after, then a traced step in a fresh process; (c) the 2-layer checkpoint round trip, the launcher and the
+    example.  Returns (results, the main path's launch counts, the
+    backward kernel's rows)."""
+    import itertools
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMStream
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import batch_to, param_bytes
+    from repro_torch.optim.api import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the float32 reference
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    # (a) the backward kernel alone
+    rows = []
+    for label, B, S, H, KV, hd, window, dtypes, timed in BWD_CASES:
+        for dtype in dtypes:
+            rows.append(check_attention_bwd(label, B, S, H, KV, hd, window,
+                                            dtype, timed, dev, gen))
+    for r in rows:
+        extra = ""
+        if r["ms"] is not None:
+            extra = (f"; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                     f"SDPA backward {r['library_ms']:.4f} ms")
+        log(f"[train] (a) flash_attention_bwd {r['shape']}: err/tol of dq, "
+            f"dk, dv " + ", ".join(f"{x:.3f}" for x in r["err_over_tol"])
+            + " (the float32 plain version's largest errors against the "
+            "float64 oracle " + ", ".join(f"{x:.3g}" for x in r["err_plain"])
+            + f"); planted fault (dq without its scale) {r['fault_err_over_tol']:.3g}"
+            + (" rejected" if r["fault_err_over_tol"] > 1 else " LET THROUGH")
+            + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['gflop']:.1f} GFLOP){extra}")
+    bad = [r["shape"] for r in rows
+           if not (max(r["err_over_tol"]) <= 1 and r["finite"])]
+    missed = [r["shape"] for r in rows if not r["fault_err_over_tol"] > 1]
+    if bad or missed:
+        raise AssertionError(f"[train] (a) backward kernel over its "
+                             f"contract: {bad}; planted fault let through: "
+                             f"{missed}")
+    out["bwd"] = rows
+    out["a_s"] = time.perf_counter() - t_phase
+
+    # (b) the full-width training step
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    opt_cfg = OptimizerConfig(
+        name="adafactor" if cfg.name.startswith("kimi") else "adamw",
+        lr=3e-4, warmup_steps=max(5, TRAIN_STEPS // 20),
+        total_steps=TRAIN_STEPS)
+    tr = Trainer(schema=T.schema(cfg),
+                 loss_fn=lambda p, b: T.loss_fn(p, cfg, b), opt_cfg=opt_cfg,
+                 train_cfg=TrainConfig(steps=TRAIN_STEPS, log_every=1,
+                                       ckpt_every=0), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.init_state()
+    stream = LMStream(cfg.vocab, TRAIN_SEQ, TRAIN_B, seed=0)
+    first = next(stream)
+    log(f"[train] (b) {TRAIN_ARCH}: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab}, {cfg.n_params() / 1e9:.3f} B parameters "
+        f"({param_bytes(T.schema(cfg)) / 1e9:.2f} GB fp32); B={TRAIN_B} x "
+        f"{TRAIN_SEQ} tokens (LMStream seed 0), compute "
+        f"{cfg.compute_dtype}, remat {cfg.remat}, {opt_cfg.name} lr "
+        f"{opt_cfg.lr} warmup {opt_cfg.warmup_steps}")
+    gate = train_gate(cfg, state["params"], batch_to(first, dev))
+    out["gate"] = gate
+    L = cfg.n_layers
+    losses, ev = [], []
+
+    def on_metrics(i, m):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+        losses.append(m["loss"])
+
+    tracer = start_train_trace(dev)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ev.append(start)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        tr.run(itertools.chain([first], stream), state=state,
+               on_metrics=on_metrics)
+        torch.cuda.synchronize()
+    except BaseException:
+        tracer.kill()
+        raise
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = [ev[j].elapsed_time(ev[j + 1]) for j in range(len(ev) - 1)]
+    del state, tr
+    torch.cuda.empty_cache()
+    median = statistics.median(step_ms[1:])
+    b = train_bounds(cfg, TRAIN_B, TRAIN_SEQ)
+    tail = sum(losses[-3:]) / 3
+    out.update(losses=losses, step_ms=step_ms, median_step_ms=median,
+               tokens_per_s=TRAIN_B * TRAIN_SEQ / median * 1e3, peak_gib=peak,
+               launches=launches, b_s=time.perf_counter() - t0, **b)
+    log(f"[train] (b) gate against the float32 plain run (TF32 off): "
+        f"gradient tree's global relative error kernel "
+        f"{gate['grad_err_kernel']:.4g}, bf16 plain {gate['grad_err_plain']:.4g}"
+        f" (limit 2x); each token's loss kernel {gate['token_err_kernel']:.4g}, "
+        f"plain {gate['token_err_plain']:.4g} (limit 2x); the mean loss "
+        f"{gate['loss_ref']:.6f}, off by {gate['loss_err_kernel']:.3g} / "
+        f"{gate['loss_err_plain']:.3g} (kernel / plain; reported)")
+    log(f"[train] (b) {TRAIN_STEPS} steps: loss " + " ".join(
+        f"{x:.4f}" for x in losses) + f"; mean of the last 3 {tail:.4f} "
+        f"against the first {losses[0]:.4f}")
+    log(f"[train] (b) step {median:.2f} ms (median of steps 2-{TRAIN_STEPS}"
+        f", CUDA events; first {step_ms[0]:.2f} ms), "
+        f"{out['tokens_per_s']:.0f} tokens/s; bound {b['step_bound_ms']:.2f}"
+        f" ms ({b['step_tflop']:.2f} TFLOP at 989 TFLOP/s); peak device "
+        f"memory {peak:.2f} GiB")
+    log(f"[launches] phase 17 (the {TRAIN_STEPS} steps) "
+        + json.dumps(launches))
+    want = TRAIN_STEPS * 2 * L
+    fails = []
+    if not (gate["finite_kernel"]
+            and gate["grad_err_kernel"] <= 2 * gate["grad_err_plain"]
+            and gate["token_err_kernel"] <= 2 * gate["token_err_plain"]):
+        fails.append(f"gate {gate}")
+    if gate["launches_kernel"]["flash_attention"] != 2 * L \
+            or gate["launches_kernel"]["flash_attention_bwd"] != 2 * L \
+            or any(gate["launches_plain"].values()):
+        fails.append(f"a step's launches {gate['launches_kernel']} (plain "
+                     f"{gate['launches_plain']}), want {2 * L} each")
+    if launches["flash_attention"] != want \
+            or launches["flash_attention_bwd"] != want:
+        fails.append(f"launches {launches}, want {want} of each")
+    if not tail < losses[0]:
+        fails.append(f"loss did not fall: {losses}")
+    if fails:
+        tracer.kill()
+        raise AssertionError("[train] (b) " + "; ".join(fails))
+
+    trace = finish_train_trace(tracer)
+    out["trace"] = trace
+    log(f"[train] (b) a traced step in a fresh process: wall "
+        f"{trace['wall_ms']:.2f} ms, device busy {trace['busy_ms']:.2f} ms "
+        f"({trace['busy_share']:.1%}); flash_attention (tile) "
+        f"{trace['flash_ms']:.2f} ms ({trace['flash_share']:.1%} of the "
+        f"device time), flash_attention_bwd {trace['bwd_ms']:.2f} ms "
+        f"({trace['bwd_share']:.1%}); costliest device ops: "
+        + "; ".join(f"{k[:60]} {t:.2f} ms" for k, t in trace["top"]))
+
+    # (c) checkpoint and the entry points
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = start_train_drivers(tmp, dev)
+        try:
+            rt = checkpoint_drill(dev, tmp)
+        finally:
+            for t in runs["threads"]:
+                t.join(timeout=TRAIN_TIMEOUT)
+            for p in runs["procs"].values():
+                if p.poll() is None:
+                    p.kill()
+    out["checkpoint"] = rt
+    out["drivers"] = {k: dict(rc=rc, s=s) for k, (rc, _, s) in
+                      runs["out"].items()}
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    for name, (rc, text, _) in runs["out"].items():
+        with open(os.path.join(out_dir, f"smoke_{name}.log"), "w") as f:
+            f.write(text)
+    out["c_s"] = time.perf_counter() - t0
+    log(f"[train] (c) checkpoint round trip, {rt['layers']} layers at full "
+        f"width: 6 steps, save ({rt['save_s']:.2f} s, {rt['bytes'] / 1e9:.2f}"
+        f" GB), restore into a fresh Trainer ({rt['load_s']:.2f} s), 6 steps"
+        + (" == 12 uninterrupted steps bit for bit" if rt["bitwise_equal"]
+           else " DIFFER from 12 uninterrupted steps"))
+    for name, (rc, text, s) in runs["out"].items():
+        last = [x for x in text.strip().splitlines() if x][-1:] or [""]
+        log(f"[train] (c) {name}: exit {rc} after {s:.1f} s; {last[0]}")
+    fails = [n for n in ("launch.train", "train_lm")
+             if runs["out"].get(n, (1,))[0] != 0]
+    if not rt["bitwise_equal"] or fails:
+        raise AssertionError(f"[train] (c) resume bit for bit "
+                             f"{rt['bitwise_equal']}; failed: {fails}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase 17: {out['seconds']:.1f} s ((a) {out['a_s']:.1f}, "
+        f"(b) {out['b_s']:.1f} + the trace, (c) {out['c_s']:.1f})")
+    return out, launches, rows
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the device time goes, and the k-NN graph's quality
 # --------------------------------------------------------------------------
 
@@ -4334,6 +4898,10 @@ def main() -> int:
     record["flash_attention_bodies"] = flash_attention.body_attributes()
     log("[build] flash_attention.cu kernels (registers, spilled bytes) a "
         "thread: " + json.dumps(record["flash_attention_bodies"]))
+    record["flash_attention_bwd_bodies"] = \
+        flash_attention.bwd_body_attributes()
+    log("[build] flash_attention_bwd.cu kernels (registers, spilled bytes) "
+        "a thread: " + json.dumps(record["flash_attention_bwd_bodies"]))
     record["l2dist_bodies"] = l2dist.body_attributes()
     log("[build] l2dist.cu self-query and int8 row kernels (registers, "
         "spilled bytes) a thread: " + json.dumps(record["l2dist_bodies"]))
@@ -4682,6 +5250,15 @@ def main() -> int:
     launches["packed_spmm"] += phase_launches["16"]["packed_spmm"]
     shapes["packed_spmm"] = gnn_spmm + shapes["packed_spmm"]
 
+    # ---- phase 17: LM training -----------------------------------------------
+    log(f"[train] device memory before phase 17 (the graph state released): "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    record["train"], phase_launches["17"], shapes["flash_attention_bwd"] = \
+        train_phase(dev)
+    launches["flash_attention"] += phase_launches["17"]["flash_attention"]
+    launches["flash_attention_bwd"] = \
+        phase_launches["17"]["flash_attention_bwd"]
+
     # ---- summary -----------------------------------------------------------
     meta = {
         "gather_distances": ("src/repro_torch/kernels/csrc/l2dist.cu",
@@ -4724,6 +5301,11 @@ def main() -> int:
         "packed_spmm_bf16": ("src/repro_torch/kernels/csrc/segment_matmul.cu",
                              "src/repro/kernels/segment_matmul.py:51",
                              api_main["packed_spmm_bf16"]),
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "no TPU kernel: the gradient of src/repro/models/layers.py:86 "
+            "(chunked_attention), which the reference takes by autodiff",
+            shapes["flash_attention_bwd"][0]["shape"]),
     }
     kernels = []
     for kname, (source, replaces, main_shape) in meta.items():

@@ -1,5 +1,7 @@
-"""Per-row symmetric int8 quantization for compressed residency (the
-reference's ``ann/quantize.py::quantize_rows`` / ``dequantize_rows``).
+"""Symmetric int8 quantization: per row for compressed residency (the
+reference's ``ann/quantize.py::quantize_rows`` / ``dequantize_rows``),
+and per tensor for gradient compression (its ``quantize`` /
+``dequantize``, which ``repro_torch.optim.compression`` uses).
 
 Each row of the database gets its own fp32 scale ``max|x| / 127`` and an
 int8 code vector; all-zero rows get scale 1.0 so they round-trip to exact
@@ -11,6 +13,20 @@ in-kernel and re-rank the survivors exactly against the fp32 rows.
 from __future__ import annotations
 
 import torch
+
+
+def quantize(x: torch.Tensor):
+    """Symmetric per-tensor int8 quantization -> (q, scale): scale =
+    max|x| / 127 + 1e-12 (a float32 scalar), q = round(x / scale) clipped
+    to [-127, 127], the reference's arithmetic."""
+    x32 = x.to(torch.float32)
+    scale = torch.max(torch.abs(x32)) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor):
+    return q.to(torch.float32) * scale
 
 
 def quantize_rows(X: torch.Tensor):

@@ -24,9 +24,10 @@ reference's (``src/repro/configs/base.py``) field for field,
 ``n_params`` and ``n_active_params`` included; ``GNN_N_CLASSES`` is the
 reference's class count of each graph shape
 (``src/repro/launch/steps.py``).
-``remat``, ``scan_layers`` and ``unroll`` are kept for parity and have no
-effect in the port: it runs its layers eagerly, one after another, and
-serves without gradients.  The registry
+``remat`` puts each layer of the port's training forward under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``;
+``scan_layers`` and ``unroll`` are kept for parity and have no effect in
+the port: it runs its layers eagerly, one after another.  The registry
 (``list_archs``/``get_arch``/``get_reduced``) lists the reference's archs
 and serves every one of them: the five language models, the four graph
 models (``gin_tu``, ``gatedgcn``, ``graphsage_reddit``, ``mace``),
@@ -226,8 +227,8 @@ class TransformerConfig:
     tie_embeddings: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # no effect in the port (eager layers, no gradients); kept for parity
-    remat: bool = True
+    remat: bool = True               # checkpoint each layer in training
+    # no effect in the port (eager layers); kept for parity
     scan_layers: bool = True
     unroll: bool = False
     family: str = "lm"

@@ -22,6 +22,18 @@ per planned chunk, then the combine) in plain PyTorch.
 q [B, Sq, H, hd], k and v [B, Skv, KV, hd], H = KV * G; query i sits at
 position ``q_offset + i`` and sees key j when ``j <= q_offset + i`` and,
 for ``window > 0``, ``j > q_offset + i - window``.
+
+The gradient.  On CUDA tensors that need one, :func:`flash_attention` is
+an autograd ``Function`` (under ``no_grad`` nothing is saved): its
+forward is the kernel above and saves q, k and v; its backward,
+:func:`flash_attention_bwd`, launches ``csrc/flash_attention_bwd.cu``
+(two passes: dq with each row's log-sum-exp and D, then dk and dv; the
+source's note gives the design and bounds).  It replaces no TPU kernel:
+the reference takes the plain attention's gradient by autodiff
+(``src/repro/models/layers.py:86``).  Its plain version,
+:func:`flash_attention_bwd_plain`, is the same arithmetic in PyTorch
+(log-sum-exp, O recomputed in float32, D, dS).  On CPU tensors
+:func:`flash_attention` is ``attention_ref``, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -54,6 +66,10 @@ BODIES = ([f"tile_{t}_hd{d}" for t in ("bf16", "f32") for d in HEAD_DIMS]
              for d in HEAD_DIMS for r in ("nq1", "nq2", "nq4", "nq8",
                                            "scalar")]
           + ["combine_bf16", "combine_f32"])
+# the gradient's compiled bodies, in the order of csrc/flash_attention_bwd.cu
+# repro_flash_bwd_attrs
+BWD_BODIES = [f"{p}_{t}_hd{d}" for p in ("dq", "dkv") for t in ("bf16", "f32")
+              for d in HEAD_DIMS]
 
 
 def check_shapes(q, k, v, *, window: int, q_offset: int) -> None:
@@ -177,13 +193,22 @@ def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
     """q [B, Sq, H, hd], k/v [B, Skv, KV, hd], all float32 or all bfloat16
     -> [B, Sq, H, hd] in q's dtype.  CPU tensors take
     :func:`repro_torch.kernels.ref.attention_ref`; CUDA tensors launch the
-    kernel along :func:`path`, each launch counted on ``flash_attention``.
+    kernel along :func:`path`, each launch counted on ``flash_attention``,
+    and where grad mode is on and q, k or v needs a gradient, through an
+    autograd ``Function`` whose backward is :func:`flash_attention_bwd`.
     ``via`` ("tile" or "split") and ``chunk`` (the split path's keys a
     chunk) override the plan, to hold a body to shapes it would not
     take."""
     check_shapes(q, k, v, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, window=window, q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, window, q_offset, via, chunk)
+    return _forward(q, k, v, window, q_offset, via, chunk)
+
+
+def _forward(q, k, v, window: int, q_offset: int, via, chunk):
+    """The kernel's launch on CUDA tensors (shapes already checked)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q: float32 or bfloat16, got {q.dtype}")
     dev = q.device
@@ -231,3 +256,129 @@ def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0,
     _build.check(err, "flash_attention combine")
     _build.count("flash_attention")
     return out
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel's forward, saving q, k and v; its backward launches
+    :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, q_offset, via, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.q_offset = window, q_offset
+        return _forward(q, k, v, window, q_offset, via, chunk)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout.contiguous(),
+                                         window=ctx.window,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, window: int = 0,
+                              q_offset: int = 0):
+    """The backward kernel's arithmetic in plain PyTorch (any device):
+    s = scale * q k^T over the visible keys, lse = m + log(sum exp(s - m)),
+    P = exp(s - lse), O = P V in float32, D = rowsum(dout * O),
+    dS = P (dout v^T - D); dq = scale dS k, dk = scale dS^T q (summed over
+    a KV head's G heads), dv = P^T dout.  Float64 inputs compute in
+    float64, others in float32.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    check_shapes(q, k, v, window=window, q_offset=q_offset)
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    scale = hd ** -0.5
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(ct).reshape(B, Sq, KV, G, hd)
+    dof = dout.to(ct).reshape(B, Sq, KV, G, hd)
+    kf, vf = k.to(ct), v.to(ct)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) * scale
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    lse = m + torch.log(torch.exp(s - m).sum(-1, keepdim=True))
+    p = torch.exp(s - lse)
+    o = torch.einsum("bkgqs,bskh->bkgqh", p, vf)
+    delta = (o * dof.permute(0, 2, 3, 1, 4)).sum(-1, keepdim=True)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The gradient's built library, its entry points typed once."""
+    lib = _build.library("flash_attention_bwd")
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.repro_flash_bwd_dq.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
+    lib.repro_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 8 + [f, i, p]
+    for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv):
+        fn.restype = i
+    return lib
+
+
+def bwd_body_attributes() -> dict:
+    """Registers and spilled (local) bytes a thread of each compiled body
+    of the gradient, as the card reports them: ``{"dq_bf16_hd32": (regs,
+    local), ..., "dkv_f32_hd256": ...}``."""
+    return _build.body_attributes("flash_attention_bwd",
+                                  "repro_flash_bwd_attrs", BWD_BODIES)
+
+
+def flash_attention_bwd(q, k, v, dout, *, window: int = 0,
+                        q_offset: int = 0):
+    """The gradient of :func:`flash_attention` with respect to q, k and v
+    for the output's gradient ``dout`` [B, Sq, H, hd] (q's dtype):
+    ``(dq, dk, dv)`` in the inputs' dtypes.  CPU tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernel's
+    two passes, each counted on ``flash_attention_bwd``."""
+    check_shapes(q, k, v, window=window, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, window=window,
+                                         q_offset=q_offset)
+    return _launch_bwd(q, k, v, dout, window, q_offset)
+
+
+def _launch_bwd(q, k, v, dout, window: int, q_offset: int):
+    """The two launches."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q: float32 or bfloat16, got {q.dtype}")
+    dev = q.device
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    check(q, "q", q.dtype, (B, Sq, H, hd), dev)
+    check(k, "k", q.dtype, (B, Skv, KV, hd), dev)
+    check(v, "v", q.dtype, (B, Skv, KV, hd), dev)
+    check(dout, "dout", q.dtype, (B, Sq, H, hd), dev)
+    if hd > MAX_HEAD_DIM or B > 65535 or H > 65535:
+        raise ValueError(f"hd={hd} (at most {MAX_HEAD_DIM}), B={B} and "
+                         f"H={H} (at most 65535 each) exceed the kernel")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=dev)
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = _build.stream_of(q)
+    ins = [_build.ptr(t) for t in (q, k, v, dout)]
+    lse, delta = _build.ptr(stats[0]), _build.ptr(stats[1])
+    shape = (B, Sq, Skv, H, KV, hd, window, q_offset)
+    lib = _bwd_lib()
+    err = lib.repro_flash_bwd_dq(*ins, _build.ptr(dq), lse, delta, *shape,
+                                 hd ** -0.5, bf16, stream)
+    _build.check(err, "flash_attention_bwd dq")
+    _build.count("flash_attention_bwd")
+    err = lib.repro_flash_bwd_dkv(*ins, lse, delta, _build.ptr(dk),
+                                  _build.ptr(dv), *shape, hd ** -0.5, bf16,
+                                  stream)
+    _build.check(err, "flash_attention_bwd dkv")
+    _build.count("flash_attention_bwd")
+    return dq, dk, dv

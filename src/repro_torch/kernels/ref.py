@@ -26,15 +26,16 @@ def topk_ref(dists, ids, k: int):
 
 
 def attention_ref(q, k, v, *, window: int = 0, q_offset: int = 0):
-    """Exact softmax attention (fp32), causal + optional window, GQA:
-    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] -> [B, Sq, H, hd] in q's
-    dtype."""
+    """Exact softmax attention (fp32; float64 inputs in float64), causal
+    + optional window, GQA: q [B, Sq, H, hd], k/v [B, Skv, KV, hd] ->
+    [B, Sq, H, hd] in q's dtype."""
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
     scale = hd ** -0.5
-    qf = q.to(torch.float32).reshape(B, Sq, KV, G, hd) * scale
-    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(torch.float32))
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(ct).reshape(B, Sq, KV, G, hd) * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(ct))
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     k_pos = torch.arange(Skv, device=q.device)
     mask = k_pos[None, :] <= q_pos[:, None]
@@ -42,7 +43,7 @@ def attention_ref(q, k, v, *, window: int = 0, q_offset: int = 0):
         mask &= k_pos[None, :] > (q_pos[:, None] - window)
     s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(ct))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 

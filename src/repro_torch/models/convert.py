@@ -14,6 +14,9 @@ into the port's :class:`~repro_torch.models.recsys.WideDeep`,
 (``src/repro/models/gnn.py``) into :class:`~repro_torch.models.gnn.GNN`
 and :func:`mace_params_from_reference` for MACE
 (``src/repro/models/mace.py``) into :class:`~repro_torch.models.mace.MACE`.
+:func:`opt_state_from_reference` carries an optimizer's state (AdamW's
+``m``, ``v``, ``count``; Adafactor's ``slots``, ``count``), so both
+packages can continue from the same state.
 """
 from __future__ import annotations
 
@@ -121,3 +124,24 @@ def mace_params_from_reference(tree: dict, cfg: GNNConfig,
     :func:`params_from_reference`."""
     return _tree_model(MC.MACE, cfg, tree, MC.schema(cfg),
                        resolve_device(device))
+
+
+def _tensors(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def opt_state_from_reference(state: dict, device=None) -> dict:
+    """The reference's optimizer state (numpy arrays: AdamW's ``{"m",
+    "v", "count"}`` or Adafactor's ``{"slots", "count"}``) -> the port's,
+    tensors on ``device`` (None: the CUDA device, or a ``RuntimeError``)
+    with the same bits, ``count`` an int32 scalar.  Any other layout
+    raises."""
+    device = resolve_device(device)
+    if set(state) not in ({"m", "v", "count"}, {"slots", "count"}):
+        raise ValueError(f"an AdamW or Adafactor state, got keys "
+                         f"{sorted(state)}")
+    out = _tensors(state, device)
+    out["count"] = out["count"].to(torch.int32).reshape(())
+    return out

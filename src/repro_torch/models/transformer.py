@@ -1,7 +1,7 @@
 """Decoder-only transformer covering the five language models: the port's
-copy of the reference's ``models/transformer.py`` (its serving path:
-``forward``, ``prefill``, ``decode_step``; ``loss_fn`` is training and is
-not ported yet).
+copy of the reference's ``models/transformer.py``: its serving path
+(``forward``, ``prefill``, ``decode_step``) and its training loss
+(``loss_fn`` over :func:`train_forward`).
 
 Features driven entirely by :class:`TransformerConfig`:
   * GQA attention + RoPE, optional QK-norm
@@ -13,26 +13,40 @@ Features driven entirely by :class:`TransformerConfig`:
   * non-parametric LN (olmo) vs RMSNorm
   * serving: prefill, then decode steps into uniform full per-layer KV
     caches (slot = pos % S_max, as the reference writes them)
+  * training: :func:`loss_fn` on the reference's parameter tree, each
+    layer under ``torch.utils.checkpoint`` when ``cfg.remat`` (the
+    reference's ``jax.checkpoint(nothing_saveable)``)
 
-The model is a :class:`Transformer` module whose parameter names are the
-reference's leaves (``embed``, ``blocks.<i>.wq`` ... ``blocks.<i>.mlp.w_up``,
-``final_ln``, ``lm_head``), one block a layer, in the reference's layouts
-(``wq`` [d, H, hd], ``wo`` [H, hd, d]).  The matmul weights are cast to the
-compute dtype once, at first use, and kept (:meth:`Transformer.weights`):
-the same bits as the reference's ``.astype(cdt)`` at every use.
+Serving: the model is a :class:`Transformer` module whose parameter names
+are the reference's leaves (``embed``, ``blocks.<i>.wq`` ...
+``blocks.<i>.mlp.w_up``, ``final_ln``, ``lm_head``), one block a layer, in
+the reference's layouts (``wq`` [d, H, hd], ``wo`` [H, hd, d]).  The
+matmul weights are cast to the compute dtype at first use and kept
+(:meth:`Transformer.weights`) until a parameter changes in place (an
+optimizer step on the tree the module views): the same bits as the
+reference's ``.astype(cdt)`` at every use.  ``forward``, ``prefill`` and
+``decode_step`` run without gradients.
+
+Training: :func:`train_forward` takes the tree itself, float32 stacked
+leaves ``blocks.*`` [L, ...] (the layout the optimizers update), unbinds
+each stacked leaf once, and casts each layer's slices to the compute
+dtype inside autograd at every step, as the reference's ``.astype(cdt)``
+does, so the gradients reach the float32 stacked leaves.
 
 Attention: on a CUDA tensor prefill and decode launch the hand-written
 kernel ``repro_torch.kernels.flash_attention`` (prefill with
 ``q_offset=0`` and the layer's window, its "tile" body; a decode step
 over the whole cache with ``q_offset=pos``, whose causal bound masks the
-empty slots, its "split" body).  On the CPU, or with
+empty slots, its "split" body); the training forward launches the tile
+body too, and its gradient the hand-written backward
+(``csrc/flash_attention_bwd.cu``).  On the CPU, or with
 ``kernel_backend="torch"`` on any device, they take the plain functions
 of :mod:`layers`, chosen as the reference chooses them: a window uniform
 across the layers takes ``windowed_chunked_attention``, other layers
 ``chunked_attention`` with the window as a mask, and a decode step
-``decode_attention``.  Nothing falls back: ``"cuda"`` on a CPU tensor
-raises.  The large products stay ``torch.einsum``, as the reference
-leaves them to XLA.
+``decode_attention``; autograd differentiates them.  Nothing falls back:
+``"cuda"`` on a CPU tensor raises.  The large products stay
+``torch.einsum``, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -40,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
@@ -177,28 +192,31 @@ class Transformer(nn.Module):
         """The parameters the layers compute with in ``dtype``: each
         block's matmul weights (and its MoE router) cast to ``dtype``, its
         norms' scales as they are; the embedding cast, and the head (the
-        embedding's transpose when tied).  Cast once, at first use, and
-        kept: a parameter already in ``dtype`` is used as it is."""
-        w = self._weights.get(dtype)
+        embedding's transpose when tied).  Cast at first use and kept
+        until a parameter changes in place (keyed on the parameters'
+        version counters, which an in-place update of the stacked leaves
+        they view moves too): a parameter already in ``dtype`` is used as
+        it is."""
+        version = tuple(p._version for p in self.parameters())
+        kept = self._weights.get(dtype)
+        w = kept[1] if kept is not None and kept[0] == version else None
         if w is None:
             embed = self.embed.detach().to(dtype)
             layers = []
             for blk in self.blocks:
-                p = {}
-                for name, t in blk.named_parameters(recurse=False):
-                    p[name] = t.detach().to(dtype) if name in _MATMUL \
-                        else t.detach()
+                p = {name: t.detach()
+                     for name, t in blk.named_parameters(recurse=False)}
                 for group in _GROUPS:
                     if hasattr(blk, group):
-                        p[group] = {k: v.detach().to(dtype)
+                        p[group] = {k: v.detach()
                                     for k, v in getattr(blk, group).items()}
-                layers.append(p)
+                layers.append(_cast_layer(p, dtype))
             head = embed.T if self.cfg.tie_embeddings \
                 else self.lm_head.detach().to(dtype)
             final_ln = getattr(self, "final_ln", None)
-            w = self._weights[dtype] = dict(
-                embed=embed, head=head, layers=layers,
-                final_ln=None if final_ln is None else final_ln.detach())
+            w = dict(embed=embed, head=head, layers=layers,
+                     final_ln=None if final_ln is None else final_ln.detach())
+            self._weights[dtype] = (version, w)
         return w
 
     def forward(self, tokens, **kw):
@@ -314,7 +332,7 @@ def block(cfg, p, x, *, window, positions, kernel_backend: str = "auto"):
 
 
 # --------------------------------------------------------------------------
-# forward (prefill)
+# forward (prefill; serving, without gradients)
 # --------------------------------------------------------------------------
 
 @torch.no_grad()
@@ -347,6 +365,94 @@ def forward(params: Transformer, cfg: TransformerConfig, tokens, *,
     if collect_cache:
         return logits, caches, moe_loss
     return logits, moe_loss
+
+
+# --------------------------------------------------------------------------
+# training: the differentiable forward and the loss
+# --------------------------------------------------------------------------
+
+def _layers_of(blocks: dict, n: int) -> list:
+    """The stacked block leaves [L, ...] as ``n`` per-layer dicts of views:
+    one ``unbind`` a leaf, whose backward stacks the layers' gradients
+    once."""
+    per = [{} for _ in range(n)]
+    for name, t in blocks.items():
+        if isinstance(t, dict):
+            for i, sub in enumerate(_layers_of(t, n)):
+                per[i][name] = sub
+        else:
+            for i, view in enumerate(torch.unbind(t, 0)):
+                per[i][name] = view
+    return per
+
+
+def _cast_layer(p: dict, cdt) -> dict:
+    """One layer's leaves as the layers compute with them (what
+    :meth:`Transformer.weights` keeps): the attention matrices and the
+    ``mlp``, ``moe`` and ``shared`` groups in ``cdt``, the norms' scales
+    as they are."""
+    return {name: ({k: v.to(cdt) for k, v in t.items()}
+                   if isinstance(t, dict)
+                   else t.to(cdt) if name in _MATMUL else t)
+            for name, t in p.items()}
+
+
+def train_forward(params: dict, cfg: TransformerConfig, tokens, *,
+                  kernel_backend: str = "auto"):
+    """tokens [B, S] -> (logits [B, S, V] in the compute dtype, the summed
+    MoE aux losses, a float32 scalar), differentiable with respect to the
+    leaves of ``params``, the reference's tree (``embed``, stacked
+    ``blocks`` [L, ...], ``final_ln``, ``lm_head``).  Each layer casts its
+    slices to the compute dtype inside autograd; with ``cfg.remat`` it
+    runs under ``torch.utils.checkpoint`` (nothing saved but its input;
+    recomputed in the backward)."""
+    cdt = DTYPES[cfg.compute_dtype]
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()].to(cdt)
+    positions = torch.arange(S, device=x.device)[None, :]
+    windows = layer_windows(cfg)
+    uniform_w = int(windows[0]) if len(set(windows.tolist())) == 1 else None
+    layers = _layers_of(params["blocks"], cfg.n_layers)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, p, window):
+        y, _, aux = block(cfg, _cast_layer(p, cdt), x, window=window,
+                          positions=positions, kernel_backend=kernel_backend)
+        return y, (aux.get("load_balance_loss", zero)
+                   + aux.get("router_z_loss", zero))
+
+    moe_loss = zero
+    for i in range(cfg.n_layers):
+        window = uniform_w if uniform_w is not None else windows[i]
+        if cfg.remat:
+            x, aux = checkpoint(body, x, layers[i], window,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = body(x, layers[i], window)
+        moe_loss = moe_loss + aux
+    x = _norm(cfg, x, params.get("final_ln"))
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.einsum("bsd,dv->bsv", x, head.to(cdt))
+    return logits, moe_loss
+
+
+def loss_fn(params: dict, cfg: TransformerConfig, batch, *,
+            kernel_backend: str = "auto"):
+    """The reference's next-token loss: ``batch["tokens"]`` [B, S + 1];
+    returns (loss, {"loss", "nll", "moe_loss", "acc"}), float32 scalars:
+    nll the mean of logsumexp(logits) - the gold logit in float32, loss
+    nll plus the MoE aux losses, acc the share of argmax hits."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
+    logits, moe_loss = train_forward(params, cfg, inputs,
+                                     kernel_backend=kernel_backend)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    loss = nll + moe_loss
+    acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+    return loss, {"loss": loss, "nll": nll, "moe_loss": moe_loss, "acc": acc}
 
 
 # --------------------------------------------------------------------------

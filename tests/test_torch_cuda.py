@@ -1047,6 +1047,152 @@ def test_flash_attention_rejects_mixed_types(dev):
 
 
 # ----------------------------------------------------------------------
+# flash_attention's gradient (csrc/flash_attention_bwd.cu)
+# ----------------------------------------------------------------------
+
+def _assert_grads_close(got, q, k, v, dout, window, q_offset):
+    """Each of dq, dk, dv within 1e-4 of its largest |g| in the plain
+    version on the widened inputs (float32 on the card: both sum over up
+    to thousands of keys, in other orders; a dropped mask or scale moves
+    the result by the order of the largest |g|), plus one rounding of the
+    output (2^-8 * |g|) in bfloat16."""
+    want = flash_attention.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), dout.float(), window=window,
+        q_offset=q_offset)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        tol = 1e-4 * w.abs().max()
+        if x.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -8 * w.abs()
+        assert ((g.float() - w).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,window,q_offset", [
+    (2, 130, 130, 4, 4, 32, 0, 0), (1, 100, 100, 6, 3, 64, 0, 0),
+    (1, 200, 200, 4, 2, 128, 48, 0), (1, 70, 100, 2, 1, 256, 40, 30),
+    (1, 64, 64, 2, 2, 33, 0, 0), (2, 1, 77, 4, 2, 64, 0, 76),
+    # Skv > Sq: with q_offset, and keys past every query (dk = dv = 0)
+    (1, 65, 300, 4, 4, 128, 0, 235), (1, 40, 200, 2, 2, 64, 0, 10),
+    # StarCoder2's G = 9 (36 heads over 4); under a window at an offset
+    (1, 150, 150, 36, 4, 128, 0, 0), (1, 90, 300, 18, 2, 128, 64, 210)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(dev, rng, B, Sq, Skv, H, KV, hd,
+                                           window, q_offset, dtype):
+    """The backward kernel over its edges: head widths 32-256 and one off
+    the padding, G 1-9, windows that skip whole tiles, ragged query and
+    key counts, Skv > Sq with q_offset; two launches (dq, then dk and
+    dv), each counted."""
+    q, k, v = _attention_case(dev, rng, B, Sq, Skv, H, KV, hd, dtype)
+    dout = torch.randn(q.shape, device=dev).to(dtype)
+    n0 = K.launch_counts()["flash_attention_bwd"]
+    got = flash_attention.flash_attention_bwd(q, k, v, dout, window=window,
+                                              q_offset=q_offset)
+    assert K.launch_counts()["flash_attention_bwd"] - n0 == 2
+    _assert_grads_close(got, q, k, v, dout, window, q_offset)
+    if q_offset + Sq < Skv:
+        assert not got[1][:, q_offset + Sq:].any()
+        assert not got[2][:, q_offset + Sq:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grad_through_autograd(dev, rng, dtype, monkeypatch):
+    """On CUDA tensors that need a gradient, ``flash_attention`` is the
+    autograd Function: one tile launch forward, the backward kernel's two
+    launches, never the plain version; a repeat is bit for bit (no
+    atomics); under no_grad nothing is saved."""
+    q, k, v = _attention_case(dev, rng, 2, 150, 150, 8, 2, 64, dtype)
+    dout = torch.randn(q.shape, device=dev).to(dtype)
+
+    def plain(*a, **kw):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain", plain)
+    monkeypatch.setattr(flash_attention._ref, "attention_ref", plain)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = K.launch_counts()
+        out = flash_attention.flash_attention(*leaves, window=40)
+        runs.append(torch.autograd.grad(out, leaves, dout))
+        n1 = K.launch_counts()
+        assert n1["flash_attention"] - n0["flash_attention"] == 1
+        assert n1["flash_attention_bwd"] - n0["flash_attention_bwd"] == 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    monkeypatch.undo()
+    _assert_grads_close(runs[0], q, k, v, dout, 40, 0)
+    with torch.no_grad():
+        out = flash_attention.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is None
+
+
+def test_flash_attention_bwd_bodies_fit(dev):
+    """The card's own count for every compiled body of
+    flash_attention_bwd.cu: at most 255 registers, no spill up to hd =
+    128 (the widest bodies keep two [2, 32] accumulators a thread)."""
+    attrs = flash_attention.bwd_body_attributes()
+    assert list(attrs) == flash_attention.BWD_BODIES
+    for name, (regs, local) in attrs.items():
+        assert regs <= 255, (name, regs)
+        if not name.endswith("hd256"):
+            assert local == 0, (name, local)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "starcoder2-7b", "gemma3-27b",
+                                  "olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_transformer_train_grads_kernel_path(dev, arch):
+    """A reduced-width model's gradient tree on the kernel path
+    (flash_attention's tile body forward and under remat again, the
+    backward kernel twice a layer) and each token's loss against the
+    float32 plain run (TF32 off): no further than twice the bf16 plain
+    path's, in global relative error (the mean loss alone, one scalar,
+    can sit near the reference by chance)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.trainer import _grads_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tree = init_params(T.schema(cfg), gen, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 47), generator=gen,
+                                     device=dev)}
+
+    def run(c, backend):
+        n0 = K.launch_counts()
+        g, _ = _grads_of(lambda p, b: T.loss_fn(p, c, b,
+                                                kernel_backend=backend),
+                         tree, batch)
+        torch.cuda.synchronize()
+        n1 = K.launch_counts()
+        with torch.no_grad():
+            toks = batch["tokens"]
+            logits = T.train_forward(tree, c, toks[:, :-1],
+                                     kernel_backend=backend)[0].float()
+            nll = torch.logsumexp(logits, -1) - torch.gather(
+                logits, -1, toks[:, 1:, None])[..., 0]
+        return (torch.cat([x.flatten() for x in tree_leaves(g)]), nll,
+                {k: n1[k] - n0[k] for k in n1})
+
+    g32, l32, _ = run(dataclasses.replace(cfg, compute_dtype="float32"),
+                      "torch")
+    gp, lp, none = run(cfg, "torch")
+    gk, lk, launches = run(cfg, "auto")
+    L = cfg.n_layers
+    assert launches["flash_attention"] == 2 * L
+    assert launches["flash_attention_bwd"] == 2 * L
+    assert not any(none.values())
+    assert bool(torch.isfinite(gk).all())
+    for k, p, r in ((gk, gp, g32), (lk, lp, l32)):
+        err_k, err_p = float((k - r).norm()), float((p - r).norm())
+        assert err_k <= 2 * err_p, (err_k, err_p)
+
+
+# ----------------------------------------------------------------------
 # the language models: prefill and decode on flash_attention
 # ----------------------------------------------------------------------
 

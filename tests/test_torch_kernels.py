@@ -24,7 +24,8 @@ from repro.core import hotpath as JHP
 from repro.kernels import visited as jvf
 from repro_torch import kernels as K
 from repro_torch.core import hotpath as HP
-from repro_torch.kernels import block, l2dist, ops, topk, visited
+from repro_torch.kernels import (block, flash_attention, l2dist, ops, topk,
+                                 visited)
 
 # the plain versions are small here: one thread each, so the test
 # workers running beside this file keep their cores
@@ -386,12 +387,17 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
                     torch.zeros((5, 4)), torch.zeros((4, 2)))
     ops.flash_attention(torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 1, 8)),
                         torch.zeros((1, 4, 1, 8)))
+    qkv = [torch.zeros(s, requires_grad=True)
+           for s in ((1, 4, 2, 8), (1, 4, 1, 8), (1, 4, 1, 8))]
+    flash_attention.flash_attention(*qkv).sum().backward()
+    flash_attention.flash_attention_bwd(*(t.detach() for t in qkv),
+                                        torch.ones((1, 4, 2, 8)))
     assert K.launch_counts() == dict.fromkeys(
         ("gather_distances", "gather_distances_int8",
          "gather_distances_bf16", "rank_merge",
          "visited_filter", "block_distances", "block_distances_int8",
          "distance_matrix", "bitonic_sort", "embedding_bag", "packed_spmm",
-         "flash_attention"), 0)
+         "flash_attention", "flash_attention_bwd"), 0)
 
 
 def test_resolve_backend():
