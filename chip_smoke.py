@@ -208,8 +208,9 @@ Phases, each printing its own lines:
    and starcoder2-7b's G = 9, against the float64 autograd of
    ``attention_ref``: each of dq, dk, dv within twice the float32 plain
    version's largest error plus 2^-8 * |g| for a bf16 output; a planted
-   fault (dq without its scale) must fail that; its ms, bound, plain ms
-   and SDPA's backward; (b) ``olmo_1b`` at full width (16 layers, B = 4 x
+   fault (dq without its scale) must fail that; how it splits P and dS;
+   its ms (beside the earlier FFMA design's), bound, plain ms and SDPA's
+   backward; (b) ``olmo_1b`` at full width (16 layers, B = 4 x
    2,048, bf16, remat, AdamW as the launcher sets it): the gradient
    tree's and each token's loss's global relative error against the
    float32 plain run within twice the bf16 plain path's (its launches
@@ -1209,14 +1210,18 @@ SASS_BODIES = {
               + ("" if vec == "1" else "_scalar")),
     "segment_matmul": (r"project_kernelILi(\d+)ELi(\d+)E",
                        lambda a, w: f"project_a{a}_w{w}"),
+    "flash_attention_bwd": (r"(dq|dkv)_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+                            lambda p, t, d: f"{p}_"
+                            + ("f32" if t == "f" else "bf16") + f"_hd{d}"),
 }
 
 
 def sass_hmma() -> dict:
     """HMMA (tensor-core) instructions in each compiled body of
     ``csrc/flash_attention.cu``, of ``csrc/l2dist.cu``'s self-query tile,
-    of ``csrc/block.cu``'s tile (float32, bf16, int8 codes) and of
-    ``csrc/segment_matmul.cu``'s projection, from ``cuobjdump -sass``
+    of ``csrc/block.cu``'s tile (float32, bf16, int8 codes), of
+    ``csrc/segment_matmul.cu``'s projection and of
+    ``csrc/flash_attention_bwd.cu``'s two passes, from ``cuobjdump -sass``
     where the toolkit has it (else an empty dict):
     ``{source: {body: count}}``."""
     import re
@@ -4213,7 +4218,10 @@ TRAIN_ARCH = "olmo-1b"
 TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 12
 TRAIN_CKPT_LAYERS, TRAIN_CKPT_STEPS = 2, 6
 TRAIN_TIMEOUT = 300           # seconds a subprocess of the phase may take
-BWD_KERNELS = ("dq_kernel", "dkv_kernel")
+BWD_KERNELS = ("dq_kernel", "dkv_kernel")   # its two passes in a trace
+# the earlier FFMA design of the backward at the drill's layer, bf16 and
+# float32 (ms; an H100 80GB HBM3 at its 700 W limit), beside this run's
+BWD_FFMA_MS = {"bfloat16": 19.2747, "float32": 19.0711}
 # the backward kernel alone, on unit-normal q, k, v and dout: (label, B,
 # S, H, KV, hd, window, dtypes, timed): the drill's layer; gemma3-27b's
 # local layer (32 q heads over 16 KV heads, window 1,024); starcoder2-7b's
@@ -4292,7 +4300,8 @@ def check_attention_bwd(label, B, S, H, KV, hd, window, dtype, timed, dev,
     fault_ratio = bwd_over_tol(fault, ref64[0], err_plain[0])
     r = dict(shape=f"{label} [{B}, {S}, {H} over {KV} x {hd}] "
              f"{'window ' + str(window) if window else 'causal'} {dtype}",
-             dtype=dtype, err_plain=err_plain, err_over_tol=ratios,
+             dtype=dtype, err_plain=err_plain,
+             err_over_tol=ratios,
              fault_err_over_tol=fault_ratio,
              finite=all(bool(torch.isfinite(g).all()) for g in kern),
              max_abs_err=max(float((g.float() - p).abs().max())
@@ -4578,10 +4587,16 @@ def train_phase(dev) -> tuple:
     for r in rows:
         extra = ""
         if r["ms"] is not None:
-            extra = (f"; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                     f"SDPA backward {r['library_ms']:.4f} ms")
-        log(f"[train] (a) flash_attention_bwd {r['shape']}: err/tol of dq, "
-            f"dk, dv " + ", ".join(f"{x:.3f}" for x in r["err_over_tol"])
+            extra = (f"; ms={r['ms']:.4f} (the FFMA design "
+                     f"{BWD_FFMA_MS[r['dtype']]:.2f}) plain_ms="
+                     f"{r['plain_ms']:.4f} SDPA backward "
+                     f"{r['library_ms']:.4f} ms")
+        split = ("P and dS in 3 bf16 pieces"
+                 if r["dtype"] == "bfloat16" else
+                 "each operand in 3 TF32 pieces, 6 products")
+        log(f"[train] (a) flash_attention_bwd {r['shape']}, {split}: "
+            f"err/tol of dq, dk, dv "
+            + ", ".join(f"{x:.3f}" for x in r["err_over_tol"])
             + " (the float32 plain version's largest errors against the "
             "float64 oracle " + ", ".join(f"{x:.3g}" for x in r["err_plain"])
             + f"); planted fault (dq without its scale) {r['fault_err_over_tol']:.3g}"
@@ -4930,7 +4945,8 @@ def main() -> int:
         want = {"flash_attention": [b for b in flash_attention.BODIES
                                     if b.startswith("tile_")],
                 "l2dist": l2dist.SELFQ_BODIES, "block": block.DM_BODIES,
-                "segment_matmul": segment_matmul.PROJECT_BODIES}
+                "segment_matmul": segment_matmul.PROJECT_BODIES,
+                "flash_attention_bwd": flash_attention.BWD_BODIES}
         idle = [f"{src}:{b}" for src, bodies in want.items()
                 for b in bodies if sass[src].get(b, 0) == 0]
         if idle:

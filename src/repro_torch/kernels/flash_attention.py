@@ -26,13 +26,17 @@ for ``window > 0``, ``j > q_offset + i - window``.
 The gradient.  On CUDA tensors that need one, :func:`flash_attention` is
 an autograd ``Function`` (under ``no_grad`` nothing is saved): its
 forward is the kernel above and saves q, k and v; its backward,
-:func:`flash_attention_bwd`, launches ``csrc/flash_attention_bwd.cu``
-(two passes: dq with each row's log-sum-exp and D, then dk and dv; the
-source's note gives the design and bounds).  It replaces no TPU kernel:
-the reference takes the plain attention's gradient by autodiff
-(``src/repro/models/layers.py:86``).  Its plain version,
-:func:`flash_attention_bwd_plain`, is the same arithmetic in PyTorch
-(log-sum-exp, O recomputed in float32, D, dS).  On CPU tensors
+:func:`flash_attention_bwd`, launches ``csrc/flash_attention_bwd.cu``,
+two passes of ``mma.sync`` tensor-core tiles: dq with each row's
+log-sum-exp and D (O recomputed in float32), then dk and dv over a KV
+head's G heads.  bf16 inputs multiply S and dP in bf16 and split P and dS
+into three bf16 pieces (exact in float32) for the other products; float32
+inputs split every operand into three TF32 pieces, six products each.
+The source's note gives the design, bounds and why the splits.  It
+replaces no TPU kernel: the reference takes the plain attention's
+gradient by autodiff (``src/repro/models/layers.py:86``).  Its plain
+version, :func:`flash_attention_bwd_plain`, is the same function in
+PyTorch (log-sum-exp, O recomputed in float32, D, dS).  On CPU tensors
 :func:`flash_attention` is ``attention_ref``, differentiated by autograd.
 """
 from __future__ import annotations
@@ -279,7 +283,7 @@ class _Attention(torch.autograd.Function):
 
 def flash_attention_bwd_plain(q, k, v, dout, *, window: int = 0,
                               q_offset: int = 0):
-    """The backward kernel's arithmetic in plain PyTorch (any device):
+    """The backward kernel's function in plain PyTorch (any device):
     s = scale * q k^T over the visible keys, lse = m + log(sum exp(s - m)),
     P = exp(s - lse), O = P V in float32, D = rowsum(dout * O),
     dS = P (dout v^T - D); dq = scale dS k, dk = scale dS^T q (summed over

@@ -1130,13 +1130,87 @@ def test_flash_attention_grad_through_autograd(dev, rng, dtype, monkeypatch):
 def test_flash_attention_bwd_bodies_fit(dev):
     """The card's own count for every compiled body of
     flash_attention_bwd.cu: at most 255 registers, no spill up to hd =
-    128 (the widest bodies keep two [2, 32] accumulators a thread)."""
+    128 (the widest bodies keep 128 accumulator registers a thread beside
+    a tile's scores), and tensor-core (HMMA) instructions in every dq and
+    dkv body, bf16 and float32."""
     attrs = flash_attention.bwd_body_attributes()
     assert list(attrs) == flash_attention.BWD_BODIES
     for name, (regs, local) in attrs.items():
         assert regs <= 255, (name, regs)
         if not name.endswith("hd256"):
             assert local == 0, (name, local)
+    hmma = _build.hmma_counts("flash_attention_bwd")
+    assert hmma is not None, "cuobjdump not found beside nvcc"
+    bodies = [n for k, n in hmma.items()
+              if "dq_kernel" in k or "dkv_kernel" in k]
+    assert len(bodies) == len(flash_attention.BWD_BODIES), hmma
+    assert min(bodies) > 0, hmma
+
+
+def _bwd_excess(got, ref64):
+    """The largest |got - ref| - 2^-8 |ref| for a bf16 output, |got - ref|
+    otherwise, over the elements (chip_smoke.py's phase 17 (a))."""
+    excess = (got.double() - ref64).abs()
+    if got.dtype == torch.bfloat16:
+        excess = excess - 2.0 ** -8 * ref64.abs()
+    return float(excess.max())
+
+
+# (Sq, Skv, window, q_offset) over the tiles' edges: 16 rows a warp, 64 a
+# CTA, key tiles of 16-64 and query tiles of 16-64
+_BWD_EDGES = [
+    (15, 15, 0, 0), (16, 16, 0, 0), (17, 17, 0, 0), (63, 63, 0, 0),
+    (64, 64, 0, 0), (65, 65, 0, 0), (129, 129, 0, 0),
+    # one query row (a decode step); more keys than queries
+    (1, 65, 0, 64), (1, 129, 0, 128), (15, 64, 0, 49), (17, 129, 0, 112),
+    (63, 65, 0, 2),
+    # windows that cut tiles, at an offset too
+    (129, 129, 16, 0), (65, 129, 17, 64)]
+
+
+@pytest.mark.parametrize("Sq,Skv,window,q_offset", _BWD_EDGES)
+@pytest.mark.parametrize("hd", [32, 33, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_contract(dev, record_property, Sq, Skv, window,
+                                      q_offset, hd, G, dtype):
+    """The backward kernel's contract (chip_smoke.py's phase 17 (a)) at
+    small shapes: each of dq, dk, dv within twice the largest error of the
+    float32 plain version on the card against the float64 autograd of
+    ``ref.attention_ref``, plus one rounding of a bf16 output; B = 2 and 4
+    to 18 heads.  Both largest errors are taken over 4 draws of the shape
+    (the first is the case's own seed), as over one larger case: over the
+    few hundred elements of one decode-row draw the largest error of a
+    float32 run is not a stable measure.  The first draw's own ratios are
+    recorded beside the pooled ones."""
+    KV = 4 if G == 1 else 2
+    kw = dict(window=window, q_offset=q_offset)
+    excess, err_plain, first = [0.0] * 3, [0.0] * 3, None
+    for draw in range(4):
+        rng = np.random.default_rng([Sq, Skv, window, hd, G] +
+                                    ([draw] if draw else []))
+        q, k, v = _attention_case(dev, rng, 2, Sq, Skv, KV * G, KV, hd,
+                                  dtype)
+        dout, = _on(dev, rng.normal(size=q.shape).astype(np.float32))
+        dout = dout.to(dtype)
+        leaves = [t.double().requires_grad_() for t in (q, k, v)]
+        ref64 = torch.autograd.grad(ref.attention_ref(*leaves, **kw),
+                                    leaves, dout.double())
+        plain = flash_attention.flash_attention_bwd_plain(
+            *(t.float() for t in (q, k, v, dout)), **kw)
+        got = flash_attention.flash_attention_bwd(q, k, v, dout, **kw)
+        torch.cuda.synchronize()
+        for i, (g, r, p) in enumerate(zip(got, ref64, plain)):
+            assert torch.isfinite(g).all()
+            excess[i] = max(excess[i], _bwd_excess(g, r))
+            err_plain[i] = max(err_plain[i],
+                               float((p.double() - r).abs().max()))
+        if draw == 0:
+            first = [e / (2 * p) for e, p in zip(excess, err_plain)]
+    ratios = [e / (2 * p) for e, p in zip(excess, err_plain)]
+    record_property("err_over_tol", ratios)
+    record_property("first_draw_err_over_tol", first)
+    assert max(ratios) <= 1, (ratios, err_plain)
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "starcoder2-7b", "gemma3-27b",
