@@ -281,6 +281,9 @@ LAYOUT_PIPE = ("knn", "diversify", "bridges", "layout")
 # phases 10-13: untraced calls a latency median (a grid's B = 10240
 # replays take 0.4-0.8 s each, so the count is paid in the time limit)
 SERVE_REPEATS = 10
+# phase 12's replays a median: cut from 10 when phase 18 joined, the
+# first cut PERF.md section 4 names
+MESH_REPEATS = 3
 TOPK_KERNELS = ("warp_topk_kernel", "select_kernel", "cta_sort_kernel")
 # the search hop's kernels (csrc/l2dist.cu's row bodies, csrc/visited.cu)
 HOP_KERNELS = ("gather_rowq_kernel", "gather_row8_kernel",
@@ -2291,7 +2294,7 @@ def check_bf16_body(ds, cfg, n_queries, dev, gen) -> list:
 
 
 def mesh_search(index, Qh, label: str, single_recall, gt, ref=None,
-                repeats: int = SERVE_REPEATS) -> tuple:
+                repeats: int = MESH_REPEATS) -> tuple:
     """One batch through a mesh index: the first search captures its
     graph, the next replays it, equal to an eager call of the same search
     bit for bit; its recall beside the single index's, the median of
@@ -3794,6 +3797,7 @@ GNN_EPS = 4e-6
 GNN_PLAIN_TOL = 1e-5          # kernel path against the card's plain path
 MACE_ROTATION_TOL = 1e-5      # |E(x Q^T + t) - E(x)| <= tol * max |E(x)|
 SPMM_KERNELS = ("spmm_kernel", "project_kernel", "gather_kernel")
+KEPT: dict = {}               # host state a later phase reuses
 
 
 def init_all(schema, gen, dev):
@@ -4065,6 +4069,9 @@ def sage_drill(dev, gen) -> tuple:
             + ("" if busy > 0 else " and no device event")
             + " though the counter saw its launches; the share above is "
             "from the kernel timed alone")
+    # phase 18 trains on the same graph and sampler (the host's CSR of
+    # Reddit's 114.6 M edges is built once)
+    KEPT["sage_stream"] = stream
     del model, batch, logits, graph, stream
     return out, spmm_rows
 
@@ -4758,6 +4765,821 @@ def train_phase(dev) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# phase 18: training of the graph, MACE and Wide & Deep families, on the
+# hand-written backward kernels of packed_spmm and embedding_bag
+# --------------------------------------------------------------------------
+
+FAMILY_STEPS = 12             # (a) and (b): AdamW steps, as the launcher
+SMALL_STEPS = 6               # (c): steps of each small drill
+FAMILY_BAG_BATCH = 65_536     # RECSYS_SHAPES train_batch
+SPMM_BWD_TOL = 1e-5           # of |terms| (the card tests' contract)
+BAG_BWD_TOL = 1e-6            # of |terms| (the bag contract)
+# plus float32's smallest normal: a gradient's terms can be subnormal,
+# where a division's rounding is absolute (2^-150), not relative
+TINY = 2.0 ** -126
+# the float64 forces: |F(x Q^T + t) - F(x) Q^T| / max |F|.  Float32
+# forces are held to the float64 run at every position instead: at
+# molecule's close pairs they reach 3e4, and float32 positions moved by
+# t = (10, -3, 7) round 3.5x coarser.  The 1/r of those pairs amplifies
+# float64's rounding too: 7.1e-10 to 1.5e-9 measured (PR 29)
+MACE_FORCE_ROTATION_TOL = 1e-8
+# the float32 forces' gate is pooled over x and 3 rotated and moved
+# positions: one position's largest error is set by a few close pairs
+# and one float32 run's rounding of them (the CPU's own ranges 1.4-4.6
+# over the positions and trees of PR 29's runs), so one draw's
+# card-over-CPU ratio is not stable
+MACE_FORCE_DRAWS = 4
+MACE_FORCE_SHIFTS = ((10.0, -3.0, 7.0), (-6.0, 4.0, 2.0), (3.0, 8.0, -5.0))
+
+
+def tree_err(got, ref) -> float:
+    """The global relative error of a gradient tree: ||got - ref|| /
+    ||ref|| over every leaf (float64 sums)."""
+    from repro_torch.optim.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(ref)
+    num = sum(float((x.double() - y.double().to(x.device)).square().sum())
+              for x, y in zip(a, b))
+    den = sum(float(y.double().square().sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def family_opt(steps: int):
+    """AdamW at lr 1e-3, warmup 5, as the launcher trains these
+    families."""
+    from repro_torch.optim.api import OptimizerConfig, make_optimizer
+
+    return make_optimizer(OptimizerConfig(lr=1e-3, warmup_steps=5,
+                                          total_steps=steps))
+
+
+def timed_steps(step, params, opt_state, batches) -> tuple:
+    """Run ``step`` over ``batches`` (an iterator of (batch on the card,
+    host ms to sample, host ms to copy)); each step timed by CUDA events
+    around the step alone.  Returns (losses, step ms, sample ms, copy
+    ms)."""
+    import torch
+
+    losses, ms, sample, copy = [], [], [], []
+    for batch, s_ms, c_ms in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt_state, m = step(params, opt_state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        sample.append(s_ms)
+        copy.append(c_ms)
+    return losses, ms, sample, copy
+
+
+def host_batches(stream, dev, n: int):
+    """``n`` batches drawn from ``stream`` and copied to ``dev``, with the
+    host ms of each draw and copy."""
+    import torch
+
+    from repro_torch.models.module import batch_to
+
+    for _ in range(n):
+        t0 = time.perf_counter()
+        host = next(stream)
+        s_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = batch_to(host, dev)
+        torch.cuda.synchronize()
+        yield batch, s_ms, (time.perf_counter() - t0) * 1e3
+
+
+BWD_GROUP_KERNELS = ("group_count", "scan_block_sums", "scan_top",
+                     "scan_down", "group_fill", "group_order", "group_merge",
+                     "group_sum")
+SPMM_BWD_KERNELS = BWD_GROUP_KERNELS + ("row_count_kernel",
+                                        "dw_partial_kernel",
+                                        "dw_reduce_kernel")
+
+
+def traced_step(step, params, opt_state, batch, kernels: dict) -> dict:
+    """One more step under ``torch.profiler`` (after the counted ones):
+    wall ms, device busy ms and share, the device ms of each named group
+    of kernels, the costliest device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, top, per = device_time(prof, 6)
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / wall_us,
+                kernel_ms={k: kernel_us(per, names) / 1e3
+                           for k, names in kernels.items()}, top=top)
+
+
+def trace_text(t: dict) -> str:
+    return (f"a traced step: wall {t['wall_ms']:.2f} ms, device busy "
+            f"{t['busy_ms']:.2f} ms ({t['busy_share']:.1%}); "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in t["kernel_ms"].items())
+            + "; costliest " + "; ".join(f"{k[:50]} {v:.3f} ms"
+                                         for k, v in t["top"])
+            + ("" if t["busy_ms"] > 0 else
+               " FINDING: the trace holds no device event"))
+
+
+def loss_fell(losses) -> bool:
+    return sum(losses[-3:]) / 3 < losses[0]
+
+
+def spmm_bwd_library(nbrs, feat, w, dout, combine):
+    """The same function as ``packed_spmm_bwd`` in PyTorch library calls,
+    the lane index precomputed: ``index_add_`` for agg and dfeat,
+    ``torch.matmul`` for ``dout @ w^T`` and ``agg^T @ dout``."""
+    import torch
+
+    Nf = feat.shape[0]
+    ok = nbrs < Nf
+    N, M = nbrs.shape
+    lanes = torch.arange(N, device=nbrs.device)[:, None].expand(N, M)[ok]
+    rows = nbrs.long().clamp(min=0)[ok]
+    cnt = torch.clamp(ok.sum(1, keepdim=True), min=1).float()
+
+    def run():
+        agg = torch.zeros((N, feat.shape[1]), device=feat.device)
+        agg.index_add_(0, lanes, feat[rows])
+        g = dout @ w.T
+        if combine == "mean":
+            agg = agg / cnt
+            g = g / cnt
+        dfeat = torch.zeros_like(feat).index_add_(0, rows, g[lanes])
+        return dfeat, agg.T @ dout
+
+    return run
+
+
+def check_spmm_bwd(name, nbrs, feat, w, dout, combine="mean") -> dict:
+    """``packed_spmm_bwd`` at a path's shape against its plain version
+    (within SPMM_BWD_TOL of |terms|, a repeat bit for bit), timed beside
+    the plain version and :func:`spmm_bwd_library`; the bound: G's rows
+    read once a lane, dfeat written once and the ids read (bytes), dW's
+    operations over the rows with a child at the TF32 rate."""
+    import torch
+
+    from repro_torch.kernels import _build, segment_matmul as SM
+
+    with _build.recording():
+        got = SM.packed_spmm_bwd(nbrs, feat, w, dout, combine=combine)
+        again = SM.packed_spmm_bwd(nbrs, feat, w, dout, combine=combine)
+        want = SM.packed_spmm_bwd_plain(nbrs, feat, w, dout, combine=combine)
+        tol = SM.packed_spmm_bwd_plain(nbrs, feat.abs(), w.abs(), dout.abs(),
+                                       combine=combine)
+        torch.cuda.synchronize()
+        ratio = max(float(((g - p).abs() / (SPMM_BWD_TOL * t + TINY)).max())
+                    for g, p, t in zip(got, want, tol))
+        err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again, want, tol
+        ms = cuda_ms(lambda: SM.packed_spmm_bwd(nbrs, feat, w, dout,
+                                                combine=combine), 10)
+        plain_ms = cuda_ms(lambda: SM.packed_spmm_bwd_plain(
+            nbrs, feat, w, dout, combine=combine), 3)
+        lib_ms = cuda_ms(spmm_bwd_library(nbrs, feat, w, dout, combine), 10)
+    (N, M), (Nf, d), f = nbrs.shape, feat.shape, w.shape[1]
+    ok = nbrs < Nf
+    lanes, rows = int(ok.sum()), int(ok.any(1).sum())
+    nbytes = lanes * 4 * d + Nf * 4 * d + N * M * 4
+    b_ms, b_by = bound(nbytes, 2 * rows * d * f, TF32_OPS_PER_S)
+    if not (ratio <= 1 and bitwise
+            and all(bool(torch.isfinite(g).all()) for g in got)):
+        raise AssertionError(f"packed_spmm_bwd {name}: err/tol {ratio}, "
+                             f"repeat bit for bit {bitwise}")
+    return dict(shape=name, max_abs_err=err, err_over_tol=ratio,
+                bit_equal_repeat=bitwise, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                lanes=lanes, rows_with_children=rows, bytes=nbytes)
+
+
+def check_bag_bwd(name, ids, dout, V, combine="mean") -> dict:
+    """``embedding_bag_bwd`` at the path's shape against its plain version
+    in float64 (within BAG_BWD_TOL of |terms|, a repeat bit for bit),
+    timed beside the plain version and autograd's backward of
+    ``F.embedding_bag``; the bound: dtable written once, dout and the ids
+    read once (bytes), one add a lookup's element at the fp32 rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, embedding_bag as EB
+
+    B, bag = ids.shape
+    E = dout.shape[1]
+    with _build.recording():
+        got = EB.embedding_bag_bwd(ids, dout, V, combine=combine)
+        again = EB.embedding_bag_bwd(ids, dout, V, combine=combine)
+        bitwise = bool(torch.equal(got, again))
+        del again
+        want = EB.embedding_bag_bwd_plain(ids, dout.double(), V,
+                                          combine=combine)
+        err = float((got.double() - want).abs().max())
+        want -= got.double()
+        diff = want.abs_()
+        del want
+        tol = EB.embedding_bag_bwd_plain(ids, dout.abs(), V, combine=combine)
+        ratio = float((diff / (BAG_BWD_TOL * tol.double() + TINY)).max())
+        read = torch.zeros(V, dtype=torch.bool, device=ids.device)
+        read[ids.long().clamp(0, V - 1).flatten()] = True
+        zeros_ok = bool((got[~read] == 0).all())
+        del read
+        del diff, tol
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: EB.embedding_bag_bwd(ids, dout, V,
+                                                  combine=combine), 5)
+        plain_ms = cuda_ms(lambda: EB.embedding_bag_bwd_plain(
+            ids, dout, V, combine=combine), 2)
+        leaf = torch.zeros((V, E), device=dout.device, requires_grad=True)
+        out = F.embedding_bag(ids.long(), leaf, mode=combine)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, leaf, dout,
+                                                     retain_graph=True), 5)
+        del out, leaf, got
+        torch.cuda.empty_cache()
+    distinct = int(torch.unique(ids).numel())
+    nbytes = V * E * 4 + B * E * 4 + B * bag * 4
+    b_ms, b_by = bound(nbytes, B * bag * E)
+    if not (ratio <= 1 and bitwise and zeros_ok):
+        raise AssertionError(f"embedding_bag_bwd {name}: err/tol {ratio}, "
+                             f"repeat bit for bit {bitwise}, unread rows "
+                             f"zero {zeros_ok}")
+    return dict(shape=name, max_abs_err=err, err_over_tol=ratio,
+                bit_equal_repeat=bitwise, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                distinct_rows=distinct, bytes=nbytes)
+
+
+def sage_train_drill(dev, gen) -> tuple:
+    """(a): ``graphsage_reddit`` at ``minibatch_lg``, nothing cut: phase
+    16's Reddit graph and sampler, fp32, TF32 off; the gradient gate on
+    the first batch (the kernel path's gradient tree against a float64
+    run of the edge list on the card, beside the float32 plain path; the
+    backward without the mean's 1/c_i planted; a repeat bit for bit);
+    then FAMILY_STEPS AdamW steps on that batch with every counter at 0
+    just before and read just after; the host's sampling and copy of
+    GNN_BATCHES batches.  Returns (results, launches, packed_spmm_bwd's
+    rows at the path's shapes)."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import make_community_graph
+    from repro_torch.data.sampler import SampledStream
+    from repro_torch.kernels import _build, segment_matmul as SM
+    from repro_torch.models import gnn as G
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.trainer import _grads_of, make_train_step
+
+    cfg = get_arch("graphsage-reddit")
+    stream = KEPT.pop("sage_stream", None)
+    if stream is None:
+        stream = SampledStream(make_community_graph(
+            GNN_NODES, GNN_EDGES, GNN_FEAT, n_classes=GNN_CLASSES, seed=0),
+            GNN_BATCH_NODES, GNN_FANOUTS, seed=0)
+    tree = init_all(G.schema(cfg, GNN_FEAT, GNN_CLASSES), gen, dev)
+    loss = lambda p, b: G.loss_fn(p, cfg, b)   # noqa: E731
+    batch, s_ms, c_ms = next(host_batches(stream, dev, 1))
+    s_ms, c_ms = [s_ms], [c_ms]
+    N, M = batch["neighbors"].shape
+    out: dict = dict(N=N, M=M, E=int(batch["edge_src"].shape[0]))
+
+    # the gate, on the first batch (comparisons: recorded, not counted)
+    with _build.recording():
+        g_k, _ = _grads_of(loss, tree, batch)
+        g_k2, _ = _grads_of(loss, tree, batch)
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(g_k),
+                                                    tree_leaves(g_k2)))
+    del g_k2
+    with _build.recording():
+        g_p, _ = _grads_of(lambda p, b: G.loss_fn(
+            p, cfg, b, kernel_backend="torch"), tree, batch)
+        b64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in batch.items() if k != "neighbors"}
+        g_64, _ = _grads_of(loss, moved(tree, dev, torch.float64), b64)
+        del b64
+        real = SM.packed_spmm_bwd
+        SM.packed_spmm_bwd = lambda *a, **kw: real(*a, **dict(
+            kw, combine="sum"))
+        try:
+            g_f, _ = _grads_of(loss, tree, batch)
+        finally:
+            SM.packed_spmm_bwd = real
+    err_k, err_p, err_f = (tree_err(g, g_64) for g in (g_k, g_p, g_f))
+    limit = 2 * err_p + GNN_EPS
+    gate = dict(err_kernel=err_k, err_plain32=err_p, limit=limit,
+                planted_err=err_f, ok=err_k <= limit,
+                planted_rejected=err_f > limit, bit_equal_repeat=bitwise)
+    del g_k, g_p, g_64, g_f
+    torch.cuda.empty_cache()
+
+    # the backward kernel alone at each layer's shape, on this batch
+    rows = []
+    for i, (nbrs, h, w) in enumerate(layer_inputs(G.GNN(cfg, tree), cfg,
+                                                  batch)):
+        dout = torch.randn((N, w.shape[1]), generator=gen, device=dev)
+        rows.append(check_spmm_bwd(
+            f"graphsage minibatch_lg layer {i}: N=Nf={N} M={M} "
+            f"[{h.shape[0]}, {h.shape[1]}] @ [{w.shape[0]}, {w.shape[1]}] "
+            "mean", nbrs, h.detach(), w.detach(), dout))
+
+    # the host's sampling and copy of further batches
+    for _, s2, c2 in host_batches(stream, dev, GNN_BATCHES - 1):
+        s_ms, c_ms = s_ms + [s2], c_ms + [c2]
+
+    # the steps, on batch 0 (as the launcher repeats its graph: the loss
+    # falls by descent, not by a batch that happens to be easier)
+    opt = family_opt(FAMILY_STEPS)
+    step = make_train_step(loss, opt)
+    params = tree
+    opt_state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, ms, _, _ = timed_steps(step, params, opt_state,
+                                   ((batch, 0.0, 0.0)
+                                    for _ in range(FAMILY_STEPS)))
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    median = statistics.median(ms[1:])
+    out.update(gate=gate, losses=losses, step_ms=ms, median_step_ms=median,
+               nodes_per_s=N / median * 1e3, sample_ms=s_ms, copy_ms=c_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    out["trace"] = traced_step(step, params, opt_state, batch, {
+        "packed_spmm": SPMM_KERNELS[:1],
+        "packed_spmm_bwd": SPMM_BWD_KERNELS + SPMM_KERNELS[1:]})
+    del params, opt_state, tree, stream, batch
+    torch.cuda.empty_cache()
+    return out, launches, rows
+
+
+def wide_deep_train_drill(dev, gen) -> tuple:
+    """(b): ``wide_deep`` at ``train_batch`` (B = 65,536) as published:
+    49.36 M rows of 32, fp32, TF32 off, ``CTRStream(seed=0)``.  The gate
+    on the first batch: each bag field's dtable on the kernel path
+    against its plain version in float64 on the same dout (the bag
+    contract), the kernel path's repeat bit for bit on the bag tables;
+    then FAMILY_STEPS AdamW steps with every counter at 0 just before and
+    read just after.  Returns (results, launches, embedding_bag_bwd's
+    row at the path's shape)."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.kernels import _build, embedding_bag as EB
+    from repro_torch.models import recsys as R
+    from repro_torch.models.module import init_params, param_bytes
+    from repro_torch.train.trainer import _grads_of, make_train_step
+
+    cfg = get_arch("wide-deep")
+    nbytes = param_bytes(R.schema(cfg))
+    log(f"[family] (b) wide_deep: {sum(cfg.vocab_sizes)} rows of "
+        f"{cfg.embed_dim} in {cfg.n_sparse} tables ({nbytes / 1e9:.2f} GB "
+        f"fp32), bag fields {list(cfg.multi_hot_fields)} of "
+        f"{cfg.bag_size}; reckoned: parameters {nbytes / 1e9:.2f} GB, dense "
+        f"gradients {nbytes / 1e9:.2f}, AdamW state {2 * nbytes / 1e9:.2f}, "
+        f"and one more copy of parameters and state during the update "
+        f"{3 * nbytes / 1e9:.2f}: {7 * nbytes / 2 ** 30:.1f} GiB before "
+        "activations")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(R.schema(cfg), gen, dev)
+    loss = lambda p, b: R.loss_fn(p, cfg, b)   # noqa: E731
+    stream = CTRStream(cfg, FAMILY_BAG_BATCH, seed=0)
+    batch, s_ms, c_ms = next(host_batches(stream, dev, 1))
+    multi = list(cfg.multi_hot_fields)
+
+    # the gate: the kernel path's bag gradients, twice, and the dout each
+    # backward launch saw
+    seen = []
+    real = EB.embedding_bag_bwd
+
+    def spy(ids, dout, V, **kw):
+        seen.append((ids, dout))
+        return real(ids, dout, V, **kw)
+
+    EB.embedding_bag_bwd = spy
+    try:
+        with _build.recording():
+            g1, _ = _grads_of(loss, params, batch)
+            bags1 = [g1["tables"][f"field_{i}"] for i in multi]
+            del g1
+            g2, _ = _grads_of(loss, params, batch)
+            bags2 = [g2["tables"][f"field_{i}"] for i in multi]
+            del g2
+    finally:
+        EB.embedding_bag_bwd = real
+    bitwise = all(torch.equal(a, b) for a, b in zip(bags1, bags2))
+    del bags2
+    torch.cuda.empty_cache()
+    # autograd runs the fields' backward in its own order: pair each with
+    # its field by the ids it saw
+    fields = []
+    for j, i in enumerate(multi):
+        ids, dout = next((a, b) for a, b in seen
+                         if torch.equal(a, batch["bags"][:, j]))
+        want = EB.embedding_bag_bwd_plain(ids, dout.double(),
+                                          cfg.vocab_sizes[i])
+        want -= bags1[j].double()
+        diff = want.abs_()
+        del want
+        tol = BAG_BWD_TOL * EB.embedding_bag_bwd_plain(
+            ids, dout.abs(), cfg.vocab_sizes[i]).double() + TINY
+        fields.append(float((diff / tol).max()))
+        del diff, tol
+        torch.cuda.empty_cache()
+    bag_row = check_bag_bwd(
+        f"wide_deep bag field {multi[0]}: [{cfg.vocab_sizes[multi[0]]}, "
+        f"{cfg.embed_dim}] fp32, B={FAMILY_BAG_BATCH} x {cfg.bag_size}, "
+        "mean (CTRStream seed 0)", *next(
+            (a, b) for a, b in seen if torch.equal(a, batch["bags"][:, 0])),
+        cfg.vocab_sizes[multi[0]])
+    del bags1, seen
+    torch.cuda.empty_cache()
+    gate = dict(field_err_over_tol=fields, bit_equal_repeat=bitwise,
+                ok=max(fields) <= 1 and bitwise)
+
+    # the steps
+    opt = family_opt(FAMILY_STEPS)
+    step = make_train_step(loss, opt)
+    opt_state = opt.init(params)
+    K.reset_launch_counts()
+    losses, ms, sample, copy = timed_steps(
+        step, params, opt_state, host_batches(stream, dev, FAMILY_STEPS))
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    median = statistics.median(ms[1:])
+    trace = traced_step(step, params, opt_state, batch, {
+        "embedding_bag": BAG_KERNELS,
+        "embedding_bag_bwd": BWD_GROUP_KERNELS})
+    out = dict(gate=gate, losses=losses, step_ms=ms, median_step_ms=median,
+               trace=trace,
+               rows_per_s=FAMILY_BAG_BATCH / median * 1e3,
+               sample_ms=[s_ms] + sample, copy_ms=[c_ms] + copy,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               param_gb=nbytes / 1e9, launches=launches,
+               bag_fields=len(multi))
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    return out, launches, bag_row
+
+
+def mace_forces(model_tree, cfg, batch):
+    """-dE/dpositions of the summed energies (no graph kept)."""
+    import torch
+
+    from repro_torch.models import mace as MC
+
+    with torch.enable_grad():
+        pos = batch["positions"].detach().requires_grad_()
+        e = MC.forward(model_tree, cfg, dict(batch, positions=pos)).sum()
+        return -torch.autograd.grad(e, pos)[0]
+
+
+def pooled_gate(gates: list) -> dict:
+    """:func:`gate64` over several draws: the card's and the CPU float32
+    run's largest errors each taken over every draw, the limit from those
+    and the largest scale."""
+    import math
+
+    err = max(g["err_card"] for g in gates)
+    err32 = max(g["err_cpu32"] for g in gates)
+    scale = max(g["scale"] for g in gates)
+    limit = 2 * err32 + GNN_EPS * scale
+    return dict(err_card=err, err_cpu32=err32, scale=scale, limit=limit,
+                ok=all(math.isfinite(g["err_card"]) for g in gates)
+                and err <= limit)
+
+
+def mace_force_gate(tree, cfg, host: dict, dev) -> dict:
+    """MACE's forces ``-dE/dx`` on the card against a float64 run on the
+    card, :func:`gate64` pooled over MACE_FORCE_DRAWS positions (x, then
+    x Q^T + t for seeded proper rotations Q and the shifts
+    MACE_FORCE_SHIFTS; float32 positions, the float64 run on the same
+    values), the float32 yardstick on the CPU; and the float64 forces
+    rotate with the molecule, F(x Q^T + t) = F(x) Q^T, x moved in
+    float64."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.module import batch_to
+
+    batch, cpu = batch_to(host, dev), batch_to(host, "cpu")
+    tree32, tree64 = moved(tree, "cpu"), moved(tree, dev, torch.float64)
+
+    def forces64(pos):
+        return mace_forces(tree64, cfg, {
+            k: v.double() if v.is_floating_point() else v
+            for k, v in dict(batch, positions=pos.to(dev)).items()}).cpu()
+
+    x = host["positions"]
+    rng = np.random.default_rng(16)
+    draws, rot_errs, f0 = [], [], None
+    for k in range(MACE_FORCE_DRAWS):
+        if k == 0:
+            pos = x
+        else:
+            Q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            if np.linalg.det(Q) < 0:
+                Q[:, 0] *= -1
+            t = MACE_FORCE_SHIFTS[(k - 1) % len(MACE_FORCE_SHIFTS)]
+            pos = (x @ Q.T + t).astype(np.float32)
+        p = torch.from_numpy(pos)
+        ref = forces64(p)
+        draws.append(gate64(
+            mace_forces(tree, cfg, dict(batch, positions=p.to(dev))),
+            mace_forces(tree32, cfg, dict(cpu, positions=p)), ref))
+        if k == 0:
+            f0 = ref
+        else:
+            f_rot = forces64(torch.from_numpy(x.astype(np.float64) @ Q.T + t))
+            rot_errs.append(float(
+                (f_rot - f0 @ torch.from_numpy(Q.T)).abs().max()))
+    gate = pooled_gate(draws)
+    scale = float(f0.abs().max())
+    rot_err = max(rot_errs)
+    rot_ok = rot_err <= MACE_FORCE_ROTATION_TOL * scale
+    log("[family] (c) mace forces -dE/dx on the card against a float64 "
+        f"run at x and {MACE_FORCE_DRAWS - 1} rotated and moved "
+        "positions x Q^T + t: max |card - float64| (CPU float32) a draw "
+        + ", ".join(f"{g['err_card']:.3g} ({g['err_cpu32']:.3g})"
+                    for g in draws)
+        + "; pooled " + gate_text(gate) + "; the float64 forces rotate "
+        f"with the molecule, max |F(x Q^T + t) - F(x) Q^T| {rot_err:.3g} "
+        f"(limit {MACE_FORCE_ROTATION_TOL:g} x {scale:.4g}): "
+        + ("ok" if rot_ok else "FAILED"))
+    return dict(gate=gate, draws=draws, rotation_err64=rot_err,
+                rotation_scale=scale, rotation_ok=rot_ok)
+
+
+def small_train_drills(dev, gen) -> dict:
+    """(c): ``gin_tu`` and ``gatedgcn`` at ``molecule`` and
+    ``full_graph_sm``, ``mace`` at ``molecule`` with forces (targets drawn
+    from a seeded numpy generator), SMALL_STEPS AdamW steps each, the loss
+    falling; MACE's forces on the card against a float64 run (on the card;
+    the float32 yardstick on the CPU, :func:`gate64`) at x and rotated and
+    moved; the float64 forces rotate with the molecule.  Edge lists: no
+    kernel launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import GNN_N_CLASSES, GNN_SHAPES, get_arch
+    from repro_torch.data.graphs import (make_community_graph,
+                                         make_molecules,
+                                         molecule_batch_for_gnn)
+    from repro_torch.models import gnn as G
+    from repro_torch.models import mace as MC
+    from repro_torch.models.module import batch_to
+    from repro_torch.train.trainer import make_train_step
+
+    mol, full = GNN_SHAPES["molecule"].dims, GNN_SHAPES["full_graph_sm"].dims
+    graphs = {
+        "molecule": molecule_batch_for_gnn(
+            mol["batch"], mol["n_nodes"], mol["n_edges"],
+            n_classes=GNN_N_CLASSES["molecule"], seed=0),
+        "full_graph_sm": make_community_graph(
+            full["n_nodes"], full["n_edges"], full["d_feat"],
+            n_classes=GNN_N_CLASSES["full_graph_sm"], seed=0)}
+    out = {}
+
+    def train(label, schema, loss, batch):
+        tree = init_all(schema, gen, dev)
+        opt = family_opt(SMALL_STEPS)
+        step = make_train_step(loss, opt)
+        batches = ((batch, 0.0, 0.0) for _ in range(SMALL_STEPS))
+        losses, ms, _, _ = timed_steps(step, tree, opt.init(tree), batches)
+        r = out[label] = dict(losses=losses, step_ms=ms,
+                              median_step_ms=statistics.median(ms[1:]),
+                              fell=loss_fell(losses))
+        log(f"[family] (c) {label}: {SMALL_STEPS} steps, loss "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f" ({'falls' if r['fell'] else 'DOES NOT FALL'}); step "
+            f"{r['median_step_ms']:.2f} ms")
+        return tree
+
+    for arch, shape in (("gin-tu", "molecule"), ("gatedgcn", "molecule"),
+                        ("gin-tu", "full_graph_sm"),
+                        ("gatedgcn", "full_graph_sm")):
+        cfg = get_arch(arch)
+        host = graphs[shape]
+        train(f"{arch} {shape}", G.schema(cfg, host["node_feat"].shape[1],
+                                          GNN_N_CLASSES[shape]),
+              lambda p, b, c=cfg: G.loss_fn(p, c, b), batch_to(host, dev))
+    cfg = get_arch("mace")
+    host = make_molecules(mol["batch"], mol["n_nodes"], mol["n_edges"],
+                          seed=0)
+    host["forces"] = np.random.default_rng(18).normal(
+        size=host["positions"].shape).astype(np.float32)
+    batch = batch_to(host, dev)
+    tree = train("mace molecule, forces", MC.schema(cfg),
+                 lambda p, b: MC.loss_fn(p, cfg, b), batch)
+    out["mace forces"] = mace_force_gate(tree, cfg, host, dev)
+    return out
+
+
+def resume_drivers(tmp: str, dev) -> dict:
+    """(d): ``launch/train.py --arch graphsage-reddit --reduced`` and
+    ``--arch wide-deep --reduced``: 20 steps (checkpoints at 10 and 20),
+    then a restart from the step-10 checkpoint alone with ``--resume``;
+    its step-20 checkpoint against the uninterrupted one, file for file.
+    The launcher's ``main`` runs in this process (its output captured), on
+    the card (``--device cpu`` in a CPU rehearsal)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch import train as launcher
+
+    where = [] if dev.type == "cuda" else ["--device", "cpu"]
+
+    def run(arch: str, d: str, resume: bool) -> tuple:
+        argv, text = sys.argv, io.StringIO()
+        sys.argv = ["train", "--arch", arch, "--reduced", "--steps", "20",
+                    "--ckpt-dir", d, *where] + (["--resume"] if resume
+                                                else [])
+        rc = 0
+        try:
+            with contextlib.redirect_stdout(text):
+                launcher.main()
+        except (Exception, SystemExit) as e:   # the drill reports it
+            rc = 1
+            text.write(f"\n{type(e).__name__}: {e}")
+        finally:
+            sys.argv = argv
+        return rc, text.getvalue()
+
+    out = {}
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    for arch in ("graphsage-reddit", "wide-deep"):
+        pa, pb = (os.path.join(tmp, arch, x) for x in "ab")
+        first = run(arch, pa, False)
+        if os.path.isdir(os.path.join(pa, "step_00000010")):
+            shutil.copytree(os.path.join(pa, "step_00000010"),
+                            os.path.join(pb, "step_00000010"))
+            with open(os.path.join(pb, "latest"), "w") as f:
+                f.write("step_00000010")
+        second = run(arch, pb, True)
+        sa, sb = (os.path.join(x, "step_00000020") for x in (pa, pb))
+        equal = os.path.isdir(sa) and os.path.isdir(sb) and sorted(
+            os.listdir(sa)) == sorted(os.listdir(sb)) and all(
+            np.array_equal(np.load(os.path.join(sa, n)),
+                           np.load(os.path.join(sb, n)))
+            for n in os.listdir(sa) if n.endswith(".npy"))
+        out[arch] = dict(rc=(first[0], second[0]),
+                         resumed="resumed from step 10" in second[1],
+                         bitwise_equal=equal,
+                         last=[x for x in second[1].strip().splitlines()
+                               if x][-1:])
+        with open(os.path.join(out_dir, f"smoke_resume_{arch}.log"),
+                  "w") as f:
+            f.write(first[1] + "\n---- --resume ----\n" + second[1])
+    return out
+
+
+def family_phase(dev) -> tuple:
+    """Phase 18, with phase 17's state released: (a) GraphSAGE at
+    minibatch_lg and (b) Wide & Deep at B = 65,536, both at published
+    width, training on the backward kernels of packed_spmm and
+    embedding_bag (launches counted), each with its gradient gate; (c)
+    GIN and GatedGCN at molecule and full_graph_sm, MACE at molecule
+    with forces; (d) the launcher's resume.  Returns (results, the main
+    paths' launch counts, {kernel: rows})."""
+    import tempfile
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # the models are fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    out: dict = {}
+    fails = []
+
+    t0 = time.perf_counter()
+    a, a_launches, spmm_rows = sage_train_drill(dev, gen)
+    out["sage"] = a
+    g = a["gate"]
+    log(f"[family] (a) graphsage_reddit minibatch_lg: N={a['N']} M={a['M']}"
+        f" E={a['E']}; the gate on batch 0 against a float64 run of the "
+        f"edge list on the card: gradient tree's global relative error "
+        f"kernel {g['err_kernel']:.4g}, float32 plain path "
+        f"{g['err_plain32']:.4g} (limit 2x + {GNN_EPS:g} = "
+        f"{g['limit']:.4g}): " + ("ok" if g["ok"] else "FAILED")
+        + f"; planted fault (the backward without the mean's 1/c_i) "
+        f"{g['planted_err']:.4g}: "
+        + ("rejected" if g["planted_rejected"] else "LET THROUGH")
+        + f"; a repeat bit for bit: {g['bit_equal_repeat']}")
+    for r in spmm_rows:
+        log_kernel("packed_spmm_bwd", r, f" err/tol={r['err_over_tol']:.3f}"
+                   f"; {r['rows_with_children']} rows with a child, "
+                   f"{r['lanes']} lanes; library = index_add_ + "
+                   "torch.matmul")
+    log(f"[family] (a) {FAMILY_STEPS} steps (AdamW lr 1e-3, warmup 5): "
+        "loss " + " ".join(f"{x:.4f}" for x in a["losses"])
+        + f"; step {a['median_step_ms']:.3f} ms (median of steps 2-"
+        f"{FAMILY_STEPS}, CUDA events around the step; first "
+        f"{a['step_ms'][0]:.3f}), {a['nodes_per_s']:.0f} nodes/s; sampling "
+        f"{min(a['sample_ms']):.1f}-{max(a['sample_ms']):.1f} ms and copy "
+        f"{min(a['copy_ms']):.1f}-{max(a['copy_ms']):.1f} ms a batch (host);"
+        f" peak device memory {a['peak_gib']:.2f} GiB")
+    log("[family] (a) " + trace_text(a["trace"]))
+    log(f"[launches] phase 18 (a) (the {FAMILY_STEPS} steps) "
+        + json.dumps(a_launches))
+    want = dict(packed_spmm=2 * FAMILY_STEPS, packed_spmm_bwd=8 * FAMILY_STEPS)
+    if not (g["ok"] and g["planted_rejected"] and g["bit_equal_repeat"]):
+        fails.append(f"(a) gate {g}")
+    if any(a_launches[k] != v for k, v in want.items()):
+        fails.append(f"(a) launches {a_launches}, want {want}")
+    if not loss_fell(a["losses"]):
+        fails.append(f"(a) loss did not fall: {a['losses']}")
+    out["a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    b, b_launches, bag_row = wide_deep_train_drill(dev, gen)
+    out["wide_deep"] = b
+    g = b["gate"]
+    log(f"[family] (b) wide_deep train_batch B={FAMILY_BAG_BATCH}: each bag "
+        f"field's dtable against its plain version in float64 on the same "
+        f"dout, err/tol (1e-6 x sum |terms| + 2^-126) "
+        + ", ".join(f"{x:.3f}" for x in g["field_err_over_tol"])
+        + f"; the bag tables' repeat bit for bit: {g['bit_equal_repeat']}")
+    log_kernel("embedding_bag_bwd", bag_row,
+               f" err/tol={bag_row['err_over_tol']:.3f}; "
+               f"{bag_row['distinct_rows']} distinct rows; library = "
+               "autograd of F.embedding_bag (its backward alone)")
+    log(f"[family] (b) {FAMILY_STEPS} steps: loss " + " ".join(
+        f"{x:.4f}" for x in b["losses"]) + f"; step "
+        f"{b['median_step_ms']:.2f} ms (median of steps 2-{FAMILY_STEPS}; "
+        f"first {b['step_ms'][0]:.2f}), {b['rows_per_s']:.0f} rows/s; "
+        f"CTRStream {min(b['sample_ms']):.1f}-{max(b['sample_ms']):.1f} ms"
+        f" and copy {min(b['copy_ms']):.1f}-{max(b['copy_ms']):.1f} ms a "
+        f"batch (host); peak device memory {b['peak_gib']:.2f} GiB")
+    log("[family] (b) " + trace_text(b["trace"]))
+    log(f"[launches] phase 18 (b) (the {FAMILY_STEPS} steps) "
+        + json.dumps(b_launches))
+    want = dict(embedding_bag=b["bag_fields"] * FAMILY_STEPS,
+                embedding_bag_bwd=b["bag_fields"] * FAMILY_STEPS)
+    if not g["ok"]:
+        fails.append(f"(b) gate {g}")
+    if any(b_launches[k] != v for k, v in want.items()):
+        fails.append(f"(b) launches {b_launches}, want {want}")
+    if not loss_fell(b["losses"]):
+        fails.append(f"(b) loss did not fall: {b['losses']}")
+    out["b_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["small"] = small = small_train_drills(dev, gen)
+    for k, r in small.items():
+        if "fell" in r and not r["fell"]:
+            fails.append(f"(c) {k}: loss did not fall")
+    f = small["mace forces"]
+    if not (f["gate"]["ok"] and f["rotation_ok"]):
+        fails.append(f"(c) mace forces {f}")
+    out["c_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["resume"] = res = resume_drivers(tmp, dev)
+    for a_, r in res.items():
+        log(f"[family] (d) launch/train.py --arch {a_} --reduced: exit "
+            f"{r['rc'][0]}, then --resume from step 10 exit {r['rc'][1]} "
+            f"(resumed: {r['resumed']}); step 20's checkpoint "
+            + ("equals the uninterrupted run's bit for bit"
+               if r["bitwise_equal"] else "DIFFERS from the uninterrupted "
+               "run's") + f"; {r['last'][0] if r['last'] else ''}")
+        if r["rc"] != (0, 0) or not (r["resumed"] and r["bitwise_equal"]):
+            fails.append(f"(d) {a_}: {r}")
+    out["d_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[family] phase 18: {out['seconds']:.1f} s ((a) {out['a_s']:.1f}, "
+        f"(b) {out['b_s']:.1f}, (c) {out['c_s']:.1f}, (d) {out['d_s']:.1f})")
+    if fails:
+        raise AssertionError("[family] " + "; ".join(fails))
+    launches = {k: a_launches[k] + b_launches[k] for k in a_launches}
+    return out, launches, {"packed_spmm_bwd": spmm_rows,
+                           "embedding_bag_bwd": [bag_row]}
+
+
+# --------------------------------------------------------------------------
 # phase 6: where the device time goes, and the k-NN graph's quality
 # --------------------------------------------------------------------------
 
@@ -5275,6 +6097,17 @@ def main() -> int:
     launches["flash_attention_bwd"] = \
         phase_launches["17"]["flash_attention_bwd"]
 
+    # ---- phase 18: training of the graph, MACE and Wide & Deep families ----
+    log(f"[family] device memory before phase 18 (the LM training state "
+        f"released): {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        "allocated")
+    record["family"], phase_launches["18"], bwd_rows = family_phase(dev)
+    shapes.update(bwd_rows)
+    for k in ("packed_spmm", "embedding_bag"):
+        launches[k] += phase_launches["18"][k]
+    for k in ("packed_spmm_bwd", "embedding_bag_bwd"):
+        launches[k] = phase_launches["18"][k]
+
     # ---- summary -----------------------------------------------------------
     meta = {
         "gather_distances": ("src/repro_torch/kernels/csrc/l2dist.cu",
@@ -5322,6 +6155,16 @@ def main() -> int:
             "no TPU kernel: the gradient of src/repro/models/layers.py:86 "
             "(chunked_attention), which the reference takes by autodiff",
             shapes["flash_attention_bwd"][0]["shape"]),
+        "packed_spmm_bwd": (
+            "src/repro_torch/kernels/csrc/segment_matmul_bwd.cu",
+            "no TPU kernel: the gradient of src/repro/kernels/ops.py:66 "
+            "(packed_spmm's plain path), which the reference takes by "
+            "autodiff", shapes["packed_spmm_bwd"][0]["shape"]),
+        "embedding_bag_bwd": (
+            "src/repro_torch/kernels/csrc/embedding_bag_bwd.cu",
+            "no TPU kernel: the gradient of src/repro/models/recsys.py:55 "
+            "(embedding_bag), which the reference takes by autodiff",
+            shapes["embedding_bag_bwd"][0]["shape"]),
     }
     kernels = []
     for kname, (source, replaces, main_shape) in meta.items():

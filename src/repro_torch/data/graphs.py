@@ -59,6 +59,27 @@ def make_community_graph(n_nodes: int, n_edges: int, d_feat: int,
     }
 
 
+def neighbor_matrix(edge_src: np.ndarray, edge_dst: np.ndarray,
+                    n_nodes: int, edge_mask=None) -> np.ndarray:
+    """The edges as a fixed-degree [n_nodes, max in-degree] int32
+    neighbour matrix (the port's, for ``packed_spmm``): row i holds, in
+    edge order, the ``edge_src`` of the edges whose ``edge_dst`` is i,
+    then the sentinel ``n_nodes``.  Edges that ``edge_mask`` clears are
+    left out.  GraphSAGE's mean or sum over it is the edge list's."""
+    keep = np.ones(len(edge_src), bool) if edge_mask is None \
+        else np.asarray(edge_mask, bool)
+    src = np.asarray(edge_src)[keep]
+    dst = np.asarray(edge_dst)[keep].astype(np.int64)
+    order = np.argsort(dst, kind="stable")
+    deg = np.bincount(dst, minlength=n_nodes)
+    start = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    slot = np.arange(len(order)) - start[dst[order]]
+    out = np.full((n_nodes, max(int(deg.max(initial=0)), 1)), n_nodes,
+                  np.int32)
+    out[dst[order], slot] = src[order]
+    return out
+
+
 def make_molecules(batch: int, n_nodes: int, n_edges: int,
                    n_species: int = 10, r_cut: float = 5.0, seed: int = 0,
                    with_forces: bool = False):

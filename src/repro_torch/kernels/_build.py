@@ -37,16 +37,19 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("l2dist", "topk", "visited", "block", "embedding_bag",
-           "segment_matmul", "flash_attention", "flash_attention_bwd")
+           "segment_matmul", "flash_attention", "flash_attention_bwd",
+           "segment_matmul_bwd", "embedding_bag_bwd")
 # launches of each kernel body, counted by its wrapper where it launches:
 # the seven of the ANN path, then the five of the kernel API
-# (kernels/ops.py), then attention's gradient (its two passes)
+# (kernels/ops.py), then the gradients: attention's (its two passes),
+# packed SpMM's and the bag's
 LAUNCHES = dict.fromkeys(("gather_distances", "gather_distances_int8",
                           "gather_distances_bf16",
                           "rank_merge", "visited_filter", "block_distances",
                           "block_distances_int8", "distance_matrix",
                           "bitonic_sort", "embedding_bag", "packed_spmm",
-                          "flash_attention", "flash_attention_bwd"), 0)
+                          "flash_attention", "flash_attention_bwd",
+                          "packed_spmm_bwd", "embedding_bag_bwd"), 0)
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -78,8 +78,10 @@
 //     misses the contract at decode rows, where a gradient sums a few
 //     terms and each product's error shows.  At one query row dv and dk
 //     are one product each, P's float32 error is the element's, and these
-//     bodies sit near twice the plain version's error: one card-test shape
-//     (hd = 256, 129 keys) misses by 0.5% (ROADMAP.md queue C).
+//     bodies sit near twice the plain version's error (one card-test
+//     shape, hd = 256 over 129 keys, missed by 0.5%).  So a float32 call
+//     with at most 64 query rows a KV head takes the rows bodies below
+//     (the plain version's formula computed in float64) instead.
 //   * The tensor cores' adder truncates, and over 2,048 keys (18,432 over
 //     G = 9) its bias would pass the contract.  So products sum into a
 //     fresh accumulator that is added to the running one in float32,
@@ -903,6 +905,223 @@ bool bad_shape(int B, int Sq, int Skv, int H, int KV, int hd) {
          H > 65535 || Sq <= 0 || Skv <= 0;
 }
 
+// ---- float32 at few query rows: the rows bodies (float64 inside) ---------
+//
+// Where a float32 call has at most kRowsMax query rows a KV head (Sq G: a
+// decode row), dv and dk at a key are one product or a few, so the error
+// of each P is the result's, and the tiles above (the online softmax,
+// exp2 of scores scaled by log2 e, three TF32 pieces) sit near twice the
+// plain version's error; so did these bodies in float32 (FFMA in the
+// plain version's order of operations, measured: 3 of 210 cases over).
+// So they compute each row in float64 from the float32 inputs, the plain
+// version's formula: s = <q, k> scale, the row's exact maximum over its
+// visible keys before any exp, l = sum exp(s - m), lse = m + log(l),
+// P = exp(s - lse), O = P V, D = <dout, O>, dS = P (dP - D), and round
+// each output to float32 once: the float32 rounding of the result, below
+// the plain version's own error.  A dot product is one warp's: lane l
+// sums head columns l, l + 32, ... with fma from zero, then an xor
+// butterfly, so every lane holds the same bits and both bodies compute
+// the same s and P.  lse and D pass between them in float64, and the
+// scale hd^-0.5 comes from the wrapper in float64 (no division or square
+// root in the bodies, whose slow paths would take a stack frame).  No
+// atomics: a repeat is bit for bit.
+//   rows_q_f64: one CTA per (query row, head, batch row), a thread per
+//     head column: the maximum, then l, then O over chunks of kRowKeys
+//     keys (P staged in shared memory), then dP, dS and dq; writes lse
+//     and D for rows_kv_f64.
+//   rows_kv_f64: one CTA per (kRowKeys keys, KV head, batch row): P and dS
+//     of every (row, key) pair of the tile into shared memory (a warp a
+//     pair), then a thread per head column sums dv and dk over the rows
+//     in the order g Sq + i.
+// Bound: each (row, visible key) pair costs 4 hd operations of dots (S
+// in each body, dP in each) and 4 hd of sums, in float64 FMA (the H100's
+// 34 TFLOP/s outside the tensor cores).  The training path is bf16 and
+// never takes these bodies.
+constexpr int kRowsMax = 64;      // query rows (Sq G) a KV head at most
+constexpr int kRowKeys = 16;      // keys a chunk (q) or a CTA (kv)
+constexpr int kRowWarps = 8;
+constexpr int kRowThreads = 32 * kRowWarps;   // one a head column
+
+__device__ __forceinline__ double warp_dot(const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           int hd, int lane) {
+  double s = 0.0;
+  for (int c = lane; c < hd; c += 32)
+    s = fma(static_cast<double>(x[c]), static_cast<double>(y[c]), s);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// the CTA's max (sum, for !MAX) of one value a warp (each lane the same)
+template <bool MAX>
+__device__ __forceinline__ double cta_reduce(double x, double* red) {
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();   // red free from an earlier reduction
+  if ((threadIdx.x & 31) == 0) red[warp] = x;
+  __syncthreads();
+  double r = red[0];
+#pragma unroll
+  for (int w = 1; w < kRowWarps; ++w) r = MAX ? fmax(r, red[w]) : r + red[w];
+  return r;
+}
+
+// log(x) for x >= 1 in float64: two Newton steps on exp(y) = x from
+// float32's logf (quadratic: 1e-7 -> 1e-13 -> float64's rounding); the
+// library's float64 log takes a stack frame that spills
+__device__ __forceinline__ double log_f64(double x) {
+  double y = logf(static_cast<float>(x));
+  y = y - 1.0 + x * exp(-y);
+  return y - 1.0 + x * exp(-y);
+}
+
+__device__ __forceinline__ void visible(int p, int Skv, int window, int& lo,
+                                        int& hi) {
+  hi = min(Skv, p + 1);
+  lo = window > 0 ? max(0, p - window + 1) : 0;
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+rows_q_f64(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           float* __restrict__ dq, double* __restrict__ lse_out,
+           double* __restrict__ delta_out, int Sq, int Skv, int H, int KV,
+           int hd, int window, int q_offset, double scale) {
+  __shared__ float qs[kRowThreads], dos[kRowThreads];
+  __shared__ double ps[kRowKeys];
+  __shared__ double red[kRowWarps];
+  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = (((long long)b * Sq + i) * H + h) * hd;
+  if (tid < hd) {
+    qs[tid] = q[row + tid];
+    dos[tid] = dout[row + tid];
+  }
+  __syncthreads();
+  const long long kstride = (long long)KV * hd;
+  const long long base = ((long long)b * Skv * KV + h / (H / KV)) * hd;
+  const float* kb = k + base;
+  const float* vb = v + base;
+  int lo, hi;
+  visible(q_offset + i, Skv, window, lo, hi);
+
+  double m = -INFINITY;
+  for (int j = lo + warp; j < hi; j += kRowWarps)
+    m = fmax(m, warp_dot(qs, kb + j * kstride, hd, lane) * scale);
+  m = cta_reduce<true>(m, red);
+  double l = 0.0;
+  for (int j = lo + warp; j < hi; j += kRowWarps)
+    l += exp(warp_dot(qs, kb + j * kstride, hd, lane) * scale - m);
+  l = cta_reduce<false>(l, red);
+  // one thread takes the log (all of them at once made ptxas spill)
+  __shared__ double lse_s;
+  if (tid == 0) lse_s = m + log_f64(l);
+  __syncthreads();
+  const double lse = lse_s;
+
+  double o = 0.0;
+  for (int j0 = lo; j0 < hi; j0 += kRowKeys) {
+    const int n = min(kRowKeys, hi - j0);
+    for (int t = warp; t < n; t += kRowWarps) {
+      const double s = warp_dot(qs, kb + (j0 + t) * kstride, hd, lane) * scale;
+      if (lane == 0) ps[t] = exp(s - lse);
+    }
+    __syncthreads();
+    if (tid < hd)
+      for (int t = 0; t < n; ++t)
+        o = fma(ps[t], static_cast<double>(vb[(j0 + t) * kstride + tid]), o);
+    __syncthreads();
+  }
+  // D = <dout, O> with O in float64: each thread's product, then the CTA
+  double D = tid < hd ? static_cast<double>(dos[tid]) * o : 0.0;
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) D += __shfl_xor_sync(0xffffffffu, D, x);
+  D = cta_reduce<false>(D, red);
+
+  double acc = 0.0;
+  for (int j0 = lo; j0 < hi; j0 += kRowKeys) {
+    const int n = min(kRowKeys, hi - j0);
+    for (int t = warp; t < n; t += kRowWarps) {
+      const long long off = (j0 + t) * kstride;
+      const double s = warp_dot(qs, kb + off, hd, lane) * scale;
+      const double dp = warp_dot(dos, vb + off, hd, lane);
+      if (lane == 0) ps[t] = exp(s - lse) * (dp - D);
+    }
+    __syncthreads();
+    if (tid < hd)
+      for (int t = 0; t < n; ++t)
+        acc = fma(ps[t], static_cast<double>(kb[(j0 + t) * kstride + tid]),
+                  acc);
+    __syncthreads();
+  }
+  if (tid < hd) dq[row + tid] = static_cast<float>(acc * scale);
+  if (tid == 0) {
+    const long long st = ((long long)b * H + h) * Sq + i;
+    lse_out[st] = lse;
+    delta_out[st] = D;
+  }
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+rows_kv_f64(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const double* __restrict__ lse, const double* __restrict__ delta,
+            float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+            int H, int KV, int hd, int window, int q_offset, double scale) {
+  __shared__ double pt[kRowsMax][kRowKeys], dst[kRowsMax][kRowKeys];
+  const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j0 = blockIdx.x * kRowKeys, nk = min(kRowKeys, Skv - j0);
+  const int R = G * Sq;
+  const long long kstride = (long long)KV * hd;
+  const long long base = ((long long)b * Skv * KV + kvh) * hd;
+  // row r = g Sq + i: query i of head kvh G + g
+  auto qrow = [&](int r) {
+    const int g = r / Sq, i = r - g * Sq;
+    return (((long long)b * Sq + i) * H + kvh * G + g) * hd;
+  };
+  for (int e = warp; e < R * kRowKeys; e += kRowWarps) {
+    const int r = e / kRowKeys, t = e - r * kRowKeys;
+    const int g = r / Sq, i = r - g * Sq, j = j0 + t;
+    int lo, hi;
+    visible(q_offset + i, Skv, window, lo, hi);
+    double p = 0.0, ds = 0.0;
+    if (t < nk && j >= lo && j < hi) {
+      const long long qr = qrow(r), off = base + j * kstride;
+      const long long st = ((long long)b * H + kvh * G + g) * Sq + i;
+      const double s = warp_dot(q + qr, k + off, hd, lane) * scale;
+      const double dp = warp_dot(dout + qr, v + off, hd, lane);
+      p = exp(s - lse[st]);
+      ds = p * (dp - delta[st]);
+    }
+    if (lane == 0) {
+      pt[r][t] = p;
+      dst[r][t] = ds;
+    }
+  }
+  __syncthreads();
+  if (tid >= hd) return;
+  double av[kRowKeys], ak[kRowKeys];
+#pragma unroll
+  for (int t = 0; t < kRowKeys; ++t) av[t] = ak[t] = 0.0;
+  for (int r = 0; r < R; ++r) {
+    const long long qr = qrow(r) + tid;
+    const double dov = dout[qr], qv = q[qr];
+#pragma unroll
+    for (int t = 0; t < kRowKeys; ++t) {
+      av[t] = fma(pt[r][t], dov, av[t]);
+      ak[t] = fma(dst[r][t], qv, ak[t]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kRowKeys; ++t) {
+    if (t >= nk) break;
+    const long long off = base + (j0 + t) * kstride + tid;
+    dv[off] = static_cast<float>(av[t]);
+    dk[off] = static_cast<float>(ak[t] * scale);
+  }
+}
+
 #define REPRO_BWD_BODIES(K, T)                                       \
   reinterpret_cast<const void*>(K<T, 32>),                          \
       reinterpret_cast<const void*>(K<T, 64>),                      \
@@ -965,6 +1184,65 @@ extern "C" int repro_flash_bwd_attrs(int which, int* regs, int* local_bytes) {
       REPRO_BWD_BODIES(dkv_kernel, float)};
   constexpr int n = sizeof(bodies) / sizeof(bodies[0]);
   if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, bodies[which]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
+// The float32 rows bodies (few query rows, Sq * H / KV <= 64), in the
+// layouts of (i) and (ii): dq, lse and delta (float64 here), then dk and
+// dv.
+extern "C" int repro_flash_bwd_rows_dq(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       void* dq, void* lse, void* delta,
+                                       int B, int Sq, int Skv, int H, int KV,
+                                       int hd, int window, int q_offset,
+                                       double scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  if (bad_shape(B, Sq, Skv, H, KV, hd) || Sq * (H / KV) > kRowsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rows_q_f64<<<dim3(Sq, H, B), kRowThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<float*>(dq), static_cast<double*>(lse),
+      static_cast<double*>(delta), Sq, Skv, H, KV, hd, window, q_offset,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_flash_bwd_rows_dkv(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const void* lse, const void* delta,
+                                        void* dk, void* dv, int B, int Sq,
+                                        int Skv, int H, int KV, int hd,
+                                        int window, int q_offset,
+                                        double scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  if (bad_shape(B, Sq, Skv, H, KV, hd) || Sq * (H / KV) > kRowsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((Skv + kRowKeys - 1) / kRowKeys, KV, B);
+  rows_kv_f64<<<grid, kRowThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const double*>(lse), static_cast<const double*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, H, KV, hd,
+      window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local bytes a thread of the rows bodies, in the order of
+// kernels/flash_attention.py BWD_ROWS_BODIES: rows_q_f64, rows_kv_f64.
+extern "C" int repro_flash_bwd_rows_attrs(int which, int* regs,
+                                          int* local_bytes) {
+  static const void* const bodies[] = {
+      reinterpret_cast<const void*>(rows_q_f64),
+      reinterpret_cast<const void*>(rows_kv_f64)};
+  if (which < 0 || which >= 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
   const cudaError_t e = cudaFuncGetAttributes(&a, bodies[which]);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -19,6 +19,21 @@ t = 0 .. bag-1 from zero (bfloat16 rows widened first), divided by
 ``bag`` for ``combine="mean"``, and returned in the table's dtype (a
 bfloat16 output rounded once), as the reference's kernel returns it.  The
 two routes compute the same bits.
+
+The gradient.  On CUDA tensors, where grad mode is on and the table
+needs a gradient, :func:`embedding_bag` is an autograd ``Function`` (it
+saves the ids only): its backward, :func:`embedding_bag_bwd`, launches
+``csrc/embedding_bag_bwd.cu``, ``dtable[v] = sum over (b, t) with
+clamp(ids[b, t]) = v, in (b, t) order, of dout[b] / bag`` (``/ 1`` for
+"sum"), dense [V, E] float32 as the reference's autodiff of ``jnp.take``
+gives it: the lookups grouped by row with a counting sort built on the
+card, a warp a row summing its group, no float atomics (a repeat is bit
+for bit; hot rows are one warp's sum, not a queue of atomics).  It
+replaces no TPU kernel (the reference differentiates its plain path).
+Its plain version is :func:`embedding_bag_bwd_plain`.  A bfloat16 table
+refuses the backward (the reference trains in float32).  On CPU tensors
+:func:`embedding_bag` is :func:`embedding_bag_plain`, differentiated by
+autograd.
 """
 from __future__ import annotations
 
@@ -39,6 +54,11 @@ GROUPS = (1, 2, 4, 8, 16, 32)
 BODIES = ["lane_f32", "lane_bf16"] + [
     f"vector_{t}_g{g}" for t in ("f32", "bf16") for g in GROUPS]
 PIECE_BYTES = 16
+# the gradient's compiled bodies, in csrc/embedding_bag_bwd.cu
+# repro_bag_bwd_attrs' order
+BWD_BODIES = ["group_count", "scan_block_sums", "scan_top", "scan_down",
+              "group_fill", "group_order", "group_merge", "group_sum"]
+SCAN_BLOCK = 2048               # counts a block of the grouping's scan
 
 
 def embedding_bag_plain(table, ids, *, combine: str = "mean"):
@@ -60,6 +80,27 @@ def embedding_bag_plain(table, ids, *, combine: str = "mean"):
         acc = acc / torch.full((), bag, dtype=torch.float32,
                                device=acc.device)
     return acc.to(table.dtype)
+
+
+def embedding_bag_bwd_plain(ids, dout, num_rows: int, *,
+                            combine: str = "mean"):
+    """The backward kernel's function in plain PyTorch (any device): the
+    table's gradient [num_rows, E] for the output's gradient ``dout``
+    [B, E]: each term ``dout[b] / bag`` (a true division; none for
+    "sum"), summed by ``index_add_`` over the lookups in (b, t) order
+    (sequential on the CPU) from zero, ids clamped as the forward clamps
+    them.  Float64 ``dout`` computes in float64, other in float32."""
+    if combine not in COMBINES:
+        raise ValueError(f"combine={combine!r}")
+    ct = torch.float64 if dout.dtype == torch.float64 else torch.float32
+    B, bag = ids.shape
+    terms = dout.to(ct)
+    if combine == "mean":
+        terms = terms / torch.full((), bag, dtype=ct, device=terms.device)
+    rows = ids.long().clamp(0, num_rows - 1).reshape(-1)
+    out = torch.zeros((num_rows, dout.shape[1]), dtype=ct,
+                      device=dout.device)
+    return out.index_add_(0, rows, terms.repeat_interleave(bag, dim=0))
 
 
 def path(table, ids) -> str:
@@ -98,12 +139,32 @@ def body_attributes() -> dict:
                                   BODIES)
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The gradient's built library, its entry point typed once."""
+    lib = _build.library("embedding_bag_bwd")
+    lib.repro_embedding_bag_bwd.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    lib.repro_embedding_bag_bwd.restype = ctypes.c_int
+    return lib
+
+
+def bwd_body_attributes() -> dict:
+    """Registers and spilled bytes a thread of each compiled body of the
+    gradient (:data:`BWD_BODIES`), as the card reports them."""
+    return _build.body_attributes("embedding_bag_bwd", "repro_bag_bwd_attrs",
+                                  BWD_BODIES)
+
+
 def embedding_bag(table, ids, *, combine: str = "mean",
                   via: str | None = None):
     """table [V, E] float32 or bfloat16 x ids [B, bag] int32 -> [B, E] in
     the table's dtype.  CPU tensors take :func:`embedding_bag_plain`; CUDA
     tensors launch the route :func:`path` picks, in the body for the
-    table's dtype (counted on ``embedding_bag``).  ``via`` forces a
+    table's dtype (counted on ``embedding_bag``), and where grad mode is
+    on and the table needs a gradient, through an autograd ``Function``
+    whose backward is :func:`embedding_bag_bwd`.  ``via`` forces a
     route, to hold one to the other; ``"vector"`` on a table it cannot
     read raises."""
     if via not in (None, *ROUTES):
@@ -111,6 +172,13 @@ def embedding_bag(table, ids, *, combine: str = "mean",
     check_dtypes(table=table)
     if table.device.type == "cpu":
         return embedding_bag_plain(table, ids, combine=combine)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Bag.apply(table, ids, combine, via)
+    return _forward(table, ids, combine, via)
+
+
+def _forward(table, ids, combine: str, via):
+    """The forward's launch on CUDA tensors."""
     if combine not in COMBINES:
         raise ValueError(f"combine={combine!r}")
     dev = table.device
@@ -132,3 +200,61 @@ def embedding_bag(table, ids, *, combine: str = "mean",
     _build.check(err, "embedding_bag")
     _build.count("embedding_bag")
     return out
+
+
+class _Bag(torch.autograd.Function):
+    """The kernel's forward, saving the ids; its backward launches
+    :func:`embedding_bag_bwd`."""
+
+    @staticmethod
+    def forward(ctx, table, ids, combine, via):
+        if table.dtype != torch.float32:
+            raise ValueError("embedding_bag's backward takes a float32 "
+                             "table (the reference trains in float32)")
+        ctx.save_for_backward(ids)
+        ctx.num_rows, ctx.combine = table.shape[0], combine
+        return _forward(table, ids, combine, via)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ids, = ctx.saved_tensors
+        dtable = embedding_bag_bwd(ids, dout.contiguous(), ctx.num_rows,
+                                   combine=ctx.combine)
+        return dtable, None, None, None
+
+
+def embedding_bag_bwd(ids, dout, num_rows: int, *, combine: str = "mean"):
+    """The gradient of :func:`embedding_bag` with respect to the table
+    [num_rows, E] for the output's gradient ``dout`` [B, E] float32:
+    ``dtable`` [num_rows, E] float32, dense.  CPU tensors take
+    :func:`embedding_bag_bwd_plain`; CUDA tensors launch the grouping and
+    the grouped sum (one entry, counted once on ``embedding_bag_bwd``)."""
+    if dout.device.type == "cpu":
+        return embedding_bag_bwd_plain(ids, dout, num_rows, combine=combine)
+    if combine not in COMBINES:
+        raise ValueError(f"combine={combine!r}")
+    dev = dout.device
+    check(dout, "dout", torch.float32, (None, None), dev)
+    check(ids, "ids", torch.int32, (dout.shape[0], None), dev)
+    (B, E), bag = dout.shape, ids.shape[1]
+    if B * bag >= 2 ** 31 or num_rows >= 2 ** 31:
+        raise ValueError("the backward takes fewer than 2^31 lookups and "
+                         "table rows")
+    if num_rows == 0 and B * bag > 0:
+        raise ValueError("an empty table has no rows to look up")
+    i32 = dict(dtype=torch.int32, device=dev)
+    dtable = torch.empty((num_rows, E), dtype=torch.float32, device=dev)
+    nb = -(-num_rows // SCAN_BLOCK)
+    cnt, cursor = torch.empty(num_rows, **i32), torch.empty(num_rows, **i32)
+    off, bsum = torch.empty(num_rows + 1, **i32), torch.empty(max(nb, 1),
+                                                              **i32)
+    lanes = torch.empty(4 * B * bag + 1, **i32)
+    keys = torch.empty(B * bag, **i32)
+    err = _bwd_lib().repro_embedding_bag_bwd(
+        _build.ptr(dout), _build.ptr(ids), _build.ptr(dtable),
+        _build.ptr(cnt), _build.ptr(cursor), _build.ptr(off),
+        _build.ptr(bsum), _build.ptr(lanes), _build.ptr(keys), B, bag,
+        num_rows, E, int(combine == "mean"), _build.stream_of(dout))
+    _build.check(err, "embedding_bag_bwd")
+    _build.count("embedding_bag_bwd")
+    return dtable

@@ -31,7 +31,10 @@ two passes of ``mma.sync`` tensor-core tiles: dq with each row's
 log-sum-exp and D (O recomputed in float32), then dk and dv over a KV
 head's G heads.  bf16 inputs multiply S and dP in bf16 and split P and dS
 into three bf16 pieces (exact in float32) for the other products; float32
-inputs split every operand into three TF32 pieces, six products each.
+inputs split every operand into three TF32 pieces, six products each,
+except at few query rows a KV head (:func:`bwd_path`), where two bodies
+compute the plain version's formula in float64 and round each output
+once.
 The source's note gives the design, bounds and why the splits.  It
 replaces no TPU kernel: the reference takes the plain attention's
 gradient by autodiff (``src/repro/models/layers.py:86``).  Its plain
@@ -74,6 +77,21 @@ BODIES = ([f"tile_{t}_hd{d}" for t in ("bf16", "f32") for d in HEAD_DIMS]
 # repro_flash_bwd_attrs
 BWD_BODIES = [f"{p}_{t}_hd{d}" for p in ("dq", "dkv") for t in ("bf16", "f32")
               for d in HEAD_DIMS]
+# the float32 rows bodies (float64 inside), in the order of
+# repro_flash_bwd_rows_attrs
+BWD_ROWS_BODIES = ["rows_q_f64", "rows_kv_f64"]
+# a float32 gradient with at most this many query rows a KV head (Sq * G)
+# takes the rows bodies: one dq CTA's tile
+BWD_ROWS_MAX = 64
+
+
+def bwd_path(Sq: int, H: int, KV: int, dtype) -> str:
+    """The gradient's bodies: ``"rows"`` (the plain version's formula in
+    float64, each output rounded to float32 once) for float32 with at
+    most ``BWD_ROWS_MAX`` query rows a KV head, else ``"tile"`` (the
+    tensor-core passes)."""
+    return ("rows" if dtype == torch.float32 and Sq * (H // KV)
+            <= BWD_ROWS_MAX else "tile")
 
 
 def check_shapes(q, k, v, *, window: int, q_offset: int) -> None:
@@ -327,7 +345,11 @@ def _bwd_lib() -> ctypes.CDLL:
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     lib.repro_flash_bwd_dq.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
     lib.repro_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 8 + [f, i, p]
-    for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv):
+    d = ctypes.c_double
+    lib.repro_flash_bwd_rows_dq.argtypes = [p] * 7 + [i] * 8 + [d, p]
+    lib.repro_flash_bwd_rows_dkv.argtypes = [p] * 8 + [i] * 8 + [d, p]
+    for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv,
+               lib.repro_flash_bwd_rows_dq, lib.repro_flash_bwd_rows_dkv):
         fn.restype = i
     return lib
 
@@ -340,13 +362,21 @@ def bwd_body_attributes() -> dict:
                                   "repro_flash_bwd_attrs", BWD_BODIES)
 
 
+def bwd_rows_attributes() -> dict:
+    """The same for the float32 rows bodies (:data:`BWD_ROWS_BODIES`)."""
+    return _build.body_attributes("flash_attention_bwd",
+                                  "repro_flash_bwd_rows_attrs",
+                                  BWD_ROWS_BODIES)
+
+
 def flash_attention_bwd(q, k, v, dout, *, window: int = 0,
                         q_offset: int = 0):
     """The gradient of :func:`flash_attention` with respect to q, k and v
     for the output's gradient ``dout`` [B, Sq, H, hd] (q's dtype):
     ``(dq, dk, dv)`` in the inputs' dtypes.  CPU tensors take
     :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernel's
-    two passes, each counted on ``flash_attention_bwd``."""
+    two passes along :func:`bwd_path`, each counted on
+    ``flash_attention_bwd``."""
     check_shapes(q, k, v, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, window=window,
@@ -376,6 +406,19 @@ def _launch_bwd(q, k, v, dout, window: int, q_offset: int):
     lse, delta = _build.ptr(stats[0]), _build.ptr(stats[1])
     shape = (B, Sq, Skv, H, KV, hd, window, q_offset)
     lib = _bwd_lib()
+    if bwd_path(Sq, H, KV, q.dtype) == "rows":
+        st64 = torch.empty((2, B, H, Sq), dtype=torch.float64, device=dev)
+        lse, delta = _build.ptr(st64[0]), _build.ptr(st64[1])
+        err = lib.repro_flash_bwd_rows_dq(*ins, _build.ptr(dq), lse, delta,
+                                          *shape, hd ** -0.5, stream)
+        _build.check(err, "flash_attention_bwd rows dq")
+        _build.count("flash_attention_bwd")
+        err = lib.repro_flash_bwd_rows_dkv(*ins, lse, delta, _build.ptr(dk),
+                                           _build.ptr(dv), *shape,
+                                           hd ** -0.5, stream)
+        _build.check(err, "flash_attention_bwd rows dkv")
+        _build.count("flash_attention_bwd")
+        return dq, dk, dv
     err = lib.repro_flash_bwd_dq(*ins, _build.ptr(dq), lse, delta, *shape,
                                  hd ** -0.5, bf16, stream)
     _build.check(err, "flash_attention_bwd dq")

@@ -38,6 +38,23 @@ the rows of Y = feat @ W.  feat and W are each float32 or bfloat16
 the kernels read them, a bfloat16 W once by the wrapper), and the output takes feat's dtype, a bfloat16 one
 rounded once: the transform route keeps Y in float32.  :func:`path`
 prices float32 rows whatever the dtype.
+
+The gradient.  On CUDA tensors that need one, :func:`packed_spmm` is an
+autograd ``Function`` (under ``no_grad``, or with neither feat nor w
+needing a gradient, nothing is saved): its forward is the kernel above
+and saves neighbors, feat and w; its backward, :func:`packed_spmm_bwd`,
+computes ``dfeat[j] = sum over valid lanes (i, t) reading row j, in
+(i, t) order, of (dout[i] @ w^T) / c_i`` (c_i = 1 for "sum", max(count_i,
+1) for "mean") and ``dw = agg^T @ dout``, with no gradient for
+neighbors, in float32: the projection's 3xTF32 tile for ``dout @ w^T``,
+then ``csrc/segment_matmul_bwd.cu`` (the lanes grouped by row with a
+counting sort built on the card, a warp a row summing its group; the
+gather for agg; dW as a tile a split of the rows and an ordered sum of
+the splits).  No float atomics: a repeat is bit for bit.  It replaces no
+TPU kernel (the reference differentiates its plain path).  Its plain
+version is :func:`packed_spmm_bwd_plain`.  On CPU tensors
+:func:`packed_spmm` is :func:`packed_spmm_plain`, differentiated by
+autograd.
 """
 from __future__ import annotations
 
@@ -60,10 +77,19 @@ PROJECT_BODIES = ["project_a16_w16", "project_a8_w16", "project_a4_w4",
                   "project_a2_w16", "project_a2_w4"]
 BODIES = ["fused", "fused_bf16", *PROJECT_BODIES, "gather_vec",
           "gather_scalar"]
+# the gradient's compiled bodies, in csrc/segment_matmul_bwd.cu
+# repro_spmm_bwd_attrs' order
+BWD_BODIES = ["row_count", "group_count", "scan_block_sums", "scan_top",
+              "scan_down", "group_fill", "group_order", "group_merge",
+              "group_sum", "dw_partial", "dw_reduce"]
+DW_MAX_SPLITS = 128              # splits of the rows for dW
+DW_SPLIT_ROWS = 1024             # rows a split at least
+DW_PART_FLOATS = 1 << 24         # the splits' partial sums at most
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 FP32_OPS_PER_S = 67e12          # fp32 FFMA, outside the tensor cores
 MMA_TF32_OPS_PER_S = 313e12     # mma.sync's TF32 ceiling (PERF.md)
 TILE_COLS = 128                 # output columns a CTA of every kernel
+SCAN_BLOCK = 2048               # counts a block of the grouping's scan
 
 
 def route_costs(N: int, M: int, Nf: int, d: int, f: int, *,
@@ -105,20 +131,21 @@ def path(N: int, M: int, Nf: int, d: int, f: int) -> str:
             < modelled_ms(cost["fused"]) else "fused")
 
 
-def aggregate(neighbors, feat, *, combine: str = "sum"):
-    """``agg`` [N, d] float32 (plain PyTorch, any device): the reference's
-    plain path (``ops.packed_spmm(use_pallas=False)``) before its ``@ w``,
-    summed lane by lane in order."""
+def aggregate(neighbors, feat, *, combine: str = "sum",
+              dtype=torch.float32):
+    """``agg`` [N, d] in ``dtype`` (float32 by default; plain PyTorch, any
+    device): the reference's plain path (``ops.packed_spmm(use_pallas=
+    False)``) before its ``@ w``, summed lane by lane in order."""
     if combine not in COMBINES:
         raise ValueError(f"combine={combine!r}")
     Nf = feat.shape[0]
     ok = neighbors < Nf
     rows = neighbors.long().clamp(0, Nf - 1)
     agg = torch.zeros((neighbors.shape[0], feat.shape[1]),
-                      dtype=torch.float32, device=feat.device)
+                      dtype=dtype, device=feat.device)
     for t in range(neighbors.shape[1]):
         agg = agg + torch.where(ok[:, t, None],
-                                feat[rows[:, t]].to(torch.float32), 0.0)
+                                feat[rows[:, t]].to(dtype), 0.0)
     if combine == "mean":
         agg = agg / torch.clamp(ok.sum(1, keepdim=True), min=1)
     return agg
@@ -137,6 +164,40 @@ def transform_plain(neighbors, feat, w, *, combine: str = "sum"):
     rows -> [N, f] float32."""
     return aggregate(neighbors, feat.to(torch.float32) @ w.to(torch.float32),
                      combine=combine)
+
+
+def packed_spmm_bwd_plain(neighbors, feat, w, dout, *,
+                          combine: str = "sum"):
+    """The backward kernel's function in plain PyTorch (any device):
+    ``(dfeat [Nf, d], dw [d, f])`` for the output's gradient ``dout``
+    [N, f].  ``g = dout @ w^T``, divided row by row by max(count_i, 1)
+    for "mean", summed into dfeat by ``index_add_`` over the valid lanes
+    in (i, t) order (sequential on the CPU); ``dw = agg^T @ dout``.
+    Float64 inputs compute in float64, others in float32 (both results
+    float32 then)."""
+    if combine not in COMBINES:
+        raise ValueError(f"combine={combine!r}")
+    ct = torch.float64 if feat.dtype == torch.float64 else torch.float32
+    N, M = neighbors.shape
+    Nf = feat.shape[0]
+    ok = neighbors < Nf
+    g = dout.to(ct) @ w.to(ct).T
+    if combine == "mean":
+        g = g / torch.clamp(ok.sum(1, keepdim=True), min=1).to(ct)
+    lanes = torch.arange(N, device=g.device)[:, None].expand(N, M)[ok]
+    dfeat = torch.zeros((Nf, feat.shape[1]), dtype=ct, device=g.device)
+    dfeat.index_add_(0, neighbors.long().clamp(min=0)[ok], g[lanes])
+    dw = aggregate(neighbors, feat, combine=combine, dtype=ct).T \
+        @ dout.to(ct)
+    return dfeat, dw
+
+
+def dw_splits(N: int, d: int, f: int) -> int:
+    """Splits of the N rows for dW's tile: one per ``DW_SPLIT_ROWS`` rows,
+    at most ``DW_MAX_SPLITS``, their partials at most ``DW_PART_FLOATS``
+    floats."""
+    return max(1, min(DW_MAX_SPLITS, -(-N // DW_SPLIT_ROWS),
+                      DW_PART_FLOATS // max(1, d * f)))
 
 
 @functools.cache
@@ -160,6 +221,25 @@ def body_attributes() -> dict:
     of :data:`BODIES`, as the card reports them."""
     return _build.body_attributes("segment_matmul", "repro_spmm_attrs",
                                   BODIES)
+
+
+@functools.cache
+def _bwd_lib():
+    """The gradient's built library, its entry points typed once."""
+    lib = _build.library("segment_matmul_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_spmm_bwd_dfeat.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.repro_spmm_bwd_dw.argtypes = [p] * 6 + [i] * 6 + [p]
+    for fn in (lib.repro_spmm_bwd_dfeat, lib.repro_spmm_bwd_dw):
+        fn.restype = i
+    return lib
+
+
+def bwd_body_attributes() -> dict:
+    """Registers and spilled bytes a thread of each compiled body of the
+    gradient (:data:`BWD_BODIES`), as the card reports them."""
+    return _build.body_attributes("segment_matmul_bwd",
+                                  "repro_spmm_bwd_attrs", BWD_BODIES)
 
 
 def _bf16(t) -> int:
@@ -229,13 +309,22 @@ def packed_spmm(neighbors, feat, w, *, combine: str = "sum",
     float32 or bfloat16 -> [N, f] in feat's dtype.  CPU tensors take
     :func:`packed_spmm_plain`; CUDA tensors launch the route :func:`path`
     picks ("fused": one launch, "transform": two, each counted on
-    ``packed_spmm``).  ``via`` forces a route, to hold it to shapes it
-    would not take."""
+    ``packed_spmm``), and where grad mode is on and feat or w needs a
+    gradient, through an autograd ``Function`` whose backward is
+    :func:`packed_spmm_bwd`.  ``via`` forces a route, to hold it to shapes
+    it would not take."""
     if via not in (None, *ROUTES):
         raise ValueError(f"via: 'fused' or 'transform', got {via!r}")
     check_dtypes(feat=feat, w=w)
     if feat.device.type == "cpu":
         return packed_spmm_plain(neighbors, feat, w, combine=combine)
+    if torch.is_grad_enabled() and (feat.requires_grad or w.requires_grad):
+        return _SpMM.apply(neighbors, feat, w, combine, via)
+    return _forward(neighbors, feat, w, combine, via)
+
+
+def _forward(neighbors, feat, w, combine: str, via):
+    """The forward's launches on CUDA tensors."""
     if combine not in COMBINES:
         raise ValueError(f"combine={combine!r}")
     dev = feat.device
@@ -263,3 +352,97 @@ def packed_spmm(neighbors, feat, w, *, combine: str = "sum",
     _build.check(err, "packed_spmm")
     _build.count("packed_spmm")
     return out
+
+
+class _SpMM(torch.autograd.Function):
+    """The kernel's forward, saving neighbors, feat and w; its backward
+    launches :func:`packed_spmm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, neighbors, feat, w, combine, via):
+        ctx.save_for_backward(neighbors, feat, w)
+        ctx.combine = combine
+        return _forward(neighbors, feat, w, combine, via)
+
+    @staticmethod
+    def backward(ctx, dout):
+        neighbors, feat, w = ctx.saved_tensors
+        dfeat, dw = packed_spmm_bwd(
+            neighbors, feat, w, dout.contiguous(), combine=ctx.combine,
+            need_feat=ctx.needs_input_grad[1],
+            need_w=ctx.needs_input_grad[2])
+        return None, dfeat, dw, None, None
+
+
+def packed_spmm_bwd(neighbors, feat, w, dout, *, combine: str = "sum",
+                    need_feat: bool = True, need_w: bool = True):
+    """The gradient of :func:`packed_spmm` with respect to feat and w for
+    the output's gradient ``dout`` [N, f]: ``(dfeat [Nf, d], dw [d, f])``
+    float32, each None where not asked for.  CPU tensors take
+    :func:`packed_spmm_bwd_plain`; CUDA tensors launch, for dfeat, the
+    projection ``dout @ w^T`` and the grouped sum, for dw, the gather of
+    agg and the split tile with its ordered sum: each launch counted on
+    ``packed_spmm_bwd`` (4 with both).  The card takes float32 operands
+    only (the reference trains in float32): bfloat16 raises."""
+    check_dtypes(feat=feat, w=w)
+    if feat.device.type == "cpu":
+        dfeat, dw = packed_spmm_bwd_plain(neighbors, feat, w, dout,
+                                          combine=combine)
+        return (dfeat if need_feat else None), (dw if need_w else None)
+    if combine not in COMBINES:
+        raise ValueError(f"combine={combine!r}")
+    if torch.bfloat16 in (feat.dtype, w.dtype, dout.dtype):
+        raise ValueError("packed_spmm's backward takes float32 feat, w and "
+                         "dout (the reference trains in float32)")
+    dev = feat.device
+    check(feat, "feat", torch.float32, (None, None), dev)
+    Nf, d = feat.shape
+    check(neighbors, "neighbors", torch.int32, (None, None), dev)
+    check(w, "w", torch.float32, (d, None), dev)
+    (N, M), f = neighbors.shape, w.shape[1]
+    check(dout, "dout", torch.float32, (N, f), dev)
+    if N * M >= 2 ** 31:
+        raise ValueError(f"N * M = {N * M} lanes exceed the kernel's 2^31")
+    stream = _build.stream_of(feat)
+    mean = int(combine == "mean")
+    i32 = dict(dtype=torch.int32, device=dev)
+    rowcnt = torch.empty(N, **i32)
+    dfeat = dw = None
+    if need_feat:
+        g = torch.empty((N, d), dtype=torch.float32, device=dev)
+        wt = w.T.contiguous()
+        err = _lib().repro_spmm_project(_build.ptr(dout), _build.ptr(wt),
+                                        _build.ptr(g), N, f, d, 0, 0, stream)
+        _build.check(err, "packed_spmm_bwd project")
+        _build.count("packed_spmm_bwd")
+        dfeat = torch.empty((Nf, d), dtype=torch.float32, device=dev)
+        nb = -(-Nf // SCAN_BLOCK)
+        cnt, cursor = torch.empty(Nf, **i32), torch.empty(Nf, **i32)
+        off, bsum = torch.empty(Nf + 1, **i32), torch.empty(max(nb, 1), **i32)
+        lanes = torch.empty(4 * N * M + 1, **i32)
+        keys = torch.empty(N * M, **i32)
+        err = _bwd_lib().repro_spmm_bwd_dfeat(
+            _build.ptr(neighbors), _build.ptr(g), _build.ptr(dfeat),
+            _build.ptr(rowcnt), _build.ptr(cnt), _build.ptr(cursor),
+            _build.ptr(off), _build.ptr(bsum), _build.ptr(lanes),
+            _build.ptr(keys), N, M, Nf, d, mean, stream)
+        _build.check(err, "packed_spmm_bwd dfeat")
+        _build.count("packed_spmm_bwd")
+        del g, wt
+    if need_w:
+        agg = torch.empty((N, d), dtype=torch.float32, device=dev)
+        err = _lib().repro_spmm_gather(_build.ptr(neighbors), _build.ptr(feat),
+                                       _build.ptr(agg), N, M, Nf, d, mean, 0,
+                                       stream)
+        _build.check(err, "packed_spmm_bwd agg")
+        _build.count("packed_spmm_bwd")
+        S = dw_splits(N, d, f)
+        part = torch.empty((S, d, f), dtype=torch.float32, device=dev)
+        dw = torch.empty((d, f), dtype=torch.float32, device=dev)
+        err = _bwd_lib().repro_spmm_bwd_dw(
+            _build.ptr(neighbors), _build.ptr(agg), _build.ptr(dout),
+            _build.ptr(dw), _build.ptr(rowcnt), _build.ptr(part), N, M, Nf,
+            d, f, S, stream)
+        _build.check(err, "packed_spmm_bwd dw")
+        _build.count("packed_spmm_bwd")
+    return dfeat, dw

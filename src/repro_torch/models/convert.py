@@ -134,7 +134,9 @@ def _tensors(tree, device):
 
 def opt_state_from_reference(state: dict, device=None) -> dict:
     """The reference's optimizer state (numpy arrays: AdamW's ``{"m",
-    "v", "count"}`` or Adafactor's ``{"slots", "count"}``) -> the port's,
+    "v", "count"}`` or Adafactor's ``{"slots", "count"}``, over any
+    family's parameter tree: the LM's, GIN's, GatedGCN's, GraphSAGE's,
+    MACE's or Wide & Deep's) -> the port's,
     tensors on ``device`` (None: the CUDA device, or a ``RuntimeError``)
     with the same bits, ``count`` an int32 scalar.  Any other layout
     raises."""

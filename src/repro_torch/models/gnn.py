@@ -1,6 +1,6 @@
 """GNN family: GIN, GatedGCN, GraphSAGE over a shared packed-graph batch,
-the port's copy of the reference's ``models/gnn.py`` (its forward;
-``loss_fn`` is training and is not ported yet).
+the port's copy of the reference's ``models/gnn.py`` (``forward`` and the
+training loss ``loss_fn``).
 
 Message passing is gather -> (edge compute) -> segment-scatter over an
 edge list, as in the reference, with torch's segment reductions
@@ -22,8 +22,11 @@ which on a CUDA tensor launches the hand-written ``packed_spmm`` kernel
 minibatch_lg's d = f = 128) and on the CPU, or with
 ``kernel_backend="torch"`` on any device, takes that kernel's plain
 version, the same function (a float32 sum in lane order, a division by
-max(count, 1), then the product).  Nothing falls back: ``"cuda"`` on a
-CPU tensor raises.  A row whose lanes are all the sentinel gives 0, the
+max(count, 1), then the product).  Training takes its gradient through
+the same call: on the card the kernel's autograd ``Function``, whose
+backward is the hand-written ``packed_spmm_bwd``; elsewhere autograd of
+the plain version.  Nothing falls back: ``"cuda"`` on a CPU tensor
+raises.  A row whose lanes are all the sentinel gives 0, the
 reference's ``s / max(cnt, 1)``.  Every other case takes the edge list:
 GIN, GatedGCN, the ``"max"`` aggregator and batches without
 ``"neighbors"`` (the ragged full graphs).
@@ -257,3 +260,25 @@ def forward(params, cfg: GNNConfig, batch, *, kernel_backend: str = "auto"):
         pooled = pooled / torch.clamp(cnt, min=1.0)[:, None]   # mean pool
         return pooled @ p["decoder"]["w"] + p["decoder"]["b"]
     return h @ p["decoder"]["w"] + p["decoder"]["b"]
+
+
+def loss_fn(params, cfg: GNNConfig, batch, *, kernel_backend: str = "auto"):
+    """The masked mean NLL and accuracy (the reference's ``loss_fn``):
+    over the graphs for a graph task (``graph_ids``), else over the nodes
+    of ``seed_mask`` (a minibatch's seeds), else of ``node_mask``, else
+    all.  Returns (loss, {"loss", "acc"}), in at least float32."""
+    logits = _wide(forward(params, cfg, batch,
+                           kernel_backend=kernel_backend))
+    labels = batch["labels"].long()
+    mask = None if "graph_ids" in batch else batch.get(
+        "seed_mask", batch.get("node_mask"))
+    mask = (torch.ones(logits.shape[0], dtype=logits.dtype,
+                       device=logits.device) if mask is None
+            else mask.to(logits.dtype))
+    denom = torch.clamp(mask.sum(), min=1.0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    nll = ((logz - gold) * mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels).to(logits.dtype) * mask).sum() \
+        / denom
+    return nll, {"loss": nll, "acc": acc}

@@ -1,7 +1,8 @@
 """MACE — higher-order E(3)-equivariant message passing [arXiv:2206.07697]:
-the port's copy of the reference's ``models/mace.py`` (its forward;
-``loss_fn`` and its forces through ``jax.grad`` are training and are not
-ported yet).
+the port's copy of the reference's ``models/mace.py`` (``forward`` and the
+training loss ``loss_fn``, its forces ``-dE/dpositions`` by
+``torch.autograd.grad(..., create_graph=True)`` where the reference takes
+``jax.grad`` inside the loss).
 
   per layer t:
     A_i^{(l3)}  = Σ_{l1,l2} CG(l1,l2→l3) · Σ_{j∈N(i)} R^t_{l1l2l3}(r_ij)
@@ -14,9 +15,10 @@ The reference's summation structure is kept: one gather of the source
 features a layer, every coupling path accumulated into one per-edge
 buffer, one segment sum (``index_add_``).  Each path's message is
 contracted in two products, Y with the coupling tensor first.  The
-reference's ``jax.checkpoint`` (rematerialisation for the backward
-pass) has no counterpart in a forward-only port.  No Pallas kernel is on
-this path.  Arithmetic runs in the positions' dtype (float32 as the
+reference's ``jax.checkpoint`` (rematerialisation of a layer for the
+backward pass) is a memory trade the port does not make: autograd keeps
+each layer's activations (1.5 GiB of forward at molecule, PR 26).  No
+Pallas kernel is on this path.  Arithmetic runs in the positions' dtype (float32 as the
 reference's; float64 inputs and parameters give a float64 reference);
 on the card the float32 products need TF32 off, which the port does not
 change.
@@ -196,3 +198,26 @@ def forward(params, cfg: GNNConfig, batch):
     site_energy = torch.where(nmask, site_energy, 0.0)
     n_graphs = batch["energies"].shape[0]
     return segment_sum(site_energy, batch["graph_ids"], n_graphs)
+
+
+def loss_fn(params, cfg: GNNConfig, batch):
+    """The energy MSE (the loss) and MAE; with ``"forces"`` in the batch,
+    the forces ``-dE/dpositions`` of the summed energies, taken with a
+    graph so that the loss differentiates through them, and their MSE
+    added ten times (the reference's ``loss_fn``).  Returns (loss,
+    metrics)."""
+    pred = forward(params, cfg, batch)
+    err = pred - batch["energies"]
+    loss = torch.mean(torch.square(err))
+    metrics = {"loss": loss, "energy_mae": torch.mean(torch.abs(err))}
+    if "forces" in batch:
+        with torch.enable_grad():
+            pos = batch["positions"].detach().requires_grad_()
+            energy = torch.sum(forward(params, cfg, dict(batch,
+                                                          positions=pos)))
+            grad, = torch.autograd.grad(energy, pos, create_graph=True)
+        f_loss = torch.mean(torch.square(-grad - batch["forces"]))
+        loss = loss + 10.0 * f_loss
+        metrics["force_mse"] = f_loss
+        metrics["loss"] = loss
+    return loss, metrics

@@ -1,7 +1,6 @@
 """Wide & Deep [arXiv:1606.07792] with a real EmbeddingBag: the port's copy
 of the reference's ``models/recsys.py`` (its serving path: ``forward``,
-``serve_step``, ``retrieval_step``; ``loss_fn`` is training and is not
-ported yet).
+``serve_step``, ``retrieval_step``; and the training loss ``loss_fn``).
 
 The model is a :class:`WideDeep` module whose parameter names are the
 reference's leaves (``tables.field_<i>``, ``wide``, ``mlp.w<i>`` /
@@ -15,8 +14,13 @@ The bag fields (``cfg.multi_hot_fields``): on a CUDA tensor
 the CPU, or with ``kernel_backend="torch"`` on any device, it takes that
 kernel's plain version, the same function (take, then a float32 sum in
 bag order and a true division) in plain PyTorch.  Nothing falls back:
-``"cuda"`` on a CPU tensor raises.  The single-id fields are a plain
-gather, as the reference's ``jnp.take`` is; the MLP and the retrieval
+``"cuda"`` on a CPU tensor raises.  Training differentiates the same
+call: on the card the kernel's autograd ``Function``, whose backward is
+the hand-written ``embedding_bag_bwd`` (a dense table gradient); elsewhere
+autograd of the plain version.  The single-id fields are a plain gather,
+as the reference's ``jnp.take`` is (its gradient autograd's
+``index_put_`` with accumulation, as the reference computes it outside
+any kernel); the MLP and the retrieval
 GEMM stay ``torch.matmul``, as the reference leaves them to XLA.
 
 The reference computes in float32 throughout (it never casts to
@@ -24,7 +28,9 @@ The reference computes in float32 throughout (it never casts to
 products need TF32 off (``torch.backends.cuda.matmul.allow_tf32``, False
 by default), which the port does not change.  ``with_logical`` (the
 reference's sharding annotations) has no counterpart: the port's model
-runs on one device.
+runs on one device.  The :class:`WideDeep` module's parameters need no
+gradient (serving); the trainer differentiates the nested tree
+(``init_params(schema(cfg), ...)``), which every function takes too.
 """
 from __future__ import annotations
 
@@ -198,3 +204,17 @@ def retrieval_step(params, cfg: RecsysConfig, batch, *,
     scores = (u @ batch["item_vectors"].T)[0]                 # [n_cand]
     top, idx = torch.topk(scores, 100)
     return idx.to(torch.int32), top
+
+
+def loss_fn(params, cfg: RecsysConfig, batch):
+    """The mean logistic loss in its stable form, ``max(z, 0) - z y +
+    log1p(exp(-|z|))``, and ``acc``, the share of rows whose logit's sign
+    matches the label (the reference's ``loss_fn``).  Returns (loss,
+    {"loss", "acc"})."""
+    logit = forward(params, cfg, batch)
+    logit = logit.to(torch.promote_types(logit.dtype, torch.float32))
+    y = batch["labels"].to(logit.dtype)
+    loss = torch.mean(torch.clamp(logit, min=0) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
+    acc = torch.mean(((logit > 0) == (y > 0.5)).to(logit.dtype))
+    return loss, {"loss": loss, "acc": acc}

@@ -59,6 +59,18 @@ def test_path_takes_split_up_to_the_threshold(B, Sq, Skv, H, KV, expect):
     assert fa.path(B, Sq, Skv, H, KV, 128, torch.bfloat16) == expect
 
 
+@pytest.mark.parametrize("Sq,H,KV,dtype,expect", [
+    (1, 16, 16, torch.float32, "rows"), (1, 36, 4, torch.float32, "rows"),
+    (64, 4, 4, torch.float32, "rows"), (8, 18, 2, torch.float32, "tile"),
+    (65, 1, 1, torch.float32, "tile"), (1, 1, 1, torch.bfloat16, "tile"),
+    (2048, 16, 16, torch.bfloat16, "tile")])
+def test_bwd_path_takes_rows_for_few_float32_rows(Sq, H, KV, dtype, expect):
+    """The gradient's float32 calls of at most 64 query rows a KV head
+    (a decode row) take the float64 rows bodies; bf16, the training
+    path, never does."""
+    assert fa.bwd_path(Sq, H, KV, dtype) == expect
+
+
 def test_split_plan_fills_the_card_and_covers_the_keys():
     """OLMo-1B's decode (8 x 16 KV heads) alone gives 128 CTAs; the plan
     cuts 32,768 keys into chunks for about 16 CTAs an SM, and its chunks

@@ -1789,3 +1789,209 @@ def test_packed_spmm_sentinel_rows_give_zero(dev, combine):
                                          via=via)
         assert bool((out[empty] == 0).all()), via
         assert bool((out[~empty] != 0).any()), via
+
+
+# ----------------------------------------------------------------------
+# the gradients of packed_spmm and embedding_bag
+# ----------------------------------------------------------------------
+
+def _spmm_bwd_tols(nbrs, feat, w, dout, combine):
+    """1e-5 of the magnitudes of dfeat's and dw's terms: the plain
+    version on |feat|, |w| and |dout|."""
+    return [1e-5 * t for t in segment_matmul.packed_spmm_bwd_plain(
+        nbrs, feat.abs(), w.abs(), dout.abs(), combine=combine)]
+
+
+def _assert_spmm_bwd(dev, rng, nbrs, feat, w, combine, offset=0):
+    """The backward within the tolerances of its plain version, launched 4
+    times (projection, grouped sum, agg, dW), rows no lane reads exactly
+    0, and a repeat bit for bit."""
+    N, f = nbrs.shape[0], w.shape[1]
+    d_np = rng.normal(size=(N, f)).astype(np.float32)
+    dout = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.float32), d_np.ravel()])).to(dev)[offset:]
+    dout = dout.view(N, f)
+    n0 = K.launch_counts()["packed_spmm_bwd"]
+    got = segment_matmul.packed_spmm_bwd(nbrs, feat, w, dout,
+                                         combine=combine)
+    again = segment_matmul.packed_spmm_bwd(nbrs, feat, w, dout,
+                                           combine=combine)
+    want = segment_matmul.packed_spmm_bwd_plain(nbrs, feat, w, dout,
+                                                combine=combine)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["packed_spmm_bwd"] - n0 == 8
+    for g, a, p, tol in zip(got, again, want,
+                            _spmm_bwd_tols(nbrs, feat, w, dout, combine)):
+        assert g.dtype == torch.float32 and g.shape == p.shape
+        assert torch.equal(g, a)
+        assert bool(torch.isfinite(g).all())
+        assert ((g - p).abs() <= tol).all(), float((g - p).abs().max())
+    Nf = feat.shape[0]
+    read = torch.zeros(Nf, dtype=torch.bool, device=dev)
+    ok = nbrs < Nf
+    read[nbrs.long().clamp(min=0)[ok]] = True
+    assert (got[0][~read] == 0).all()
+
+
+@pytest.mark.parametrize("N,M,Nf", [(1, 15, 50), (129, 1, 40),
+                                    (129, 20, 1000), (300, 15, 90),
+                                    (300, 20, 2000)])
+@pytest.mark.parametrize("d", [8, 70, 128, 602])
+@pytest.mark.parametrize("f", [8, 70, 128, 602])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_packed_spmm_bwd_matches_plain(dev, N, M, Nf, d, f, combine):
+    """The backward kernel (segment_matmul_bwd.cu with the projection and
+    the gather of segment_matmul.cu) over its edges: sentinels, negative
+    ids (row 0), an all-sentinel row, Nf below and above N, d and f in
+    one dW tile or many, M from 1 to 20."""
+    rng = np.random.default_rng([N, M, Nf, d, f, 7])
+    nbrs, feat, w = _spmm_case(dev, rng, N, M, Nf, d, f)
+    _assert_spmm_bwd(dev, rng, nbrs, feat, w, combine)
+
+
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("case", ["empty", "hot", "offset"])
+def test_packed_spmm_bwd_edges(dev, combine, case):
+    """Every row empty (dfeat all zeros, dW zeros); one feat row read by
+    every lane of 4,000 rows (a group of 60,000 lanes: the grouping's
+    merges); operands one element off their allocation."""
+    rng = np.random.default_rng(11)
+    if case == "offset":
+        nbrs, feat, w = _spmm_case(dev, rng, 300, 15, 400, 70, 33, offset=1)
+        _assert_spmm_bwd(dev, rng, nbrs, feat, w, combine, offset=1)
+        return
+    N, M, Nf = (300, 7, 90) if case == "empty" else (4000, 15, 500)
+    nbrs, feat, w = _spmm_case(dev, rng, N, M, Nf, 64, 32)
+    nbrs.fill_(Nf if case == "empty" else 3)
+    _assert_spmm_bwd(dev, rng, nbrs, feat, w, combine)
+
+
+def test_packed_spmm_autograd_on_the_card(dev, rng, monkeypatch):
+    """Through autograd on CUDA tensors: one fused launch forward, the
+    backward's 4, the gradients equal to packed_spmm_bwd's bit for bit
+    with the plain version patched to raise; under no_grad nothing is
+    recorded."""
+    nbrs, feat, w = _spmm_case(dev, rng, 200, 10, 300, 128, 128)
+    dout = torch.randn((200, 128), device=dev)
+    monkeypatch.setattr(segment_matmul, "packed_spmm_bwd_plain",
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            AssertionError("plain path taken")))
+    leaves = [feat.clone().requires_grad_(), w.clone().requires_grad_()]
+    n0 = K.launch_counts()
+    out = segment_matmul.packed_spmm(nbrs, *leaves, combine="mean")
+    got = torch.autograd.grad(out, leaves, dout)
+    n1 = K.launch_counts()
+    assert n1["packed_spmm"] - n0["packed_spmm"] == 1
+    assert n1["packed_spmm_bwd"] - n0["packed_spmm_bwd"] == 4
+    want = segment_matmul.packed_spmm_bwd(nbrs, feat, w, dout,
+                                          combine="mean")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with torch.no_grad():
+        assert segment_matmul.packed_spmm(nbrs, *leaves).grad_fn is None
+    with pytest.raises(ValueError, match="float32"):
+        segment_matmul.packed_spmm_bwd(nbrs, feat.bfloat16(), w, dout)
+
+
+def test_spmm_bwd_bodies_fit_without_spills(dev):
+    attrs = segment_matmul.bwd_body_attributes()
+    assert list(attrs) == segment_matmul.BWD_BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0, (name, local)
+        assert regs <= 255, (name, regs)
+
+
+def _assert_bag_bwd(dev, ids, dout, V, combine):
+    """The backward within the bag contract (1e-6 of its terms' |sum|) of
+    its plain version, one launch counted, rows no lookup reads exactly
+    0, a repeat bit for bit."""
+    n0 = K.launch_counts()["embedding_bag_bwd"]
+    got = embedding_bag.embedding_bag_bwd(ids, dout, V, combine=combine)
+    again = embedding_bag.embedding_bag_bwd(ids, dout, V, combine=combine)
+    want = embedding_bag.embedding_bag_bwd_plain(ids, dout, V,
+                                                 combine=combine)
+    tol = 1e-6 * embedding_bag.embedding_bag_bwd_plain(ids, dout.abs(), V,
+                                                       combine=combine)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag_bwd"] - n0 == 2
+    assert got.shape == (V, dout.shape[1]) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert ((got - want).abs() <= tol).all(), float((got - want).abs().max())
+    read = torch.zeros(V, dtype=torch.bool, device=dev)
+    read[ids.long().clamp(0, V - 1).flatten()] = True
+    assert (got[~read] == 0).all()
+
+
+@pytest.mark.parametrize("E", [8, 32, 70, 300])
+@pytest.mark.parametrize("bag", [1, 10, 40])
+@pytest.mark.parametrize("B,V", [(1, 50), (300, 64), (5000, 100_000)])
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+def test_embedding_bag_bwd_matches_plain(dev, E, bag, B, V, combine):
+    """The backward kernel (embedding_bag_bwd.cu) over E 8-300, bag 1-40,
+    ids repeated in and across bags (V = 64), clamped ids, and one id in
+    every bag."""
+    rng = np.random.default_rng([E, bag, B, V])
+    ids = rng.integers(-2, V + 3, size=(B, bag)).astype(np.int32)
+    ids[:, 0] = 5 % V                      # one id in every bag
+    dout = rng.normal(size=(B, E)).astype(np.float32)
+    ids, dout = _on(dev, ids, dout)
+    _assert_bag_bwd(dev, ids, dout, V, combine)
+
+
+@pytest.mark.parametrize("case", ["hot", "offset"])
+def test_embedding_bag_bwd_edges(dev, case):
+    """One id in every lookup of 70,000 bags of 10 (a group of 700,000: the
+    grouping's merges); dout one element off its allocation."""
+    rng = np.random.default_rng(13)
+    if case == "hot":
+        ids = torch.full((70_000, 10), 7, dtype=torch.int32, device=dev)
+        ids[::3, 4] = 9
+        dout, = _on(dev, rng.normal(size=(70_000, 32)).astype(np.float32))
+        _assert_bag_bwd(dev, ids, dout, 1000, "mean")
+        return
+    ids, = _on(dev, rng.integers(0, 500, size=(300, 10)).astype(np.int32))
+    flat, = _on(dev, rng.normal(size=300 * 33 + 1).astype(np.float32))
+    _assert_bag_bwd(dev, ids, flat[1:].view(300, 33), 500, "sum")
+
+
+def test_embedding_bag_autograd_on_the_card(dev, rng, monkeypatch):
+    """Through autograd on a CUDA table that needs a gradient: one forward
+    launch, one backward launch, equal bit for bit to embedding_bag_bwd
+    with the plain version patched to raise; a bf16 table raises."""
+    table, ids = _on(dev, rng.normal(size=(1000, 32)).astype(np.float32),
+                     rng.integers(0, 1000, size=(512, 10)).astype(np.int32))
+    dout = torch.randn((512, 32), device=dev)
+    monkeypatch.setattr(embedding_bag, "embedding_bag_bwd_plain",
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            AssertionError("plain path taken")))
+    leaf = table.clone().requires_grad_()
+    n0 = K.launch_counts()
+    got, = torch.autograd.grad(embedding_bag.embedding_bag(leaf, ids),
+                               leaf, dout)
+    n1 = K.launch_counts()
+    assert n1["embedding_bag"] - n0["embedding_bag"] == 1
+    assert n1["embedding_bag_bwd"] - n0["embedding_bag_bwd"] == 1
+    assert torch.equal(got, embedding_bag.embedding_bag_bwd(ids, dout, 1000))
+    with pytest.raises(ValueError, match="float32"):
+        embedding_bag.embedding_bag(table.bfloat16().requires_grad_(), ids)
+
+
+def test_bag_bwd_bodies_fit_without_spills(dev):
+    attrs = embedding_bag.bwd_body_attributes()
+    assert list(attrs) == embedding_bag.BWD_BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0, (name, local)
+        assert regs <= 255, (name, regs)
+
+
+def test_flash_attention_bwd_rows_bodies_fit(dev):
+    """The float32 rows bodies (FFMA, few query rows): no spill, at most
+    255 registers; bwd_path sends float32 calls of at most 64 rows a KV
+    head there and bf16 never."""
+    attrs = flash_attention.bwd_rows_attributes()
+    assert list(attrs) == flash_attention.BWD_ROWS_BODIES
+    for name, (regs, local) in attrs.items():
+        assert local == 0 and regs <= 255, (name, regs, local)
+    assert flash_attention.bwd_path(1, 9, 1, torch.float32) == "rows"
+    assert flash_attention.bwd_path(64, 1, 1, torch.float32) == "rows"
+    assert flash_attention.bwd_path(65, 1, 1, torch.float32) == "tile"
+    assert flash_attention.bwd_path(1, 1, 1, torch.bfloat16) == "tile"

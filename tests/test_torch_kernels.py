@@ -392,12 +392,19 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
     flash_attention.flash_attention(*qkv).sum().backward()
     flash_attention.flash_attention_bwd(*(t.detach() for t in qkv),
                                         torch.ones((1, 4, 2, 8)))
+    feat, w = (torch.zeros(s, requires_grad=True) for s in ((5, 4), (4, 2)))
+    ops.packed_spmm(torch.zeros((2, 3), dtype=torch.int32), feat,
+                    w).sum().backward()
+    table = torch.zeros((5, 4), requires_grad=True)
+    ops.embedding_bag(table, torch.zeros((2, 3), dtype=torch.int32)
+                      ).sum().backward()
     assert K.launch_counts() == dict.fromkeys(
         ("gather_distances", "gather_distances_int8",
          "gather_distances_bf16", "rank_merge",
          "visited_filter", "block_distances", "block_distances_int8",
          "distance_matrix", "bitonic_sort", "embedding_bag", "packed_spmm",
-         "flash_attention", "flash_attention_bwd"), 0)
+         "flash_attention", "flash_attention_bwd", "packed_spmm_bwd",
+         "embedding_bag_bwd"), 0)
 
 
 def test_resolve_backend():

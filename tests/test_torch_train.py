@@ -488,8 +488,9 @@ def test_trainer_defaults_to_the_card():
 def test_launcher_and_example_on_the_cpu(tmp_path):
     """``python -m repro_torch.launch.train --reduced --device cpu`` (AdamW
     and, for kimi, Adafactor) and ``examples/torch/train_lm.py`` exit 0
-    with their loss lines; the gnn family exits non-zero, naming the
-    next slice.  All four start together, one thread each."""
+    with their loss lines; the ANN system exits non-zero, naming the
+    quickstart (the graph families train: ``test_torch_train_gnn.py``).
+    All four start together, one thread each."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     base = [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
@@ -499,7 +500,7 @@ def test_launcher_and_example_on_the_cpu(tmp_path):
                         str(tmp_path / "a")],
         "kimi": base + ["--arch", "kimi-k2-1t-a32b", "--ckpt-dir",
                         str(tmp_path / "b")],
-        "gnn": base + ["--arch", "gin-tu"],
+        "ann": base + ["--arch", "tsdg-paper"],
         "example": [sys.executable,
                     os.path.join(ROOT, "examples", "torch", "train_lm.py"),
                     "--steps", "2", "--d-model", "16", "--layers", "1",
@@ -520,4 +521,4 @@ def test_launcher_and_example_on_the_cpu(tmp_path):
     assert "optimizer=adamw" in outs["olmo"]
     assert procs["example"].returncode == 0 and "done: loss" in \
         outs["example"], outs["example"]
-    assert procs["gnn"].returncode != 0 and "ROADMAP.md" in outs["gnn"]
+    assert procs["ann"].returncode != 0 and "quickstart" in outs["ann"]
