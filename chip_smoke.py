@@ -224,6 +224,15 @@ Phases, each printing its own lines:
    restore, 6 steps == 12 steps bit for bit), the launcher on
    ``kimi-k2-1t-a32b --reduced`` and ``examples/torch/train_lm.py`` as
    subprocesses (``[train]`` lines).
+18. training of the graph, MACE and Wide & Deep families, with phase
+   17's state released: (a) ``graphsage_reddit`` at ``minibatch_lg`` and
+   (b) ``wide_deep`` at B = 65,536 on the hand-written backward kernels
+   of ``packed_spmm`` and ``embedding_bag``, each with its gradient gate,
+   a planted fault, the kernel alone at its path's shape against its
+   plain version, 12 steps and a traced step; one call of each backward
+   at its path's shape traced in a fresh process, launch by launch
+   (``tools/bwd_trace.py``); (c) GIN, GatedGCN and MACE (forces); (d) the
+   launcher's resume (``[family]`` lines).
 
 ``Index.search`` replays the engine's CUDA graphs (the first call of a
 shape captures: one eager run, then the capture), so phases 3-4, 7 and 8
@@ -238,7 +247,9 @@ flash_attention as its bodies launch, phase 15's embedding_bag once
 a bag field a step, phase 16's packed_spmm once a GraphSAGE layer, and
 phase 17's flash_attention twice a layer a training step (the forward and
 remat's recomputation) and flash_attention_bwd twice a layer (its two
-passes).
+passes), and phase 18's packed_spmm once and packed_spmm_bwd 4 times a
+GraphSAGE layer a step, plus one plan a batch that both layers share,
+and embedding_bag and embedding_bag_bwd once a bag field a step.
 
 The line before the last is the JSON list of kernels; the last line is the
 ``ok`` JSON.  Any failure raises; without a CUDA device, or without the
@@ -4853,10 +4864,15 @@ def host_batches(stream, dev, n: int):
         yield batch, s_ms, (time.perf_counter() - t0) * 1e3
 
 
-BWD_GROUP_KERNELS = ("group_count", "scan_block_sums", "scan_top",
-                     "scan_down", "group_fill", "group_order", "group_merge",
-                     "group_sum")
-SPMM_BWD_KERNELS = BWD_GROUP_KERNELS + ("row_count_kernel",
+# the kernels of the two backward kernels' grouping, sum and zeros
+# (lane_groups.cuh), and packed_spmm_bwd's own: the plan's compaction,
+# dW, and segment_matmul.cu's copy of the active rows (its projection
+# and gather are SPMM_KERNELS[1:])
+BWD_GROUP_KERNELS = ("radix_totals", "radix_onesweep", "scan_top",
+                     "runs_count", "runs_write", "group_sum_vec",
+                     "group_sum_scalar", "zero_unread")
+SPMM_BWD_KERNELS = BWD_GROUP_KERNELS + ("compact_count", "compact_write",
+                                        "copy_rows_kernel",
                                         "dw_partial_kernel",
                                         "dw_reduce_kernel")
 
@@ -4924,7 +4940,9 @@ def spmm_bwd_library(nbrs, feat, w, dout, combine):
 def check_spmm_bwd(name, nbrs, feat, w, dout, combine="mean") -> dict:
     """``packed_spmm_bwd`` at a path's shape against its plain version
     (within SPMM_BWD_TOL of |terms|, a repeat bit for bit), timed beside
-    the plain version and :func:`spmm_bwd_library`; the bound: G's rows
+    the plain version and :func:`spmm_bwd_library`: ``ms`` a call that
+    builds its own plan, ``plan_ms`` a call on a plan built before (a
+    step's layer: both layers share the batch's plan); the bound: G's rows
     read once a lane, dfeat written once and the ids read (bytes), dW's
     operations over the rows with a child at the TF32 rate."""
     import torch
@@ -4945,6 +4963,10 @@ def check_spmm_bwd(name, nbrs, feat, w, dout, combine="mean") -> dict:
         del again, want, tol
         ms = cuda_ms(lambda: SM.packed_spmm_bwd(nbrs, feat, w, dout,
                                                 combine=combine), 10)
+        plan = SM.SpmmPlan(nbrs, feat.shape[0]).build()
+        plan_ms = cuda_ms(lambda: SM.packed_spmm_bwd(
+            nbrs, feat, w, dout, combine=combine, plan=plan), 10)
+        del plan
         plain_ms = cuda_ms(lambda: SM.packed_spmm_bwd_plain(
             nbrs, feat, w, dout, combine=combine), 3)
         lib_ms = cuda_ms(spmm_bwd_library(nbrs, feat, w, dout, combine), 10)
@@ -4958,9 +4980,10 @@ def check_spmm_bwd(name, nbrs, feat, w, dout, combine="mean") -> dict:
         raise AssertionError(f"packed_spmm_bwd {name}: err/tol {ratio}, "
                              f"repeat bit for bit {bitwise}")
     return dict(shape=name, max_abs_err=err, err_over_tol=ratio,
-                bit_equal_repeat=bitwise, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                lanes=lanes, rows_with_children=rows, bytes=nbytes)
+                bit_equal_repeat=bitwise, ms=ms, plan_ms=plan_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, lanes=lanes, rows_with_children=rows,
+                bytes=nbytes)
 
 
 def check_bag_bwd(name, ids, dout, V, combine="mean") -> dict:
@@ -5453,6 +5476,31 @@ def resume_drivers(tmp: str, dev) -> dict:
     return out
 
 
+def bwd_breakdown(dev) -> dict:
+    """One call of each backward kernel at its path's shape, traced launch
+    by launch in a fresh process (``tools/bwd_trace.py``; the smoke's late
+    traces lose device events): its ``[breakdown]`` lines, its output in
+    ``chiprun_out/smoke_bwd_trace.log``.  Returns its JSON line."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    where = [] if dev.type == "cuda" else ["--device", "cpu"]
+    p = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "bwd_trace.py"),
+         *where], env=env, capture_output=True, text=True,
+        timeout=TRAIN_TIMEOUT)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "smoke_bwd_trace.log"), "w") as f:
+        f.write(p.stdout + p.stderr)
+    if p.returncode != 0:
+        raise AssertionError(f"[family] tools/bwd_trace.py exited "
+                             f"{p.returncode}: {p.stderr[-2000:]}")
+    lines = p.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith("[breakdown]"):
+            log("[family] " + line)
+    return json.loads(lines[-1])
+
+
 def family_phase(dev) -> tuple:
     """Phase 18, with phase 17's state released: (a) GraphSAGE at
     minibatch_lg and (b) Wide & Deep at B = 65,536, both at published
@@ -5490,7 +5538,9 @@ def family_phase(dev) -> tuple:
         + f"; a repeat bit for bit: {g['bit_equal_repeat']}")
     for r in spmm_rows:
         log_kernel("packed_spmm_bwd", r, f" err/tol={r['err_over_tol']:.3f}"
-                   f"; {r['rows_with_children']} rows with a child, "
+                   f"; ms a call that builds its own plan, "
+                   f"plan_ms={r['plan_ms']:.4f} on the batch's plan; "
+                   f"{r['rows_with_children']} rows with a child, "
                    f"{r['lanes']} lanes; library = index_add_ + "
                    "torch.matmul")
     log(f"[family] (a) {FAMILY_STEPS} steps (AdamW lr 1e-3, warmup 5): "
@@ -5504,7 +5554,8 @@ def family_phase(dev) -> tuple:
     log("[family] (a) " + trace_text(a["trace"]))
     log(f"[launches] phase 18 (a) (the {FAMILY_STEPS} steps) "
         + json.dumps(a_launches))
-    want = dict(packed_spmm=2 * FAMILY_STEPS, packed_spmm_bwd=8 * FAMILY_STEPS)
+    # a step: 4 entries a layer's backward and the batch's one plan
+    want = dict(packed_spmm=2 * FAMILY_STEPS, packed_spmm_bwd=9 * FAMILY_STEPS)
     if not (g["ok"] and g["planted_rejected"] and g["bit_equal_repeat"]):
         fails.append(f"(a) gate {g}")
     if any(a_launches[k] != v for k, v in want.items()):
@@ -5547,6 +5598,10 @@ def family_phase(dev) -> tuple:
     out["b_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    out["breakdown"] = bwd_breakdown(dev)
+    out["breakdown_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     out["small"] = small = small_train_drills(dev, gen)
     for k, r in small.items():
         if "fell" in r and not r["fell"]:
@@ -5571,7 +5626,8 @@ def family_phase(dev) -> tuple:
     out["d_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[family] phase 18: {out['seconds']:.1f} s ((a) {out['a_s']:.1f}, "
-        f"(b) {out['b_s']:.1f}, (c) {out['c_s']:.1f}, (d) {out['d_s']:.1f})")
+        f"(b) {out['b_s']:.1f}, the breakdown {out['breakdown_s']:.1f}, "
+        f"(c) {out['c_s']:.1f}, (d) {out['d_s']:.1f})")
     if fails:
         raise AssertionError("[family] " + "; ".join(fails))
     launches = {k: a_launches[k] + b_launches[k] for k in a_launches}
@@ -5754,9 +5810,15 @@ def main() -> int:
         "body at each group width (registers, spilled bytes) a thread: "
         + json.dumps(record["bag_bodies"]))
     record["spmm_bodies"] = segment_matmul.body_attributes()
-    log("[build] segment_matmul.cu kernels, fused, projection and gather "
-        "(registers, spilled bytes) a thread: "
+    log("[build] segment_matmul.cu kernels, fused, projection, gather and "
+        "the copy of listed rows (registers, spilled bytes) a thread: "
         + json.dumps(record["spmm_bodies"]))
+    record["bwd_group_bodies"] = {
+        "segment_matmul_bwd": segment_matmul.bwd_body_attributes(),
+        "embedding_bag_bwd": embedding_bag.bwd_body_attributes()}
+    log("[build] segment_matmul_bwd.cu and embedding_bag_bwd.cu kernels, "
+        "the grouping, the sums, the zeros and dW (registers, spilled "
+        "bytes) a thread: " + json.dumps(record["bwd_group_bodies"]))
     record["sass_hmma"] = sass = sass_hmma()
     for source, counts in sass.items():
         log(f"[sass] HMMA instructions a {source}.cu kernel (cuobjdump "

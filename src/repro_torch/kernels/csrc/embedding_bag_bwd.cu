@@ -14,18 +14,23 @@
 // every row, so a sparse gradient would change the update).  float32: the
 // reference trains in float32; the wrapper refuses a bf16 table.
 //
-// Design.  Phase 15's skewed ids read 2.11 M distinct rows of 2.62 M
-// lookups a field at B = 262,144, and the hottest rows hundreds of times:
-// a float atomic a lookup would serialise on them and sum in an order
-// that changes from run to run.  So the lookups are grouped by row
-// (lane_groups.cuh: a counting sort built here, each group in (b, t)
-// order, deterministic) and one warp a table row sums its group from zero
-// (group_sum: the keys loaded 32 at once, 8 rows of dout in flight), each
-// term dout[b] / bag rounded to nearest before its add, as the
-// reference's mean transposes.  Rows no lookup reads get exact zeros.
-// Bound on the H100: the dense dtable written once (4 V E bytes) and the
-// distinct rows' dout terms read once; at phase 18's fields the write of
-// dtable sets it.
+// Design (lane_groups.cuh).  Phase 18's skewed ids read 608,744 distinct
+// rows of a 10^7-row field with 655,360 lookups, the hottest rows
+// hundreds of times: a float atomic a lookup would serialise on them and
+// sum in an order that changes from run to run.  So the lookups (all
+// valid: the ids are clamped) are sorted by row with a stable LSD radix
+// sort read straight from the ids (3 passes of 8-bit digits at V = 10^7,
+// one launch each), the runs of equal rows found, and each distinct row
+// summed from zero over its lookups' dout[b] / bag in (b, t) order, each
+// term rounded to nearest before its add (div_by), as the reference's
+// mean transposes: a group of 8 lanes (a float4 of the row's 32 floats
+// each) takes the rows that start in a block of 8 sorted lookups.  Then a
+// store-only pass writes the zeros of the rows no lookup reads.  Every
+// pass but the last follows the lookups, not V; no scratch is the size of
+// the table.  Bound on the H100: the dense dtable written once (4 V E
+// bytes) and dout and the ids read once; at phase 18's fields the write
+// of dtable sets it, and the zero pass is most of the time (0.42 of 0.57
+// ms of device time on an H100 80GB HBM3 at 700 W; PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,24 +38,50 @@
 
 namespace {
 
-// lookup e of ids [B, bag] reads row clamp(id, 0, V - 1)
-struct BagTarget {
-  const int32_t* ids;
-  int V;
-  __device__ __forceinline__ int operator()(long long e) const {
-    return min(max(ids[e], 0), V - 1);
-  }
+// lookup e of ids [B, bag] adds dout[e / bag], divided by `div` for the
+// mean
+struct BagTerm {
+  int bag;
+  int div;
+  __device__ __forceinline__ int src(int e) const { return e / bag; }
+  __device__ __forceinline__ int div_of(int) const { return div; }
 };
 
 }  // namespace
 
-// dtable [V, E] float32 from dout [B, E] float32 and ids [B, bag] int32.
-// Scratch (int32): cnt and cursor [V], off [V + 1], bsum [scan_blocks(V)],
-// lanes [4 B bag + 1], keys [B bag].  mean != 0 divides each term by bag.
+// ints of scratch repro_bag_groups and repro_embedding_bag_bwd take for
+// L = B bag lookups over V rows
+extern "C" long long repro_bag_bwd_scratch(long long L, long long V) {
+  return sort_scratch(L, V);
+}
+
+// The grouping of ids [B, bag] int32 over V rows: lanes [L] the lookups
+// sorted by row, stably; rows [L] the distinct rows, starts [L + 1] their
+// first positions, firsts [ceil(L / 8)] the row of every 8th position;
+// meta [kMetaInts] the lookups and the distinct rows.
+extern "C" int repro_bag_groups(const void* ids, void* lanes, void* rows,
+                                void* starts, void* firsts, void* meta,
+                                void* scratch, int B, int bag, long long V,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long L = static_cast<long long>(B) * bag;
+  if (L >= (1LL << 31) || V < 1 || V >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(group_sort(
+      IdsSrc{static_cast<const int32_t*>(ids), static_cast<int>(V)},
+      Count{nullptr, L}, L, V, static_cast<int*>(scratch),
+      static_cast<int*>(lanes), static_cast<int*>(rows),
+      static_cast<int*>(starts), static_cast<int*>(firsts),
+      static_cast<int*>(meta), st));
+}
+
+// dtable [V, E] float32 from dout [B, E] float32 and ids [B, bag] int32:
+// the grouping (repro_bag_groups' outputs and scratch), the sum over the
+// distinct rows, the zeros.  mean != 0 divides each term by bag.
 extern "C" int repro_embedding_bag_bwd(const void* dout, const void* ids,
-                                       void* dtable, void* cnt, void* cursor,
-                                       void* off, void* bsum, void* lanes,
-                                       void* keys, int B, int bag,
+                                       void* dtable, void* lanes, void* rows,
+                                       void* starts, void* firsts, void* meta,
+                                       void* scratch, int B, int bag,
                                        long long V, int E, int mean,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -59,31 +90,33 @@ extern "C" int repro_embedding_bag_bwd(const void* dout, const void* ids,
       (L > 0 && V == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (V == 0 || E == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t e = group_lanes(
-      BagTarget{static_cast<const int32_t*>(ids), static_cast<int>(V)}, L, V,
-      static_cast<int*>(cnt), static_cast<int*>(cursor),
-      static_cast<int*>(off), static_cast<int*>(bsum),
-      static_cast<int*>(lanes), static_cast<int*>(keys), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  group_sum<<<sum_blocks(V), kSumWarps * 32, 0, st>>>(
-      static_cast<const float*>(dout), static_cast<const int*>(keys),
-      static_cast<const int*>(off), nullptr, static_cast<float*>(dtable), V,
-      E, bag > 0 ? bag : 1, mean ? bag : 0);
-  return static_cast<int>(cudaGetLastError());
+  const int err = repro_bag_groups(ids, lanes, rows, starts, firsts, meta,
+                                   scratch, B, bag, V, stream);
+  if (err != 0) return err;
+  return static_cast<int>(group_sum(
+      static_cast<const float*>(dout), static_cast<const int*>(lanes),
+      static_cast<const int*>(rows), static_cast<const int*>(starts),
+      static_cast<const int*>(firsts), static_cast<const int*>(meta), L,
+      BagTerm{bag > 0 ? bag : 1, bag}, mean != 0,
+      static_cast<float*>(dtable), V, E, st));
 }
 
 // Registers and local (spilled) bytes a thread of body `which`, in the
 // order of kernels/embedding_bag.py BWD_BODIES.
 extern "C" int repro_bag_bwd_attrs(int which, int* regs, int* local_bytes) {
   static const void* const bodies[] = {
-      reinterpret_cast<const void*>(group_count<BagTarget>),
-      reinterpret_cast<const void*>(scan_block_sums),
+      reinterpret_cast<const void*>(radix_totals<IdsSrc>),
+      reinterpret_cast<const void*>(radix_totals<PairSrc>),
+      reinterpret_cast<const void*>(radix_onesweep<IdsSrc>),
+      reinterpret_cast<const void*>(radix_onesweep<PairSrc>),
       reinterpret_cast<const void*>(scan_top),
-      reinterpret_cast<const void*>(scan_down),
-      reinterpret_cast<const void*>(group_fill<BagTarget>),
-      reinterpret_cast<const void*>(group_order<BagTarget>),
-      reinterpret_cast<const void*>(group_merge),
-      reinterpret_cast<const void*>(group_sum)};
+      reinterpret_cast<const void*>(runs_count),
+      reinterpret_cast<const void*>(runs_write),
+      reinterpret_cast<const void*>(group_sum_vec<8, BagTerm>),
+      reinterpret_cast<const void*>(group_sum_vec<32, BagTerm>),
+      reinterpret_cast<const void*>(group_sum_scalar<BagTerm>),
+      reinterpret_cast<const void*>(zero_unread<true>),
+      reinterpret_cast<const void*>(zero_unread<false>)};
   constexpr int nb = sizeof(bodies) / sizeof(bodies[0]);
   if (which < 0 || which >= nb) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;

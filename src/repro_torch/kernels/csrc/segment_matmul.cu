@@ -65,6 +65,14 @@
 // up to kBatch row loads are in flight before the adds; the output is
 // stored in fp32 or bf16.
 //
+// The gradient (segment_matmul_bwd.cu) takes both on listed rows, their
+// count on the card: repro_spmm_project_rows copies the listed rows of a
+// float32 operand together (copy_rows_kernel) and projects them, its grid
+// sized by the bound and its CTAs past the count returning at once;
+// repro_spmm_gather_rows gathers the listed rows of the neighbour matrix.
+// A row's result is the same either way: each output row depends on its
+// own input row alone.
+//
 // Bytes of the bf16 bodies: 2 a feat element and (for bf16) an output
 // element, so the bounds above halve where feat's rows dominate.
 #include <cuda_runtime.h>
@@ -131,9 +139,9 @@ spmm_kernel(const int32_t* __restrict__ nbrs, const TF* __restrict__ feat,
     sdiv[tid] = static_cast<float>(cnt > 1 ? cnt : 1);
   }
   float acc[4][8];
-#pragma unroll
+  #pragma unroll
   for (int i = 0; i < 4; ++i)
-#pragma unroll
+    #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   for (int d0 = 0; d0 < d; d0 += kDc) {
     __syncthreads();
@@ -143,7 +151,7 @@ spmm_kernel(const int32_t* __restrict__ nbrs, const TF* __restrict__ feat,
       float sum = 0.f;
       for (int t0 = 0; t0 < M; t0 += kBatch) {
         float v[kBatch];
-#pragma unroll
+        #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           v[u] = 0.f;
           if (t0 + u < M && k < d) {
@@ -151,7 +159,7 @@ spmm_kernel(const int32_t* __restrict__ nbrs, const TF* __restrict__ feat,
             if (id >= 0) v[u] = load_elem(feat + (long long)id * d + k);
           }
         }
-#pragma unroll
+        #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           if (t0 + u < M) sum += v[u];
         }
@@ -167,22 +175,22 @@ spmm_kernel(const int32_t* __restrict__ nbrs, const TF* __restrict__ feat,
 #pragma unroll 8
     for (int kk = 0; kk < kDc; ++kk) {
       float a[4], b[8];
-#pragma unroll
+      #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = as[kk][ty + 16 * i];
-#pragma unroll
+      #pragma unroll
       for (int j = 0; j < 8; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
+      #pragma unroll
       for (int i = 0; i < 4; ++i)
-#pragma unroll
+        #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
     }
   }
-#pragma unroll
+  #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long r = r0 + ty + 16 * i;
     if (r >= N) continue;
     TF* orow = out + r * f;
-#pragma unroll
+    #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = f0 + tx + 16 * j;
       if (c < f) store_elem(orow + c, acc[i][j]);
@@ -227,7 +235,7 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld,
   asm volatile("" : "+l"(s));
   const long long step = static_cast<long long>(STEP) * stride;
   float* p = dst + r * ld + c;
-#pragma unroll
+  #pragma unroll
   for (int i = 0; i < ROWS / STEP; ++i, s += step, p += STEP * ld) {
     const bool ok = r + STEP * i < valid && c < cvalid;
     if constexpr (BYTES == 16) {
@@ -258,15 +266,15 @@ __device__ __forceinline__ void stage_wide(float* dst, int ld,
   asm volatile("" : "+l"(s));
   const long long step = static_cast<long long>(STEP) * stride;
   float* p = dst + r * ld + c;
-#pragma unroll
+  #pragma unroll
   for (int i0 = 0; i0 < N; i0 += kPer) {
     uint16_t v[kPer];
-#pragma unroll
+    #pragma unroll
     for (int u = 0; u < kPer; ++u, s += step) {
       v[u] = r + STEP * (i0 + u) < valid && c < cvalid
                  ? __ldg(s) : static_cast<uint16_t>(0);
     }
-#pragma unroll
+    #pragma unroll
     for (int u = 0; u < kPer; ++u, p += STEP * ld) *p = widen(v[u]);
   }
 }
@@ -295,10 +303,10 @@ __device__ __forceinline__ void p_products(float (&acc)[kPMI][kPNI][4],
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const float* qa = as + (16 * MI * wm + g) * kPLdA + 2 * t4;
   const float* wb = bs + 2 * t4 * kPLdB + 8 * NI * wn + g;
-#pragma unroll
+  #pragma unroll
   for (int kk = 0; kk < kPDc / 8; ++kk) {
     uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
-#pragma unroll
+    #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
       const float* r = qa + 16 * mi * kPLdA + kk * 8;
       const float2 x0 = *reinterpret_cast<const float2*>(r);
@@ -308,25 +316,25 @@ __device__ __forceinline__ void p_products(float (&acc)[kPMI][kPNI][4],
       split_tf32(x0.y, ah[mi][2], al[mi][2]);
       split_tf32(x1.y, ah[mi][3], al[mi][3]);
     }
-#pragma unroll
+    #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
       const float* p = wb + kk * 8 * kPLdB + 8 * ni;
       split_tf32(p[0], bh[ni][0], bl[ni][0]);
       split_tf32(p[kPLdB], bh[ni][1], bl[ni][1]);
     }
-#pragma unroll
+    #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
+      #pragma unroll
       for (int ni = 0; ni < NI; ++ni)
         mma_tf32(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
-#pragma unroll
+    #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
+      #pragma unroll
       for (int ni = 0; ni < NI; ++ni)
         mma_tf32(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
-#pragma unroll
+    #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
+      #pragma unroll
       for (int ni = 0; ni < NI; ++ni)
         mma_tf32(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
   }
@@ -335,11 +343,16 @@ __device__ __forceinline__ void p_products(float (&acc)[kPMI][kPNI][4],
 // One CTA per 64 rows of feat x 128 columns of W (blockIdx.y), two CTAs
 // an SM.  AB / WB: the cp.async piece of feat's / W's fp32 rows, in
 // bytes, or AB = 2 for a bf16 feat.  y is float32, or bf16 for out_bf16.
+// nrows: where given, the rows on the card (at most Nf); a CTA then takes
+// row tiles blockIdx.x, + gridDim.x, ... (the grid sized for the bound
+// would be mostly CTAs with no row).
 template <int AB, int WB>
 __global__ void __launch_bounds__(kPThreads, 2)
 project_kernel(const void* __restrict__ feat_, const void* __restrict__ w_,
-               void* __restrict__ y, int Nf, int d, int f, int out_bf16) {
+               void* __restrict__ y, const int* __restrict__ nrows, int Nf,
+               int d, int f, int out_bf16) {
   using TA = typename std::conditional<AB == 2, uint16_t, float>::type;
+  if (nrows != nullptr) Nf = *nrows;
   const TA* feat = static_cast<const TA*>(feat_);
   const float* w = static_cast<const float*>(w_);
   constexpr int MI = kPMI, NI = kPNI;
@@ -347,178 +360,216 @@ project_kernel(const void* __restrict__ feat_, const void* __restrict__ w_,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp / kPWN, wn = warp % kPWN;
-  const long long r0 = (long long)blockIdx.x * kPRows;
-  const int f0 = blockIdx.y * kPCols;
-  const int rv = static_cast<int>(Nf - r0 < kPRows ? Nf - r0 : kPRows);
-  const int fv = f - f0;
-  const TA* fa = feat + r0 * d;
-  const float* wa = w + f0;
-  const int n_chunks = (d + kPDc - 1) / kPDc;
-  auto stage = [&](int c) {
-    float* st = p_smem + (c % kPStages) * kPStage;
-    const int d0 = c * kPDc;
-    stage_any<AB, kPRows, kPDc>(st, kPLdA, fa + d0, d, rv, d - d0);
-    stage_any<WB, kPDc, kPCols>(st + kPRows * kPLdA, kPLdB,
-                                wa + (long long)d0 * f, f, d - d0, fv);
-  };
+  for (long long tile = blockIdx.x; tile * kPRows < Nf; tile += gridDim.x) {
+    const long long r0 = tile * kPRows;
+    const int f0 = blockIdx.y * kPCols;
+    const int rv = static_cast<int>(Nf - r0 < kPRows ? Nf - r0 : kPRows);
+    const int fv = f - f0;
+    const TA* fa = feat + r0 * d;
+    const float* wa = w + f0;
+    const int n_chunks = (d + kPDc - 1) / kPDc;
+    auto stage = [&](int c) {
+      float* st = p_smem + (c % kPStages) * kPStage;
+      const int d0 = c * kPDc;
+      stage_any<AB, kPRows, kPDc>(st, kPLdA, fa + d0, d, rv, d - d0);
+      stage_any<WB, kPDc, kPCols>(st + kPRows * kPLdA, kPLdB,
+                                  wa + (long long)d0 * f, f, d - d0, fv);
+    };
 
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-#pragma unroll
-  for (int c = 0; c < kPStages - 1; ++c) {
-    if (c < n_chunks) stage(c);
-    cp_async_commit();
-  }
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    cp_async_wait<kPStages - 2>();
-    __syncthreads();   // chunk ch is in; every read of the slot refilled
-    if (ch + kPStages - 1 < n_chunks) stage(ch + kPStages - 1);
-    cp_async_commit();
-    const float* as = p_smem + (ch % kPStages) * kPStage;
-    // a fresh accumulator a chunk, added to acc rounded to nearest: the
-    // tensor cores' adder truncates, and its bias would grow with d
-    float part[MI][NI][4] = {};
-    p_products(part, as, as + kPRows * kPLdA, wm, wn);
-#pragma unroll
+    float acc[MI][NI][4];
+    #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
+      #pragma unroll
       for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
-  }
-  cp_async_wait<0>();
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    #pragma unroll
+    for (int c = 0; c < kPStages - 1; ++c) {
+      if (c < n_chunks) stage(c);
+      cp_async_commit();
+    }
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      cp_async_wait<kPStages - 2>();
+      __syncthreads();   // chunk ch is in; every read of the slot refilled
+      if (ch + kPStages - 1 < n_chunks) stage(ch + kPStages - 1);
+      cp_async_commit();
+      const float* as = p_smem + (ch % kPStages) * kPStage;
+      // a fresh accumulator a chunk, added to acc rounded to nearest: the
+      // tensor cores' adder truncates, and its bias would grow with d
+      float part[MI][NI][4] = {};
+      p_products(part, as, as + kPRows * kPLdA, wm, wn);
+      #pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        #pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          #pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+    }
+    cp_async_wait<0>();
 
-  const bool pairs = (f & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int lr = 16 * (MI * wm + mi) + g + 8 * h;
-      if (lr >= rv) continue;
-      const long long y0 = (r0 + lr) * f + f0;
-      float* yrow = static_cast<float*>(y) + y0;
-      uint16_t* hrow = static_cast<uint16_t*>(y) + y0;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int lc = 8 * (NI * wn + ni) + 2 * t4;
-        if (lc >= fv) continue;
-        const float a = acc[mi][ni][2 * h], b = acc[mi][ni][2 * h + 1];
-        if (out_bf16) {
-          if (pairs) {
-            *reinterpret_cast<uint32_t*>(hrow + lc) =
-                to_bf16(a) | static_cast<uint32_t>(to_bf16(b)) << 16;
+    const bool pairs = (f & 1) == 0;
+    #pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lr = 16 * (MI * wm + mi) + g + 8 * h;
+        if (lr >= rv) continue;
+        const long long y0 = (r0 + lr) * f + f0;
+        float* yrow = static_cast<float*>(y) + y0;
+        uint16_t* hrow = static_cast<uint16_t*>(y) + y0;
+        #pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int lc = 8 * (NI * wn + ni) + 2 * t4;
+          if (lc >= fv) continue;
+          const float a = acc[mi][ni][2 * h], b = acc[mi][ni][2 * h + 1];
+          if (out_bf16) {
+            if (pairs) {
+              *reinterpret_cast<uint32_t*>(hrow + lc) =
+                  to_bf16(a) | static_cast<uint32_t>(to_bf16(b)) << 16;
+            } else {
+              hrow[lc] = to_bf16(a);
+              if (lc + 1 < fv) hrow[lc + 1] = to_bf16(b);
+            }
+          } else if (pairs) {
+            *reinterpret_cast<float2*>(yrow + lc) = make_float2(a, b);
           } else {
-            hrow[lc] = to_bf16(a);
-            if (lc + 1 < fv) hrow[lc + 1] = to_bf16(b);
+            yrow[lc] = a;
+            if (lc + 1 < fv) yrow[lc + 1] = b;
           }
-        } else if (pairs) {
-          *reinterpret_cast<float2*>(yrow + lc) = make_float2(a, b);
-        } else {
-          yrow[lc] = a;
-          if (lc + 1 < fv) yrow[lc + 1] = b;
         }
       }
-    }
+    __syncthreads();   // the ring is free for the next tile
+  }
 }
 
 // ---- "transform" (b): the gather and mean over Y's rows -------------------
 
 constexpr int kGWarps = 8;     // output rows a CTA, one a warp
 constexpr int kGCols = 128;    // columns a warp: 4 a lane
+// CTAs of a launch over listed rows, whose count is on the card: the
+// gather and the copy (looping), the projection (two an SM, looping)
+constexpr long long kRowsBlocks = 132 * 8;
+constexpr long long kProjectRowsBlocks = 132 * 2;
 
 // VEC: lane l holds columns 4l .. 4l + 3 of the tile (one float4 load a
 // row); else columns l + 32 j, j < 4.  out is float32, or bf16 for
-// out_bf16.
+// out_bf16.  Output row k aggregates row i = rows[k] of nbrs, k < *nrows
+// (where given; else i = k < N); a warp takes rows k, + the grid's warps,
+// ... (one, where the grid covers N).
 template <bool VEC>
 __global__ void __launch_bounds__(kGWarps * 32)
 gather_kernel(const int32_t* __restrict__ nbrs, const float* __restrict__ y,
-              void* __restrict__ out, int N, int M, int Nf, int f,
+              void* __restrict__ out, const int* __restrict__ rows,
+              const int* __restrict__ nrows, int N, int M, int Nf, int f,
               int mean, int out_bf16) {
   const int lane = threadIdx.x & 31;
-  const long long i = (long long)blockIdx.x * kGWarps + (threadIdx.x >> 5);
-  if (i >= N) return;
-  const int f0 = blockIdx.y * kGCols;
-  const int c0 = f0 + (VEC ? 4 * lane : lane);
-  bool col[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) col[j] = (VEC ? c0 : c0 + 32 * j) < f;
-  const int32_t* rid = nbrs + i * M;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  int cnt = 0;
-  for (int t0 = 0; t0 < M; t0 += 32) {
-    // the lane's id: the row read (a negative id reads row 0), -1 skipped
-    int32_t id = -1;
-    if (t0 + lane < M) {
-      const int32_t raw = __ldg(rid + t0 + lane);
-      if (raw < Nf) id = raw < 0 ? 0 : raw;
-    }
-    cnt += __popc(__ballot_sync(0xffffffffu, id >= 0));
-    const int m = M - t0 < 32 ? M - t0 : 32;
-    for (int u0 = 0; u0 < m; u0 += kBatch) {
-      float v[kBatch][4];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int32_t src = __shfl_sync(0xffffffffu, id, u0 + u);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[u][j] = 0.f;
-        if (u0 + u >= m || src < 0) continue;
-        const float* row = y + (long long)src * f;
-        if constexpr (VEC) {
-          if (col[0]) {
-            const float4 x = __ldg(reinterpret_cast<const float4*>(row + c0));
-            v[u][0] = x.x;
-            v[u][1] = x.y;
-            v[u][2] = x.z;
-            v[u][3] = x.w;
+  const long long n = nrows != nullptr ? *nrows : N;
+  for (long long k = (long long)blockIdx.x * kGWarps + (threadIdx.x >> 5);
+       k < n; k += (long long)gridDim.x * kGWarps) {
+    const long long i = rows != nullptr ? rows[k] : k;
+    const int f0 = blockIdx.y * kGCols;
+    const int c0 = f0 + (VEC ? 4 * lane : lane);
+    bool col[4];
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) col[j] = (VEC ? c0 : c0 + 32 * j) < f;
+    const int32_t* rid = nbrs + i * M;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    int cnt = 0;
+    for (int t0 = 0; t0 < M; t0 += 32) {
+      // the lane's id: the row read (a negative id reads row 0), -1 skipped
+      int32_t id = -1;
+      if (t0 + lane < M) {
+        const int32_t raw = __ldg(rid + t0 + lane);
+        if (raw < Nf) id = raw < 0 ? 0 : raw;
+      }
+      cnt += __popc(__ballot_sync(0xffffffffu, id >= 0));
+      const int m = M - t0 < 32 ? M - t0 : 32;
+      for (int u0 = 0; u0 < m; u0 += kBatch) {
+        float v[kBatch][4];
+        #pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int32_t src = __shfl_sync(0xffffffffu, id, u0 + u);
+          #pragma unroll
+          for (int j = 0; j < 4; ++j) v[u][j] = 0.f;
+          if (u0 + u >= m || src < 0) continue;
+          const float* row = y + (long long)src * f;
+          if constexpr (VEC) {
+            if (col[0]) {
+              const float4 x =
+                  __ldg(reinterpret_cast<const float4*>(row + c0));
+              v[u][0] = x.x;
+              v[u][1] = x.y;
+              v[u][2] = x.z;
+              v[u][3] = x.w;
+            }
+          } else {
+            #pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (col[j]) v[u][j] = __ldg(row + c0 + 32 * j);
           }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (col[j]) v[u][j] = __ldg(row + c0 + 32 * j);
         }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (u0 + u < m) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[j] += v[u][j];
+        #pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u0 + u < m) {
+            #pragma unroll
+            for (int j = 0; j < 4; ++j) s[j] += v[u][j];
+          }
         }
       }
     }
-  }
-  if (mean) {
-    const float div = static_cast<float>(cnt > 1 ? cnt : 1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = __fdiv_rn(s[j], div);
-  }
-  if (out_bf16) {
-    uint16_t* hrow = static_cast<uint16_t*>(out) + i * f;
+    if (mean) {
+      const float div = static_cast<float>(cnt > 1 ? cnt : 1);
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = __fdiv_rn(s[j], div);
+    }
+    if (out_bf16) {
+      uint16_t* hrow = static_cast<uint16_t*>(out) + k * f;
+      if constexpr (VEC) {
+        if (col[0])
+          *reinterpret_cast<uint2*>(hrow + c0) = make_uint2(
+              to_bf16(s[0]) | static_cast<uint32_t>(to_bf16(s[1])) << 16,
+              to_bf16(s[2]) | static_cast<uint32_t>(to_bf16(s[3])) << 16);
+      } else {
+        #pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col[j]) hrow[c0 + 32 * j] = to_bf16(s[j]);
+      }
+      continue;
+    }
+    float* orow = static_cast<float*>(out) + k * f;
     if constexpr (VEC) {
       if (col[0])
-        *reinterpret_cast<uint2*>(hrow + c0) = make_uint2(
-            to_bf16(s[0]) | static_cast<uint32_t>(to_bf16(s[1])) << 16,
-            to_bf16(s[2]) | static_cast<uint32_t>(to_bf16(s[3])) << 16);
+        *reinterpret_cast<float4*>(orow + c0) = make_float4(s[0], s[1], s[2],
+                                                            s[3]);
     } else {
-#pragma unroll
+      #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (col[j]) hrow[c0 + 32 * j] = to_bf16(s[j]);
+        if (col[j]) orow[c0 + 32 * j] = s[j];
     }
-    return;
   }
-  float* orow = static_cast<float*>(out) + i * f;
-  if constexpr (VEC) {
-    if (col[0])
-      *reinterpret_cast<float4*>(orow + c0) = make_float4(s[0], s[1], s[2],
-                                                          s[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (col[j]) orow[c0 + 32 * j] = s[j];
+}
+
+// dst[k] = src[rows[k]] for k < *nrows, rows of C floats: a warp a row,
+// a float4 a lane (VEC: C % 4 == 0, both 16-byte aligned) or a float
+template <bool VEC>
+__global__ void __launch_bounds__(kGWarps * 32)
+copy_rows_kernel(const float* __restrict__ src, const int* __restrict__ rows,
+                 const int* __restrict__ nrows, float* __restrict__ dst,
+                 int C) {
+  const int lane = threadIdx.x & 31;
+  const long long n = *nrows;
+  const long long warps = static_cast<long long>(gridDim.x) * kGWarps;
+  for (long long k = (long long)blockIdx.x * kGWarps + (threadIdx.x >> 5);
+       k < n; k += warps) {
+    const float* s = src + static_cast<long long>(rows[k]) * C;
+    float* t = dst + k * C;
+    if constexpr (VEC) {
+      for (int c = lane; c < C / 4; c += 32)
+        reinterpret_cast<float4*>(t)[c] =
+            __ldg(reinterpret_cast<const float4*>(s) + c);
+    } else {
+      for (int c = lane; c < C; c += 32) t[c] = __ldg(s + c);
+    }
   }
 }
 
@@ -544,8 +595,8 @@ int launch_fused(dim3 grid, const void* nbrs, const void* feat,
 
 // the projection's bodies by the cp.async pieces of feat's rows and W's
 // (bytes; 2: a bf16 feat), in kernels/segment_matmul.py BODIES' order
-using ProjectFn = void (*)(const void*, const void*, void*, int, int, int,
-                           int);
+using ProjectFn = void (*)(const void*, const void*, void*, const int*, int,
+                           int, int, int);
 constexpr ProjectFn kProjectBodies[] = {
     project_kernel<16, 16>, project_kernel<8, 16>, project_kernel<4, 4>,
     project_kernel<2, 16>,  project_kernel<2, 4>};
@@ -571,12 +622,11 @@ extern "C" int repro_spmm_fused(const void* nbrs, const void* feat,
                                          d, f, mean, st);
 }
 
-// "transform" (a): feat [Nf, d] float32 or bf16 (feat_bf16) x w [d, f]
-// float32 -> y [Nf, f] float32, or bf16 for out_bf16 (y 8-byte aligned).
-extern "C" int repro_spmm_project(const void* feat, const void* w, void* y,
-                                  int Nf, int d, int f, int feat_bf16,
-                                  int out_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// the projection's launch; nrows: the rows on the card, at most Nf, or
+// null for Nf
+static int launch_project(const void* feat, const void* w, void* y,
+                          const int* nrows, int Nf, int d, int f,
+                          int feat_bf16, int out_bf16, cudaStream_t st) {
   if (Nf == 0 || f == 0) return static_cast<int>(cudaGetLastError());
   const int f_tiles = (f + kPCols - 1) / kPCols;
   if (f_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -595,10 +645,47 @@ extern "C" int repro_spmm_project(const void* feat, const void* w, void* y,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kPSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((Nf + (long long)kPRows - 1) /
-                                        kPRows), f_tiles);
-  kern<<<grid, kPThreads, kPSmem, st>>>(feat, w, y, Nf, d, f, out_bf16);
+  long long tiles = (Nf + (long long)kPRows - 1) / kPRows;
+  if (nrows != nullptr && tiles > kProjectRowsBlocks)
+    tiles = kProjectRowsBlocks;
+  const dim3 grid(static_cast<unsigned>(tiles), f_tiles);
+  kern<<<grid, kPThreads, kPSmem, st>>>(feat, w, y, nrows, Nf, d, f,
+                                        out_bf16);
   return static_cast<int>(cudaGetLastError());
+}
+
+// "transform" (a): feat [Nf, d] float32 or bf16 (feat_bf16) x w [d, f]
+// float32 -> y [Nf, f] float32, or bf16 for out_bf16 (y 8-byte aligned).
+extern "C" int repro_spmm_project(const void* feat, const void* w, void* y,
+                                  int Nf, int d, int f, int feat_bf16,
+                                  int out_bf16, void* stream) {
+  return launch_project(feat, w, y, nullptr, Nf, d, f, feat_bf16, out_bf16,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The projection of listed rows: a [N, d] float32's rows rows[k], k <
+// *nrows (at most N, counted on the card), copied into a_rows [N, d] in
+// that order, then y [N, f] float32 = a_rows @ w (rows past *nrows
+// untouched).  Two launches.
+extern "C" int repro_spmm_project_rows(const void* a, const void* w, void* y,
+                                       void* a_rows, const void* rows,
+                                       const void* nrows, int N, int d,
+                                       int f, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+  if (d > 0) {
+    const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(a_rows) % 16 == 0;
+    const long long b = (N + (long long)kGWarps - 1) / kGWarps;
+    const unsigned blocks =
+        static_cast<unsigned>(b < kRowsBlocks ? b : kRowsBlocks);
+    auto kern = vec ? copy_rows_kernel<true> : copy_rows_kernel<false>;
+    kern<<<blocks, kGWarps * 32, 0, st>>>(
+        static_cast<const float*>(a), static_cast<const int*>(rows),
+        static_cast<const int*>(nrows), static_cast<float*>(a_rows), d);
+  }
+  return launch_project(a_rows, w, y, static_cast<const int*>(nrows),
+                        N, d, f, 0, 0, st);
 }
 
 // "transform" (b): neighbors [N, M] int32 over y [Nf, f] float32 -> out
@@ -618,25 +705,51 @@ extern "C" int repro_spmm_gather(const void* nbrs, const void* y, void* out,
   auto kern = vec ? gather_kernel<true> : gather_kernel<false>;
   kern<<<grid, kGWarps * 32, 0, st>>>(
       static_cast<const int32_t*>(nbrs), static_cast<const float*>(y), out,
-      N, M, Nf, f, mean, out_bf16);
+      nullptr, nullptr, N, M, Nf, f, mean, out_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gather of listed rows: out [N, f] float32, row k the lane-order sum
+// (mean != 0: divided by the count) of row rows[k] of neighbors [N, M]
+// over y [Nf, f] float32, k < *nrows (at most N, counted on the card).
+extern "C" int repro_spmm_gather_rows(const void* nbrs, const void* y,
+                                      void* out, const void* rows,
+                                      const void* nrows, int N, int M, int Nf,
+                                      int f, int mean, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+  const int f_tiles = (f + kGCols - 1) / kGCols;
+  if (f_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // the grid sized for at most kRowsBlocks CTAs a column tile, looping
+  const long long b = (N + (long long)kGWarps - 1) / kGWarps;
+  const dim3 grid(static_cast<unsigned>(b < kRowsBlocks ? b : kRowsBlocks),
+                  f_tiles);
+  auto kern = vec ? gather_kernel<true> : gather_kernel<false>;
+  kern<<<grid, kGWarps * 32, 0, st>>>(
+      static_cast<const int32_t*>(nbrs), static_cast<const float*>(y), out,
+      static_cast<const int*>(rows), static_cast<const int*>(nrows), N, M,
+      Nf, f, mean, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers and local (spilled) bytes a thread of body `which`, in the
 // order of kernels/segment_matmul.py BODIES: fused fp32, fused bf16, the
 // five projections (kProjectBodies), gather with float4 rows, gather
-// element-wise.
+// element-wise, the copy of listed rows in float4 and element-wise.
 extern "C" int repro_spmm_attrs(int which, int* regs, int* local_bytes) {
-  constexpr int n = 2 + kNProject + 2;
+  constexpr int n = 2 + kNProject + 4;
   if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
+  const int k = which - 2 - kNProject;
   const void* body =
       which == 0   ? reinterpret_cast<const void*>(spmm_kernel<float>)
       : which == 1 ? reinterpret_cast<const void*>(spmm_kernel<uint16_t>)
-      : which < 2 + kNProject
-          ? reinterpret_cast<const void*>(kProjectBodies[which - 2])
-      : which == 2 + kNProject
-          ? reinterpret_cast<const void*>(gather_kernel<true>)
-          : reinterpret_cast<const void*>(gather_kernel<false>);
+      : k < 0      ? reinterpret_cast<const void*>(kProjectBodies[which - 2])
+      : k == 0     ? reinterpret_cast<const void*>(gather_kernel<true>)
+      : k == 1     ? reinterpret_cast<const void*>(gather_kernel<false>)
+      : k == 2     ? reinterpret_cast<const void*>(copy_rows_kernel<true>)
+                   : reinterpret_cast<const void*>(copy_rows_kernel<false>);
   cudaFuncAttributes a;
   const cudaError_t e = cudaFuncGetAttributes(&a, body);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -26,10 +26,14 @@ saves the ids only): its backward, :func:`embedding_bag_bwd`, launches
 ``csrc/embedding_bag_bwd.cu``, ``dtable[v] = sum over (b, t) with
 clamp(ids[b, t]) = v, in (b, t) order, of dout[b] / bag`` (``/ 1`` for
 "sum"), dense [V, E] float32 as the reference's autodiff of ``jnp.take``
-gives it: the lookups grouped by row with a counting sort built on the
-card, a warp a row summing its group, no float atomics (a repeat is bit
-for bit; hot rows are one warp's sum, not a queue of atomics).  It
-replaces no TPU kernel (the reference differentiates its plain path).
+gives it.  One entry call: the lookups sorted by row with a stable LSD
+radix sort written for the card (``kernels/lane_groups.py``: 3 passes of
+8-bit digits at V = 10^7, each O(the lookups)), the runs of equal rows, a
+group of lanes a distinct row summing its lookups in (b, t) order, then a
+store-only pass of zeros over the rows no lookup reads.  No float atomics
+(a repeat is bit for bit; a hot row is one run of the sort, not a queue
+of atomics), and no scratch the size of the table.  It replaces no TPU
+kernel (the reference differentiates its plain path).
 Its plain version is :func:`embedding_bag_bwd_plain`.  A bfloat16 table
 refuses the backward (the reference trains in float32).  On CPU tensors
 :func:`embedding_bag` is :func:`embedding_bag_plain`, differentiated by
@@ -44,6 +48,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.block import check, check_dtypes
+from repro_torch.kernels.lane_groups import Groups
 
 COMBINES = ("mean", "sum")
 ROUTES = ("vector", "lane")
@@ -56,9 +61,11 @@ BODIES = ["lane_f32", "lane_bf16"] + [
 PIECE_BYTES = 16
 # the gradient's compiled bodies, in csrc/embedding_bag_bwd.cu
 # repro_bag_bwd_attrs' order
-BWD_BODIES = ["group_count", "scan_block_sums", "scan_top", "scan_down",
-              "group_fill", "group_order", "group_merge", "group_sum"]
-SCAN_BLOCK = 2048               # counts a block of the grouping's scan
+BWD_BODIES = ["radix_totals_ids", "radix_totals_pairs",
+              "radix_onesweep_ids", "radix_onesweep_pairs", "scan_top",
+              "runs_count", "runs_write", "group_sum_vec8",
+              "group_sum_vec32", "group_sum_scalar", "zero_unread_vec",
+              "zero_unread_scalar"]
 
 
 def embedding_bag_plain(table, ids, *, combine: str = "mean"):
@@ -143,10 +150,13 @@ def body_attributes() -> dict:
 def _bwd_lib() -> ctypes.CDLL:
     """The gradient's built library, its entry point typed once."""
     lib = _build.library("embedding_bag_bwd")
-    lib.repro_embedding_bag_bwd.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    lib.repro_embedding_bag_bwd.restype = ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.repro_bag_bwd_scratch.argtypes = [ll, ll]
+    lib.repro_bag_bwd_scratch.restype = ll
+    lib.repro_bag_groups.argtypes = [p] * 7 + [i, i, ll, p]
+    lib.repro_bag_groups.restype = i
+    lib.repro_embedding_bag_bwd.argtypes = [p] * 9 + [i, i, ll, i, i, p]
+    lib.repro_embedding_bag_bwd.restype = i
     return lib
 
 
@@ -223,12 +233,50 @@ class _Bag(torch.autograd.Function):
         return dtable, None, None, None
 
 
+def _check_ids(ids, num_rows: int) -> None:
+    if ids.shape[0] * ids.shape[1] >= 2 ** 31 or num_rows >= 2 ** 31:
+        raise ValueError("the backward takes fewer than 2^31 lookups and "
+                         "table rows")
+    if num_rows == 0 and ids.numel() > 0:
+        raise ValueError("an empty table has no rows to look up")
+
+
+def _scratch(ids, num_rows: int):
+    return torch.empty(_bwd_lib().repro_bag_bwd_scratch(ids.numel(),
+                                                        max(num_rows, 1)),
+                       dtype=torch.int32, device=ids.device)
+
+
+def bag_groups(ids, num_rows: int) -> Groups:
+    """The card's grouping of ids [B, bag] int32 (CUDA) over a table of
+    ``num_rows`` rows, the first half of :func:`embedding_bag_bwd`'s
+    launches (counted on ``embedding_bag_bwd``): the lookups sorted by
+    their clamped row, stably, and the runs.  Its integers are
+    ``lane_groups_plain(ids.clamp(0, num_rows - 1), num_rows)``'s lanes,
+    rows and starts."""
+    check(ids, "ids", torch.int32, (None, None), ids.device)
+    _check_ids(ids, num_rows)
+    if num_rows == 0:
+        raise ValueError("an empty table has no rows to group by")
+    B, bag = ids.shape
+    g = Groups(B * bag, None, ids.device)
+    scratch = _scratch(ids, num_rows)
+    err = _bwd_lib().repro_bag_groups(
+        _build.ptr(ids), _build.ptr(g.lanes), _build.ptr(g.rows),
+        _build.ptr(g.starts), _build.ptr(g.firsts), _build.ptr(g.meta),
+        _build.ptr(scratch), B, bag, num_rows, _build.stream_of(ids))
+    _build.check(err, "embedding_bag_bwd groups")
+    _build.count("embedding_bag_bwd")
+    return g
+
+
 def embedding_bag_bwd(ids, dout, num_rows: int, *, combine: str = "mean"):
     """The gradient of :func:`embedding_bag` with respect to the table
     [num_rows, E] for the output's gradient ``dout`` [B, E] float32:
     ``dtable`` [num_rows, E] float32, dense.  CPU tensors take
-    :func:`embedding_bag_bwd_plain`; CUDA tensors launch the grouping and
-    the grouped sum (one entry, counted once on ``embedding_bag_bwd``)."""
+    :func:`embedding_bag_bwd_plain`; CUDA tensors launch the grouping, the
+    sum over the distinct rows and the zeros (one entry, counted once on
+    ``embedding_bag_bwd``)."""
     if dout.device.type == "cpu":
         return embedding_bag_bwd_plain(ids, dout, num_rows, combine=combine)
     if combine not in COMBINES:
@@ -237,24 +285,16 @@ def embedding_bag_bwd(ids, dout, num_rows: int, *, combine: str = "mean"):
     check(dout, "dout", torch.float32, (None, None), dev)
     check(ids, "ids", torch.int32, (dout.shape[0], None), dev)
     (B, E), bag = dout.shape, ids.shape[1]
-    if B * bag >= 2 ** 31 or num_rows >= 2 ** 31:
-        raise ValueError("the backward takes fewer than 2^31 lookups and "
-                         "table rows")
-    if num_rows == 0 and B * bag > 0:
-        raise ValueError("an empty table has no rows to look up")
-    i32 = dict(dtype=torch.int32, device=dev)
+    _check_ids(ids, num_rows)
     dtable = torch.empty((num_rows, E), dtype=torch.float32, device=dev)
-    nb = -(-num_rows // SCAN_BLOCK)
-    cnt, cursor = torch.empty(num_rows, **i32), torch.empty(num_rows, **i32)
-    off, bsum = torch.empty(num_rows + 1, **i32), torch.empty(max(nb, 1),
-                                                              **i32)
-    lanes = torch.empty(4 * B * bag + 1, **i32)
-    keys = torch.empty(B * bag, **i32)
+    g = Groups(B * bag, None, dev)
+    scratch = _scratch(ids, num_rows)
     err = _bwd_lib().repro_embedding_bag_bwd(
         _build.ptr(dout), _build.ptr(ids), _build.ptr(dtable),
-        _build.ptr(cnt), _build.ptr(cursor), _build.ptr(off),
-        _build.ptr(bsum), _build.ptr(lanes), _build.ptr(keys), B, bag,
-        num_rows, E, int(combine == "mean"), _build.stream_of(dout))
+        _build.ptr(g.lanes), _build.ptr(g.rows), _build.ptr(g.starts),
+        _build.ptr(g.firsts), _build.ptr(g.meta), _build.ptr(scratch), B,
+        bag, num_rows, E,
+        int(combine == "mean"), _build.stream_of(dout))
     _build.check(err, "embedding_bag_bwd")
     _build.count("embedding_bag_bwd")
     return dtable

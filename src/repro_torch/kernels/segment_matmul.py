@@ -46,15 +46,23 @@ and saves neighbors, feat and w; its backward, :func:`packed_spmm_bwd`,
 computes ``dfeat[j] = sum over valid lanes (i, t) reading row j, in
 (i, t) order, of (dout[i] @ w^T) / c_i`` (c_i = 1 for "sum", max(count_i,
 1) for "mean") and ``dw = agg^T @ dout``, with no gradient for
-neighbors, in float32: the projection's 3xTF32 tile for ``dout @ w^T``,
-then ``csrc/segment_matmul_bwd.cu`` (the lanes grouped by row with a
-counting sort built on the card, a warp a row summing its group; the
-gather for agg; dW as a tile a split of the rows and an ordered sum of
-the splits).  No float atomics: a repeat is bit for bit.  It replaces no
+neighbors, in float32, over the active rows only (those with a valid
+lane; at minibatch_lg 16,384 of 169,984).  It rests on a
+:class:`SpmmPlan`, the grouping of one neighbour matrix
+(``kernels/lane_groups.py``), built on the card at first need by
+``csrc/segment_matmul_bwd.cu`` (the valid lanes compacted, each row's
+count and the active rows, then a stable LSD radix sort of the lanes by
+the row they read, and the runs of distinct rows): GraphSAGE's forward
+makes one a batch and both layers' backward share it.  Then, a call: the
+projection's 3xTF32 tile for ``dout[active] @ w^T``, each distinct feat
+row's terms summed in lane order (a group of lanes takes the rows that
+start in a block of sorted lanes) and a store-only pass of zeros over the
+rows no lane reads, the forward's gather for the active rows' agg, and dW
+as a tile a split of the active rows and an ordered sum of the splits.  No float atomics: a repeat is bit for bit.  It replaces no
 TPU kernel (the reference differentiates its plain path).  Its plain
 version is :func:`packed_spmm_bwd_plain`.  On CPU tensors
 :func:`packed_spmm` is :func:`packed_spmm_plain`, differentiated by
-autograd.
+autograd, and a plan is ignored.
 """
 from __future__ import annotations
 
@@ -65,6 +73,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.block import FLOAT_DTYPES, check, check_dtypes
+from repro_torch.kernels.lane_groups import (META_ACTIVE, Groups,
+                                             lane_groups_plain)
 
 COMBINES = ("mean", "sum")
 ROUTES = ("fused", "transform")
@@ -76,12 +86,14 @@ MAX_DEGREE = 512
 PROJECT_BODIES = ["project_a16_w16", "project_a8_w16", "project_a4_w4",
                   "project_a2_w16", "project_a2_w4"]
 BODIES = ["fused", "fused_bf16", *PROJECT_BODIES, "gather_vec",
-          "gather_scalar"]
+          "gather_scalar", "copy_rows_vec", "copy_rows_scalar"]
 # the gradient's compiled bodies, in csrc/segment_matmul_bwd.cu
 # repro_spmm_bwd_attrs' order
-BWD_BODIES = ["row_count", "group_count", "scan_block_sums", "scan_top",
-              "scan_down", "group_fill", "group_order", "group_merge",
-              "group_sum", "dw_partial", "dw_reduce"]
+BWD_BODIES = ["compact_count", "compact_write", "radix_totals",
+              "radix_onesweep", "scan_top", "runs_count", "runs_write",
+              "group_sum_vec8", "group_sum_vec32", "group_sum_scalar",
+              "zero_unread_vec", "zero_unread_scalar", "dw_partial",
+              "dw_reduce"]
 DW_MAX_SPLITS = 128              # splits of the rows for dW
 DW_SPLIT_ROWS = 1024             # rows a split at least
 DW_PART_FLOATS = 1 << 24         # the splits' partial sums at most
@@ -89,7 +101,6 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 FP32_OPS_PER_S = 67e12          # fp32 FFMA, outside the tensor cores
 MMA_TF32_OPS_PER_S = 313e12     # mma.sync's TF32 ceiling (PERF.md)
 TILE_COLS = 128                 # output columns a CTA of every kernel
-SCAN_BLOCK = 2048               # counts a block of the grouping's scan
 
 
 def route_costs(N: int, M: int, Nf: int, d: int, f: int, *,
@@ -210,8 +221,13 @@ def _lib():
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.repro_spmm_gather.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.repro_spmm_project_rows.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.repro_spmm_gather_rows.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     for fn in (lib.repro_spmm_fused, lib.repro_spmm_project,
-               lib.repro_spmm_gather):
+               lib.repro_spmm_gather, lib.repro_spmm_project_rows,
+               lib.repro_spmm_gather_rows):
         fn.restype = ctypes.c_int
     return lib
 
@@ -228,9 +244,13 @@ def _bwd_lib():
     """The gradient's built library, its entry points typed once."""
     lib = _build.library("segment_matmul_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_spmm_bwd_dfeat.argtypes = [p] * 10 + [i] * 5 + [p]
-    lib.repro_spmm_bwd_dw.argtypes = [p] * 6 + [i] * 6 + [p]
-    for fn in (lib.repro_spmm_bwd_dfeat, lib.repro_spmm_bwd_dw):
+    lib.repro_spmm_plan_scratch.argtypes = [i] * 3
+    lib.repro_spmm_plan_scratch.restype = ctypes.c_longlong
+    lib.repro_spmm_plan.argtypes = [p] * 10 + [i] * 3 + [p]
+    lib.repro_spmm_bwd_dfeat.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.repro_spmm_bwd_dw.argtypes = [p] * 6 + [i] * 3 + [p]
+    for fn in (lib.repro_spmm_plan, lib.repro_spmm_bwd_dfeat,
+               lib.repro_spmm_bwd_dw):
         fn.restype = i
     return lib
 
@@ -304,22 +324,24 @@ def gather_rows(neighbors, y, *, combine: str = "sum",
 
 
 def packed_spmm(neighbors, feat, w, *, combine: str = "sum",
-                via: str | None = None):
+                via: str | None = None, plan: "SpmmPlan | None" = None):
     """neighbors [N, M] int32 x feat [Nf, d] x w [d, f], feat and w each
     float32 or bfloat16 -> [N, f] in feat's dtype.  CPU tensors take
     :func:`packed_spmm_plain`; CUDA tensors launch the route :func:`path`
     picks ("fused": one launch, "transform": two, each counted on
     ``packed_spmm``), and where grad mode is on and feat or w needs a
     gradient, through an autograd ``Function`` whose backward is
-    :func:`packed_spmm_bwd`.  ``via`` forces a route, to hold it to shapes
-    it would not take."""
+    :func:`packed_spmm_bwd` on ``plan`` (a :class:`SpmmPlan` of
+    neighbors over Nf rows, shared by every call on them; without one the
+    backward builds its own).  ``via`` forces a route, to hold it to
+    shapes it would not take."""
     if via not in (None, *ROUTES):
         raise ValueError(f"via: 'fused' or 'transform', got {via!r}")
     check_dtypes(feat=feat, w=w)
     if feat.device.type == "cpu":
         return packed_spmm_plain(neighbors, feat, w, combine=combine)
     if torch.is_grad_enabled() and (feat.requires_grad or w.requires_grad):
-        return _SpMM.apply(neighbors, feat, w, combine, via)
+        return _SpMM.apply(neighbors, feat, w, combine, via, plan)
     return _forward(neighbors, feat, w, combine, via)
 
 
@@ -355,13 +377,13 @@ def _forward(neighbors, feat, w, combine: str, via):
 
 
 class _SpMM(torch.autograd.Function):
-    """The kernel's forward, saving neighbors, feat and w; its backward
-    launches :func:`packed_spmm_bwd`."""
+    """The kernel's forward, saving neighbors, feat, w and the plan; its
+    backward launches :func:`packed_spmm_bwd` on that plan."""
 
     @staticmethod
-    def forward(ctx, neighbors, feat, w, combine, via):
+    def forward(ctx, neighbors, feat, w, combine, via, plan):
         ctx.save_for_backward(neighbors, feat, w)
-        ctx.combine = combine
+        ctx.combine, ctx.plan = combine, plan
         return _forward(neighbors, feat, w, combine, via)
 
     @staticmethod
@@ -370,20 +392,92 @@ class _SpMM(torch.autograd.Function):
         dfeat, dw = packed_spmm_bwd(
             neighbors, feat, w, dout.contiguous(), combine=ctx.combine,
             need_feat=ctx.needs_input_grad[1],
-            need_w=ctx.needs_input_grad[2])
-        return None, dfeat, dw, None, None
+            need_w=ctx.needs_input_grad[2], plan=ctx.plan)
+        return None, dfeat, dw, None, None, None
+
+
+class SpmmPlan:
+    """The grouping of one neighbour matrix ``neighbors`` [N, M] int32
+    over a feat of ``num_rows`` rows (``kernels/lane_groups.py``), for
+    every :func:`packed_spmm_bwd` on it: each row's valid lanes, the
+    active rows, the valid lanes sorted by the row they read and the runs
+    of distinct rows.  Made for a batch and dropped with it (no cache);
+    :meth:`build` launches it on the card at first need (one entry,
+    counted on ``packed_spmm_bwd``).  On CPU tensors nothing is built: the
+    plain path needs no plan."""
+
+    def __init__(self, neighbors, num_rows: int):
+        self.neighbors, self.num_rows = neighbors, int(num_rows)
+        self.groups: Groups | None = None
+
+    def targets(self):
+        """The row each lane reads, -1 for none: the plain version's
+        input."""
+        nbrs = self.neighbors
+        return torch.where(nbrs < self.num_rows, nbrs.long().clamp(min=0),
+                           -1)
+
+    def matches(self, neighbors, num_rows: int) -> bool:
+        """Whether this plan was made for ``neighbors`` (the same tensor's
+        memory and shape) over ``num_rows`` rows."""
+        n = self.neighbors
+        return (num_rows == self.num_rows and n.device == neighbors.device
+                and n.shape == neighbors.shape
+                and n.data_ptr() == neighbors.data_ptr())
+
+    def build(self) -> "SpmmPlan":
+        """Launch the grouping on the card unless it is built (nothing on
+        CPU tensors); returns the plan."""
+        nbrs = self.neighbors
+        if self.groups is not None or nbrs.device.type == "cpu":
+            return self
+        check(nbrs, "neighbors", torch.int32, (None, None), nbrs.device)
+        (N, M), Nf = nbrs.shape, self.num_rows
+        if N * M >= 2 ** 31:
+            raise ValueError(f"N * M = {N * M} lanes exceed the kernel's "
+                             "2^31")
+        if Nf == 0 and N * M > 0:
+            raise ValueError("feat has no rows to gather")
+        if Nf >= 2 ** 31:
+            raise ValueError(f"num_rows = {Nf} exceeds the kernel's 2^31")
+        lib = _bwd_lib()
+        g = Groups(N * M, N, nbrs.device)
+        scratch = torch.empty(lib.repro_spmm_plan_scratch(N, M, Nf),
+                              dtype=torch.int32, device=nbrs.device)
+        err = lib.repro_spmm_plan(
+            _build.ptr(nbrs), _build.ptr(g.counts), _build.ptr(g.active),
+            _build.ptr(g.rank), _build.ptr(g.lanes), _build.ptr(g.rows),
+            _build.ptr(g.starts), _build.ptr(g.firsts), _build.ptr(g.meta),
+            _build.ptr(scratch), N, M, Nf, _build.stream_of(nbrs))
+        _build.check(err, "packed_spmm_bwd plan")
+        _build.count("packed_spmm_bwd")
+        self.groups = g
+        return self
+
+    def integers(self) -> dict:
+        """The grouping's integers (:func:`lane_groups_plain`'s): on the
+        card the built plan's, read back (a sync); on the CPU the plain
+        version's."""
+        if self.neighbors.device.type == "cpu":
+            return lane_groups_plain(self.targets(), self.num_rows)
+        return self.build().groups.integers()
 
 
 def packed_spmm_bwd(neighbors, feat, w, dout, *, combine: str = "sum",
-                    need_feat: bool = True, need_w: bool = True):
+                    need_feat: bool = True, need_w: bool = True,
+                    plan: SpmmPlan | None = None):
     """The gradient of :func:`packed_spmm` with respect to feat and w for
     the output's gradient ``dout`` [N, f]: ``(dfeat [Nf, d], dw [d, f])``
     float32, each None where not asked for.  CPU tensors take
-    :func:`packed_spmm_bwd_plain`; CUDA tensors launch, for dfeat, the
-    projection ``dout @ w^T`` and the grouped sum, for dw, the gather of
-    agg and the split tile with its ordered sum: each launch counted on
-    ``packed_spmm_bwd`` (4 with both).  The card takes float32 operands
-    only (the reference trains in float32): bfloat16 raises."""
+    :func:`packed_spmm_bwd_plain` (``plan`` ignored); CUDA tensors build
+    ``plan`` (a :class:`SpmmPlan` of neighbors over Nf rows; a new one
+    where none is given) unless it is built, then launch, for dfeat, the
+    projection ``dout[active] @ w^T`` and the sum over the plan's distinct
+    rows with the zeros, for dw, the gather of the active rows' agg and the
+    split tile with its ordered sum: each entry counted on
+    ``packed_spmm_bwd`` (4 with both, and 1 for a plan built here).  The
+    card takes float32 operands only (the reference trains in float32):
+    bfloat16 raises."""
     check_dtypes(feat=feat, w=w)
     if feat.device.type == "cpu":
         dfeat, dw = packed_spmm_bwd_plain(neighbors, feat, w, dout,
@@ -401,48 +495,56 @@ def packed_spmm_bwd(neighbors, feat, w, dout, *, combine: str = "sum",
     check(w, "w", torch.float32, (d, None), dev)
     (N, M), f = neighbors.shape, w.shape[1]
     check(dout, "dout", torch.float32, (N, f), dev)
-    if N * M >= 2 ** 31:
-        raise ValueError(f"N * M = {N * M} lanes exceed the kernel's 2^31")
+    if plan is None:
+        plan = SpmmPlan(neighbors, Nf)
+    elif not plan.matches(neighbors, Nf):
+        raise ValueError("the plan was made for another neighbour matrix "
+                         "or feat")
+    gr = plan.build().groups
     stream = _build.stream_of(feat)
     mean = int(combine == "mean")
-    i32 = dict(dtype=torch.int32, device=dev)
-    rowcnt = torch.empty(N, **i32)
-    dfeat = dw = None
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_active = _build.ptr(gr.meta[META_ACTIVE:])
+    dfeat = dw = dout_a = None
     if need_feat:
-        g = torch.empty((N, d), dtype=torch.float32, device=dev)
+        # G's rows of the active rows, in their order (the rows past their
+        # count, a bound on the host, stay unwritten)
+        g = torch.empty((N, d), **f32)
+        dout_a = torch.empty((N, f), **f32)
         wt = w.T.contiguous()
-        err = _lib().repro_spmm_project(_build.ptr(dout), _build.ptr(wt),
-                                        _build.ptr(g), N, f, d, 0, 0, stream)
+        err = _lib().repro_spmm_project_rows(
+            _build.ptr(dout), _build.ptr(wt), _build.ptr(g),
+            _build.ptr(dout_a), _build.ptr(gr.active), n_active, N, f, d,
+            stream)
         _build.check(err, "packed_spmm_bwd project")
         _build.count("packed_spmm_bwd")
-        dfeat = torch.empty((Nf, d), dtype=torch.float32, device=dev)
-        nb = -(-Nf // SCAN_BLOCK)
-        cnt, cursor = torch.empty(Nf, **i32), torch.empty(Nf, **i32)
-        off, bsum = torch.empty(Nf + 1, **i32), torch.empty(max(nb, 1), **i32)
-        lanes = torch.empty(4 * N * M + 1, **i32)
-        keys = torch.empty(N * M, **i32)
+        dfeat = torch.empty((Nf, d), **f32)
         err = _bwd_lib().repro_spmm_bwd_dfeat(
-            _build.ptr(neighbors), _build.ptr(g), _build.ptr(dfeat),
-            _build.ptr(rowcnt), _build.ptr(cnt), _build.ptr(cursor),
-            _build.ptr(off), _build.ptr(bsum), _build.ptr(lanes),
-            _build.ptr(keys), N, M, Nf, d, mean, stream)
+            _build.ptr(g), _build.ptr(gr.lanes), _build.ptr(gr.rows),
+            _build.ptr(gr.starts), _build.ptr(gr.firsts),
+            _build.ptr(gr.counts),
+            _build.ptr(gr.rank), _build.ptr(gr.meta), _build.ptr(dfeat), N,
+            M, Nf, d, mean, stream)
         _build.check(err, "packed_spmm_bwd dfeat")
         _build.count("packed_spmm_bwd")
         del g, wt
     if need_w:
-        agg = torch.empty((N, d), dtype=torch.float32, device=dev)
-        err = _lib().repro_spmm_gather(_build.ptr(neighbors), _build.ptr(feat),
-                                       _build.ptr(agg), N, M, Nf, d, mean, 0,
-                                       stream)
+        agg = torch.empty((N, d), **f32)
+        err = _lib().repro_spmm_gather_rows(
+            _build.ptr(neighbors), _build.ptr(feat), _build.ptr(agg),
+            _build.ptr(gr.active), n_active, N, M, Nf, d, mean, stream)
         _build.check(err, "packed_spmm_bwd agg")
         _build.count("packed_spmm_bwd")
         S = dw_splits(N, d, f)
-        part = torch.empty((S, d, f), dtype=torch.float32, device=dev)
-        dw = torch.empty((d, f), dtype=torch.float32, device=dev)
+        part = torch.empty((S, d, f), **f32)
+        dw = torch.empty((d, f), **f32)
+        # dout's active rows: the projection's copy of them, else through
+        # the list
         err = _bwd_lib().repro_spmm_bwd_dw(
-            _build.ptr(neighbors), _build.ptr(agg), _build.ptr(dout),
-            _build.ptr(dw), _build.ptr(rowcnt), _build.ptr(part), N, M, Nf,
-            d, f, S, stream)
+            _build.ptr(agg), _build.ptr(dout if dout_a is None else dout_a),
+            _build.ptr(gr.active if dout_a is None else None),
+            _build.ptr(gr.meta), _build.ptr(dw), _build.ptr(part), d, f, S,
+            stream)
         _build.check(err, "packed_spmm_bwd dw")
         _build.count("packed_spmm_bwd")
     return dfeat, dw

@@ -25,7 +25,10 @@ version, the same function (a float32 sum in lane order, a division by
 max(count, 1), then the product).  Training takes its gradient through
 the same call: on the card the kernel's autograd ``Function``, whose
 backward is the hand-written ``packed_spmm_bwd``; elsewhere autograd of
-the plain version.  Nothing falls back: ``"cuda"`` on a CPU tensor
+the plain version.  On the card ``forward`` makes one
+``segment_matmul.SpmmPlan`` of the batch's neighbour matrix and hands it
+to every layer, so the layers' backward share one grouping of its lanes
+(built at the first backward that needs it).  Nothing falls back: ``"cuda"`` on a CPU tensor
 raises.  A row whose lanes are all the sentinel gives 0, the
 reference's ``s / max(cnt, 1)``.  Every other case takes the edge list:
 GIN, GatedGCN, the ``"max"`` aggregator and batches without
@@ -163,12 +166,14 @@ def aggregate(messages, dst, n_nodes: int, *, kind: str, edge_mask=None):
 
 
 def neighbor_product(neighbors, h, w, *, combine: str,
-                     kernel_backend: str = "auto"):
+                     kernel_backend: str = "auto", plan=None):
     """``aggregate`` of ``h``'s rows over each row of ``neighbors`` [N, M]
     (sentinel ids >= h.shape[0] skipped), then ``@ w``: the hand-written
-    ``packed_spmm`` kernel on the card, its plain version elsewhere."""
+    ``packed_spmm`` kernel on the card (its backward on ``plan``, a
+    ``SpmmPlan`` of neighbors over h's rows, where given), its plain
+    version elsewhere."""
     if use_kernel(kernel_backend, h.device):
-        return _sm.packed_spmm(neighbors, h, w, combine=combine)
+        return _sm.packed_spmm(neighbors, h, w, combine=combine, plan=plan)
     return _sm.packed_spmm_plain(neighbors, h, w, combine=combine)
 
 
@@ -208,6 +213,9 @@ def forward(params, cfg: GNNConfig, batch, *, kernel_backend: str = "auto"):
     h = batch["node_feat"] @ p["encoder"]["w"] + p["encoder"]["b"]
     lp = p["layers"]
     nbrs = batch["neighbors"] if kernel_route(cfg, batch) else None
+    # one grouping of the neighbour matrix for every layer's backward
+    plan = (_sm.SpmmPlan(nbrs, N) if nbrs is not None
+            and use_kernel(kernel_backend, h.device) else None)
 
     if cfg.kind == "gatedgcn":
         e = p["edge_init"].expand(src.shape[0], cfg.d_hidden)
@@ -234,7 +242,8 @@ def forward(params, cfg: GNNConfig, batch, *, kernel_backend: str = "auto"):
             if nbrs is not None:
                 nb = neighbor_product(nbrs, h, li["w_nbr"],
                                       combine=cfg.aggregator,
-                                      kernel_backend=kernel_backend)
+                                      kernel_backend=kernel_backend,
+                                      plan=plan)
             else:
                 nb = aggregate(h[src], dst, N, kind=cfg.aggregator,
                                edge_mask=emask) @ li["w_nbr"]

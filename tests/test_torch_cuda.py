@@ -1803,9 +1803,9 @@ def _spmm_bwd_tols(nbrs, feat, w, dout, combine):
 
 
 def _assert_spmm_bwd(dev, rng, nbrs, feat, w, combine, offset=0):
-    """The backward within the tolerances of its plain version, launched 4
-    times (projection, grouped sum, agg, dW), rows no lane reads exactly
-    0, and a repeat bit for bit."""
+    """The backward within the tolerances of its plain version, 5 entries
+    counted a call (its own plan, projection, grouped sum, agg, dW), rows
+    no lane reads exactly 0, and a repeat bit for bit."""
     N, f = nbrs.shape[0], w.shape[1]
     d_np = rng.normal(size=(N, f)).astype(np.float32)
     dout = torch.from_numpy(np.concatenate(
@@ -1819,7 +1819,7 @@ def _assert_spmm_bwd(dev, rng, nbrs, feat, w, combine, offset=0):
     want = segment_matmul.packed_spmm_bwd_plain(nbrs, feat, w, dout,
                                                 combine=combine)
     torch.cuda.synchronize()
-    assert K.launch_counts()["packed_spmm_bwd"] - n0 == 8
+    assert K.launch_counts()["packed_spmm_bwd"] - n0 == 10
     for g, a, p, tol in zip(got, again, want,
                             _spmm_bwd_tols(nbrs, feat, w, dout, combine)):
         assert g.dtype == torch.float32 and g.shape == p.shape
@@ -1853,8 +1853,8 @@ def test_packed_spmm_bwd_matches_plain(dev, N, M, Nf, d, f, combine):
 @pytest.mark.parametrize("case", ["empty", "hot", "offset"])
 def test_packed_spmm_bwd_edges(dev, combine, case):
     """Every row empty (dfeat all zeros, dW zeros); one feat row read by
-    every lane of 4,000 rows (a group of 60,000 lanes: the grouping's
-    merges); operands one element off their allocation."""
+    every lane of 4,000 rows (a run of 60,000 equal keys in the sort);
+    operands one element off their allocation."""
     rng = np.random.default_rng(11)
     if case == "offset":
         nbrs, feat, w = _spmm_case(dev, rng, 300, 15, 400, 70, 33, offset=1)
@@ -1868,9 +1868,10 @@ def test_packed_spmm_bwd_edges(dev, combine, case):
 
 def test_packed_spmm_autograd_on_the_card(dev, rng, monkeypatch):
     """Through autograd on CUDA tensors: one fused launch forward, the
-    backward's 4, the gradients equal to packed_spmm_bwd's bit for bit
-    with the plain version patched to raise; under no_grad nothing is
-    recorded."""
+    backward's 4 and its own plan's 1 (with a plan given and built, 4),
+    the gradients equal to packed_spmm_bwd's bit for bit with the plain
+    version patched to raise; a plan of another matrix raises; under
+    no_grad nothing is recorded."""
     nbrs, feat, w = _spmm_case(dev, rng, 200, 10, 300, 128, 128)
     dout = torch.randn((200, 128), device=dev)
     monkeypatch.setattr(segment_matmul, "packed_spmm_bwd_plain",
@@ -1882,10 +1883,21 @@ def test_packed_spmm_autograd_on_the_card(dev, rng, monkeypatch):
     got = torch.autograd.grad(out, leaves, dout)
     n1 = K.launch_counts()
     assert n1["packed_spmm"] - n0["packed_spmm"] == 1
-    assert n1["packed_spmm_bwd"] - n0["packed_spmm_bwd"] == 4
+    assert n1["packed_spmm_bwd"] - n0["packed_spmm_bwd"] == 5
     want = segment_matmul.packed_spmm_bwd(nbrs, feat, w, dout,
                                           combine="mean")
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plan = segment_matmul.SpmmPlan(nbrs, 300).build()
+    n0 = K.launch_counts()
+    out = segment_matmul.packed_spmm(nbrs, *leaves, combine="mean",
+                                     plan=plan)
+    again = torch.autograd.grad(out, leaves, dout)
+    n1 = K.launch_counts()
+    assert n1["packed_spmm_bwd"] - n0["packed_spmm_bwd"] == 4
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+    with pytest.raises(ValueError, match="another"):
+        segment_matmul.packed_spmm_bwd(nbrs.clone(), feat, w, dout,
+                                       plan=plan)
     with torch.no_grad():
         assert segment_matmul.packed_spmm(nbrs, *leaves).grad_fn is None
     with pytest.raises(ValueError, match="float32"):
@@ -1898,6 +1910,91 @@ def test_spmm_bwd_bodies_fit_without_spills(dev):
     for name, (regs, local) in attrs.items():
         assert local == 0, (name, local)
         assert regs <= 255, (name, regs)
+
+
+def _targets_on(dev, case):
+    """A case of the CPU grouping tests: (targets [N, M] int64 on the CPU,
+    -1 for none, rows R)."""
+    from test_torch_lane_groups import _targets
+
+    t, R = _targets(case)
+    return torch.from_numpy(t), R
+
+
+LANE_CASES = ["uniform", "zipf", "hot", "past_2^16", "all_invalid",
+              "no_lanes", "no_rows", "rows_far_above_lanes", "one_row",
+              "31_bits", "negative_ids"]
+
+
+@pytest.mark.parametrize("case", LANE_CASES)
+def test_spmm_plan_matches_plain(dev, case):
+    """The plan built on the card (compaction, radix sort, runs) holds the
+    integers of ``lane_groups_plain`` exactly: uniform and Zipf-skewed
+    rows, one hot row in every row of lanes, one row read by 70,714
+    lanes, every lane a sentinel, M = 0 and N = 0, Nf = 10^7 over 1,500
+    lanes, Nf = 1, Nf = 2^31 - 1 (4 passes), negative ids (row 0); its
+    rank inverts active; one entry counted."""
+    from repro_torch.kernels.lane_groups import lane_groups_plain
+
+    t, R = _targets_on(dev, "uniform" if case == "negative_ids" else case)
+    nbrs = torch.where(t >= 0, t, R).to(torch.int32)
+    if case == "negative_ids":
+        nbrs = torch.where(t % 3 == 0, -1 - t % 5, nbrs).to(torch.int32)
+    plan = segment_matmul.SpmmPlan(nbrs.to(dev), R)
+    n0 = K.launch_counts()["packed_spmm_bwd"]
+    got = plan.integers()
+    assert K.launch_counts()["packed_spmm_bwd"] - n0 == 1
+    want = lane_groups_plain(segment_matmul.SpmmPlan(nbrs, R).targets(), R)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+    g = plan.groups
+    active = got["active"]
+    rank = g.rank[:nbrs.shape[0]].long()
+    assert torch.equal(rank[active], torch.arange(len(active), device=dev))
+    assert int((rank >= 0).sum()) == len(active)
+    assert plan.build() is plan and plan.groups is g
+    assert K.launch_counts()["packed_spmm_bwd"] - n0 == 1
+
+
+@pytest.mark.parametrize("case", ["uniform", "zipf", "hot", "past_2^16",
+                                  "one_row", "rows_far_above_lanes",
+                                  "31_bits"])
+def test_bag_groups_match_plain(dev, case):
+    """The bag's grouping, sorted straight from the ids (clamped: -1 reads
+    row 0), holds ``lane_groups_plain``'s lanes, rows and starts exactly,
+    V from 1 to 2^31 - 1."""
+    from repro_torch.kernels.lane_groups import lane_groups_plain
+
+    t, V = _targets_on(dev, case)
+    ids = t.to(torch.int32)
+    got = embedding_bag.bag_groups(ids.to(dev), V).integers()
+    want = lane_groups_plain(ids.long().clamp(0, V - 1), V)
+    assert sorted(got) == ["lanes", "rows", "starts"]
+    for k in got:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("B,bag,V,E", [(1, 1, 1, 8), (300, 10, 64, 32),
+                                       (5000, 40, 100_000, 70),
+                                       (70_000, 10, 1000, 32),
+                                       (2000, 10, 10 ** 7, 4)])
+def test_embedding_bag_bwd_sum_equals_cpu_plain(dev, B, bag, V, E):
+    """With ``combine="sum"`` every term is dout[b] as it is, so the
+    kernel's sums from zero in (b, t) order equal the CPU's float32
+    ``embedding_bag_bwd_plain`` (``index_add_``, sequential in that
+    order) bit for bit: ids repeated, clamped, and hot."""
+    rng = np.random.default_rng([B, bag, E])
+    ids = rng.integers(-2, min(V, 5000) + 3, size=(B, bag)).astype(np.int32)
+    ids[::2, 0] = min(7, V - 1)
+    dout = rng.normal(size=(B, E)).astype(np.float32)
+    ids_c, dout_c = torch.from_numpy(ids), torch.from_numpy(dout)
+    got = embedding_bag.embedding_bag_bwd(ids_c.to(dev), dout_c.to(dev), V,
+                                          combine="sum")
+    want = embedding_bag.embedding_bag_bwd_plain(ids_c, dout_c, V,
+                                                 combine="sum")
+    assert want.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
 
 
 def _assert_bag_bwd(dev, ids, dout, V, combine):
@@ -1939,8 +2036,8 @@ def test_embedding_bag_bwd_matches_plain(dev, E, bag, B, V, combine):
 
 @pytest.mark.parametrize("case", ["hot", "offset"])
 def test_embedding_bag_bwd_edges(dev, case):
-    """One id in every lookup of 70,000 bags of 10 (a group of 700,000: the
-    grouping's merges); dout one element off its allocation."""
+    """One id in every lookup of 70,000 bags of 10 (a run of 676,666
+    equal keys in the sort); dout one element off its allocation."""
     rng = np.random.default_rng(13)
     if case == "hot":
         ids = torch.full((70_000, 10), 7, dtype=torch.int32, device=dev)
